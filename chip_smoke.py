@@ -1,0 +1,550 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with a CUDA device and nvcc.
+Phases (any failure exits non-zero; no phase is caught):
+
+  1. the card's name and power limit (nvidia-smi); build of every kernel
+     in src/repro_torch/csrc/ with nvcc for sm_90a (seconds, ptxas report);
+  2. each kernel against its plain PyTorch version on the card: edge cases
+     (last-writer-wins, all-padding, sentinel rows, a hub run, cnt <= 0)
+     and the main path's shapes, and the "kernel" delivery backend against
+     the "scatter" one;
+  3. parity gate: the port's serve CLI at --edges 1500, dims (16,64,64),
+     must print the JAX package's pinned counts (tick 3032/2491, super
+     3049/2507) with equal materialized counts;
+  4. full width: GraphSAGE (602, 64, 64), the paper model's published
+     widths, streams ~400K power-law edges through the super-tick driver
+     on the "kernel" backend; both kernels must have launched during the
+     run; the sink is checked against the float64 static oracle and
+     against the same stream through the "scatter" backend;
+  5. each kernel timed at main-path shapes beside its plain version, the
+     library call computing the same function and its memory bound; one
+     JSON `kernels` line;
+  6. device time by operator over one steady-state full-width super-tick
+     (torch.profiler), beside its wall and host staging time.
+
+The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+without the repository around it, the script exits non-zero and prints no
+result.
+"""
+import copy
+import json
+import subprocess
+import sys
+import time
+import warnings
+from collections import Counter
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+
+# H100 SXM published peaks (NVIDIA data sheet), used for the bound
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+# full-width configuration: the paper model's widths (configs/d3gnn_sage.py
+# D_IN, D_HID) with depth (parts, caps) cut from the 1024-part sizing
+FULL = dict(n_nodes=40_000, n_edges=400_000, tick_edges=4096,
+            super_ticks=8, dims=(602, 64, 64),
+            caps=dict(n_parts=64, node_cap=4096, edge_cap=16384,
+                      repl_cap=8192, feat_cap=8192, edge_tick_cap=4096))
+
+# kernel A vs its plain version: per row, |diff| <= KA_TOL * (1 + sum|x|)
+# over the run (f32 sums in another order); count and touch columns exact.
+# kernel B vs plain: |diff| <= KB_TOL * (1 + |ref|) (same IEEE division).
+# sink vs oracle and vs the scatter backend: |diff| <= SINK_TOL *
+# max(1, |ref|) (streamed f32 sums of telescoping deltas vs a static sum).
+KA_TOL, KB_TOL, SINK_TOL = 1e-5, 1e-6, 1e-4
+
+
+def fail(msg):
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+def sync(t):
+    import torch
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+# ------------------------------------------------------------- phase 1
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    return out
+
+
+def build_kernels():
+    from repro_torch.kernels import cuda_lib
+    t0 = time.perf_counter()
+    paths = cuda_lib.build_all()
+    secs = time.perf_counter() - t0
+    print(f"[build] {len(paths)} kernel source(s) in {secs:.2f}s: "
+          + ", ".join(p.name for p in paths.values()))
+    for p in paths.values():
+        log = p.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {line.strip()}")
+    return secs
+
+
+# ------------------------------------------------------------- phase 2
+def kernel_a_check(ops, ref, payload, seg, row_ptr):
+    """Kernel A vs its plain version on one layout; returns max abs err."""
+    import torch
+    got = ops.segment_sum_rows(payload, seg, row_ptr)
+    want = ref.segment_sum_rows_ref(payload, seg, row_ptr)
+    absum = ref.segment_sum_rows_ref(payload.abs(), seg, row_ptr)
+    sync(got)
+    d = payload.shape[1] - 2
+    err = (got[:, :d] - want[:, :d]).abs()
+    check(bool((err <= KA_TOL * (1 + absum[:, :d])).all()),
+          f"segment_sum_rows disagrees: max err {float(err.max())}")
+    check(torch.equal(got[:, d:], want[:, d:]),
+          "segment_sum_rows count/touch columns differ")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def kernel_b_check(ops, ref, agg, cnt, rows):
+    import torch
+    got = ops.mean_rows_gather(agg, cnt, rows)
+    want = ref.mean_rows_gather_ref(agg, cnt, rows)
+    sync(got)
+    err = (got - want).abs()
+    check(bool((err <= KB_TOL * (1 + want.abs())).all()),
+          f"mean_rows_gather disagrees: max err {float(err.max())}")
+    zero_rows = cnt[rows] <= 0
+    check(bool((got[zero_rows] == 0).all()), "cnt <= 0 rows must read 0")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def powerlaw_rows(gen, n_rows, size, alpha=1.5):
+    """Destination rows with a power-law skew (row 0 is a hub)."""
+    import torch
+    w = torch.arange(1, n_rows + 1, dtype=torch.float64,
+                     device=gen.device) ** (-alpha)
+    return torch.multinomial(w, size, replacement=True, generator=gen)
+
+
+def phase_kernels_vs_plain(device, full=FULL):
+    """Edge cases + main-path shapes; returns max abs errors per kernel."""
+    import torch
+    from repro_torch.core.delivery import KernelDelivery, ScatterDelivery
+    from repro_torch.kernels.segment_reduce import ops, ref
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    errs = {"segment_sum_rows": 0.0, "mean_rows_gather": 0.0}
+    kd, sd = KernelDelivery(), ScatterDelivery()
+
+    def on(t):
+        return t.to(device)
+
+    def deliver_case(idx, vec, cnt, n_rows):
+        idx, vec, cnt = on(idx), on(vec), on(cnt)
+        for mode in ("add", "set"):
+            e = kernel_a_check(ops, ref, *ops.deliver_layout(
+                idx, vec, cnt, n_rows, mode))
+            errs["segment_sum_rows"] = max(errs["segment_sum_rows"], e)
+        dst = torch.randn(n_rows, vec.shape[1], generator=gen,
+                          device=device)
+        got, gt = kd.deliver_set(dst, idx, vec)
+        want, wt = sd.deliver_set(dst, idx, vec)
+        check(torch.equal(got, want) and torch.equal(gt, wt),
+              "kernel deliver_set differs from scatter (last writer wins)")
+        cnt0 = torch.zeros(n_rows, device=device)
+        ga, gc, gd = kd.deliver_add(dst, cnt0, idx, vec, cnt)
+        wa, wc, wd = sd.deliver_add(dst, cnt0, idx, vec, cnt)
+        check(torch.equal(gc, wc) and torch.equal(gd, wd),
+              "kernel deliver_add counts/dirty differ from scatter")
+        # f32 sums in two orders: bounded by the run's sum of magnitudes
+        absum = sd.deliver_add(dst.abs(), cnt0, idx, vec.abs(), cnt)[0]
+        err = (ga - wa).abs()
+        check(bool((err <= KA_TOL * (1 + absum)).all()),
+              f"kernel deliver_add sums differ from scatter: max err "
+              f"{float(err.max())} (C={idx.shape[0]}, rows={n_rows})")
+
+    # last-writer-wins with duplicates, sentinel and negative rows
+    deliver_case(torch.tensor([3, 5, 3, 3, 5, 8, 9, -1, 7]),
+                 torch.arange(18, dtype=torch.float32).reshape(9, 2),
+                 torch.arange(9, dtype=torch.float32), 8)
+    # all padding
+    deliver_case(torch.full((300,), 99), torch.ones(300, 5),
+                 torch.ones(300), 16)
+    # one hub run spanning many kernel tiles
+    deliver_case(torch.full((5000,), 11),
+                 torch.randn(5000, 70, generator=gen, device=device),
+                 torch.ones(5000), 40)
+    # main-path shapes (layer 0 at full width): the round-B RMI lane
+    # (edge_tick_cap + P * edge_cap records, power-law destinations) and
+    # the broadcast lane (P * repl_cap records) into P * node_cap rows
+    c = full["caps"]
+    n_rows, d = c["n_parts"] * c["node_cap"], full["dims"][0]
+    for C in (c["edge_tick_cap"] + c["n_parts"] * c["edge_cap"],
+              c["n_parts"] * c["repl_cap"]):
+        idx = powerlaw_rows(gen, n_rows, C)
+        idx[torch.rand(C, generator=gen, device=device) < 0.4] = n_rows
+        deliver_case(idx, torch.randn(C, d, generator=gen, device=device),
+                     torch.randint(-1, 2, (C,), generator=gen,
+                                   device=device).float(), n_rows)
+        del idx
+    # kernel B: cnt <= 0 rows, a repeated hub row, main-path shapes
+    K = c["n_parts"] * (c["feat_cap"] // c["n_parts"])
+    for R, dd in ((50, 3), (n_rows, d), (n_rows, full["dims"][1])):
+        agg = torch.randn(R, dd, generator=gen, device=device)
+        cnt = torch.randint(-2, 6, (R,), generator=gen,
+                            device=device).float()
+        rows = torch.cat([torch.zeros(7, dtype=torch.int64, device=device),
+                          torch.randint(0, R, (K,), generator=gen,
+                                        device=device)])
+        errs["mean_rows_gather"] = max(errs["mean_rows_gather"],
+                                       kernel_b_check(ops, ref, agg, cnt,
+                                                      rows))
+    print(f"[kernels] plain-version checks passed; max abs err {errs}")
+    return errs
+
+
+# ------------------------------------------------------------- phase 3
+def phase_parity_gate(device):
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.launch import serve
+    pinned = {"tick": (3032, 2491), "super": (3049, 2507)}
+    materialized = set()
+    ops.reset_launches()
+    for driver, counts in pinned.items():
+        pipe = serve.main(["--edges", "1500", "--driver", driver,
+                           "--device", str(device)])
+        got = (pipe.metrics.reduce_msgs, pipe.metrics.cross_part_msgs)
+        check(got == counts, f"serve --driver {driver}: {got} != {counts}")
+        materialized.add(len(pipe.embeddings()))
+    check(len(materialized) == 1, f"materialized counts differ: "
+                                  f"{materialized}")
+    print(f"[parity] serve counts match the JAX pins; materialized "
+          f"{materialized.pop()}; launches {dict(ops.LAUNCHES)}")
+
+
+# ------------------------------------------------------------- phase 4
+def make_stream(n_nodes, n_edges, d_in):
+    from repro_torch.graph.graphs import powerlaw_edges
+    rng = np.random.default_rng(SEED)
+    edges = powerlaw_edges(rng, n_nodes, n_edges)
+    x = rng.normal(size=(n_nodes, d_in)).astype(np.float32)
+    return edges, {v: x[v] for v in range(n_nodes)}
+
+
+def stream_pipeline(full, backend, device, edges, feats):
+    """Stream + flush with the super-tick driver. Returns (pipeline, wall
+    seconds, synchronizing CUDA calls by call site during the stream)."""
+    import torch
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    cfg = PipelineConfig(**full["caps"], max_nodes=full["n_nodes"],
+                         delivery_backend=backend,
+                         window=win.WindowConfig(kind=win.SESSION,
+                                                 interval=4))
+    pipe = D3Pipeline(GraphSAGE(full["dims"], seed=SEED), cfg, device=device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            pipe.run_stream_super(edges, feats,
+                                  tick_edges=full["tick_edges"],
+                                  super_ticks=full["super_ticks"])
+            pipe.flush_super(max_ticks=256, T=full["super_ticks"])
+            if cuda:
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+    # the harness's own closing torch.cuda.synchronize() is not counted
+    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "synchronizing CUDA operation" in str(w.message)
+                    and Path(w.filename).name != Path(__file__).name)
+    return pipe, secs, sites
+
+
+def sink_error(got: dict, want):
+    """(max over materialized vids of |got - ref| / max(1, |ref|), the vid
+    where it occurs); `want(vids)` returns the float64 reference rows."""
+    import torch
+    vids = sorted(got)
+    g = torch.as_tensor(np.stack([got[v] for v in vids]), dtype=torch.float64)
+    w = want(vids)
+    rel = ((g - w).abs() / torch.clamp(w.abs(), min=1.0)).amax(dim=1)
+    i = int(rel.argmax())
+    return float(rel[i]), vids[i]
+
+
+def phase_full_width(full, device, check_launches=True):
+    import torch
+    from repro_torch.core.oracle import build_snapshot, oracle_embeddings
+    from repro_torch.kernels.segment_reduce import ops
+    edges, feats = make_stream(full["n_nodes"], full["n_edges"],
+                               full["dims"][0])
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    pipe, secs, sync_sites = stream_pipeline(full, "kernel", device, edges,
+                                             feats)
+    launches = dict(ops.LAUNCHES)
+    n_syncs = sum(sync_sites.values())
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    m = pipe.metrics
+    emb = pipe.embeddings()
+    print(f"[full] caps {full['caps']} dims {full['dims']} "
+          f"window session(4) driver super(T={full['super_ticks']})")
+    print(f"[full] {full['n_edges']} edges in {secs:.3f}s = "
+          f"{full['n_edges'] / secs:.1f} events/s; ticks {m.ticks}; "
+          f"RMIs {m.reduce_msgs}; cross-part msgs {m.cross_part_msgs}; "
+          f"materialized {len(emb)}; host staging {m.host_seconds:.3f}s; "
+          f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    n_super = m.ticks // full["super_ticks"]
+    print(f"[full] launches {launches}; synchronizing CUDA calls "
+          f"{n_syncs} over {n_super} super-ticks")
+    if device.type == "cuda":
+        check(n_syncs == n_super, "the super-tick driver must sync with "
+              f"the host once per super-tick: {n_syncs} syncs at "
+              f"{dict(sync_sites.most_common(8))}")
+    if check_launches:
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel never launched on the main path: {launches}")
+    check(len(emb) > 0, "nothing materialized")
+    check(all(np.isfinite(v).all() and v.shape == (full["dims"][-1],)
+              for v in emb.values()), "non-finite or misshapen embeddings")
+
+    # the float64 static oracle on the final snapshot, on the device
+    model64 = copy.deepcopy(pipe.model).double()
+    g, _ = build_snapshot(edges, feats, full["dims"][0], full["n_nodes"],
+                          device, dtype=torch.float64)
+    ref = oracle_embeddings(model64, g).cpu()
+    del model64, g
+    to_ref = lambda vids: ref[vids]
+
+    # the same stream through the reference scatter backend
+    other, _, _ = stream_pipeline(full, "scatter", device, edges, feats)
+    check((other.metrics.reduce_msgs, other.metrics.cross_part_msgs,
+           other.metrics.ticks) == (m.reduce_msgs, m.cross_part_msgs,
+                                    m.ticks),
+          "scatter backend counts differ from the kernel backend")
+    for a, b in zip(other.states, pipe.states):
+        check(torch.equal(a.agg_cnt, b.agg_cnt), "aggregator counts differ")
+    emb_s = other.embeddings()
+    check(set(emb_s) == set(emb), "materialized sets differ")
+    indeg = np.bincount(edges[:, 1], minlength=full["n_nodes"])
+    errs = {"kernel vs oracle": sink_error(emb, to_ref),
+            "scatter vs oracle": sink_error(emb_s, to_ref),
+            "kernel vs scatter": sink_error(emb, lambda vids: torch.as_tensor(
+                np.stack([emb_s[v] for v in vids]), dtype=torch.float64))}
+    for what, (err, vid) in errs.items():
+        print(f"[full] sink {what}: max |diff|/max(1,|ref|) {err:.3e} at "
+              f"vid {vid} (in-degree {indeg[vid]}); tolerance {SINK_TOL}")
+    for what, (err, _) in errs.items():
+        check(err <= SINK_TOL, f"sink {what}: {err:.3e} > {SINK_TOL}")
+    del other
+    return pipe, launches
+
+
+# ------------------------------------------------------------- phase 5
+def time_ms(fn, iters=10, flush_bytes=256 << 20):
+    """Mean device time of fn with CUDA events, one launch per event pair,
+    L2 flushed (by a write larger than the 50 MB L2) before each."""
+    import torch
+    scratch = torch.empty(flush_bytes // 4, dtype=torch.float32,
+                          device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        scratch.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+def bound_ms(n_bytes, n_ops):
+    return max(n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_F32_OPS_PER_S) * 1e3
+
+
+def phase_timing(pipe, launches, errs):
+    """Time both kernels on inputs of the main path at full width: the
+    final topology's layer-0 RMI lane with every edge live (the heaviest
+    round-B delivery), and the forward stage's per-part picks read from
+    the final layer-0 aggregator table."""
+    import torch
+    from repro_torch.core.state import local_index
+    from repro_torch.kernels.segment_reduce import ops, ref
+    cfg, topo, ls, dev = pipe.cfg, pipe.topo, pipe.states[0], pipe.device
+    P, N, d = ls.agg.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    # kernel A: the RMI lane (edge_tick_cap fresh + P * edge_cap records)
+    idx, _ = local_index(topo.e_dst_mpart.reshape(-1),
+                         topo.e_dst_mslot.reshape(-1), 0, P, N,
+                         topo.e_valid.reshape(-1))
+    idx = torch.cat([torch.full((cfg.edge_tick_cap,), P * N, device=dev),
+                     idx])
+    C = idx.shape[0]
+    vec = torch.randn(C, d, device=dev, generator=gen)
+    payload, seg, row_ptr = ops.deliver_layout(
+        idx, vec, torch.ones(C, device=dev), P * N, "add")
+    del vec
+    errs["segment_sum_rows"] = max(errs["segment_sum_rows"],
+                                   kernel_a_check(ops, ref, payload, seg,
+                                                  row_ptr))
+    live = int(row_ptr[-1])
+    W = payload.shape[1]
+    a_ms = time_ms(lambda: ops.segment_sum_rows(payload, seg, row_ptr))
+    a_plain = time_ms(lambda: ref.segment_sum_rows_ref(payload, seg,
+                                                       row_ptr))
+    seg_l, rows_l = seg[:live], payload[:live]
+    a_lib = time_ms(lambda: torch.zeros(P * N, W, device=dev).index_add_(
+        0, seg_l, rows_l))
+    a_bound = bound_ms(live * W * 4 + live * 8 + (P * N + 1) * 8
+                       + P * N * W * 4, live * W)
+    print(f"[time] segment_sum_rows: E={C} live={live} W={W} rows={P * N}")
+    del payload, seg, row_ptr, seg_l, rows_l
+
+    # kernel B: the first outbox_per_part evicting masters of every part
+    k = cfg.capacities().outbox_per_part
+    order = torch.where(topo.is_master, torch.arange(N, device=dev), N)
+    picked = torch.clamp(torch.topk(order, k, dim=1, largest=False).values,
+                         max=N - 1)
+    rows = (torch.arange(P, device=dev)[:, None] * N + picked).reshape(-1)
+    agg, cnt = ls.agg.reshape(P * N, d), ls.agg_cnt.reshape(P * N)
+    errs["mean_rows_gather"] = max(errs["mean_rows_gather"],
+                                   kernel_b_check(ops, ref, agg, cnt, rows))
+    K = rows.shape[0]
+    b_ms = time_ms(lambda: ops.mean_rows_gather(agg, cnt, rows))
+    b_plain = time_ms(lambda: ref.mean_rows_gather_ref(agg, cnt, rows))
+    b_bound = bound_ms(K * d * 4 + K * 4 + K * 8 + K * d * 4, K * d)
+    print(f"[time] mean_rows_gather: K={K} d={d} table rows={P * N}")
+
+    src = "src/repro_torch/csrc/segment_reduce.cu"
+    tpu = "src/repro/kernels/segment_reduce/kernel.py"
+    return {"kernels": [
+        {"name": "segment_sum_rows", "route": "cuda", "source": src,
+         "replaces": f"{tpu}:59",
+         "launches": launches["segment_sum_rows"],
+         "max_abs_err": errs["segment_sum_rows"], "ms": a_ms,
+         "plain_ms": a_plain, "bound_ms": a_bound, "bound_by": "bytes",
+         "library_ms": a_lib},
+        {"name": "mean_rows_gather", "route": "cuda", "source": src,
+         "replaces": f"{tpu}:95",
+         "launches": launches["mean_rows_gather"],
+         "max_abs_err": errs["mean_rows_gather"], "ms": b_ms,
+         "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": "bytes",
+         "library_ms": None}]}
+
+
+# ------------------------------------------------------------- phase 6
+def phase_profile(full, device, warm_super_ticks=6, top=12):
+    """Device time by operator over ONE steady-state full-width
+    super-tick (torch.profiler), after `warm_super_ticks` unprofiled ones
+    of the same stream: the per-operator breakdown of the tick program."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.core import windowing as win
+    from repro_torch.graph.sage import GraphSAGE
+    edges, feats = make_stream(full["n_nodes"], full["n_edges"],
+                               full["dims"][0])
+    cfg = PipelineConfig(**full["caps"], max_nodes=full["n_nodes"],
+                         window=win.WindowConfig(kind=win.SESSION,
+                                                 interval=4))
+    pipe = D3Pipeline(GraphSAGE(full["dims"], seed=SEED), cfg, device=device)
+    T = full["super_ticks"]
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, full["tick_edges"])
+    for lo in range(0, warm_super_ticks * T, T):
+        pipe.run_super_tick(e_chunks[lo:lo + T], f_chunks[lo:lo + T], T=T)
+    lo = warm_super_ticks * T
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    host0 = pipe.metrics.host_seconds
+    sync(torch.zeros((), device=device))
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        pipe.run_super_tick(e_chunks[lo:lo + T], f_chunks[lo:lo + T], T=T)
+        sync(torch.zeros((), device=device))
+        wall = time.perf_counter() - t0
+    host = pipe.metrics.host_seconds - host0
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    # device-side activities only (kernels, copies, fills): the aten ops
+    # that launch them carry the same time again; CUPTI's "Command Buffer
+    # Full" marks a full launch queue, not device work
+    events = [e for e in prof.key_averages()
+              if "CUDA" in str(e.device_type) and dev_us(e) > 0
+              and e.key != "Command Buffer Full"]
+    total = sum(dev_us(e) for e in events) / 1e3
+    print(f"[profile] super-tick of {T} ticks (stream ticks "
+          f"{lo}..{lo + T - 1})"
+          f": wall {wall * 1e3:.3f} ms; host staging {host * 1e3:.3f} ms; "
+          f"device busy {total:.3f} ms "
+          + (f"({total / (wall * 1e3):.3f} of wall)" if total else
+             "(not measured: no device events)"))
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
+        print(f"[profile] {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  "
+              f"{e.key[:90]}")
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
+             "a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    card = card_line()
+    print(f"[card] {card}")
+    build_kernels()
+    errs = phase_kernels_vs_plain(device)
+    phase_parity_gate(device)
+    pipe, launches = phase_full_width(FULL, device)
+    result = phase_timing(pipe, launches, errs)
+    del pipe
+    phase_profile(FULL, device)
+    print("[card] all times above on this card:")
+    print(card)
+    print(f"[done] {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps(result))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,176 @@
+"""Unified streaming event format (paper §4.1) + padded device batches.
+
+Counterpart of `repro/core/events.py`. The partitioner turns a tick's worth
+of host events into fixed-capacity, mask-padded struct-of-tensors batches
+that the layer tick consumes. Every row is pre-addressed to (part, slot),
+so the device program never needs a hash lookup.
+
+The `*_from_numpy` builders take `device=`: a torch device puts the
+batch's tensors there; None keeps numpy leaves — the super-tick driver
+stages T batches on the host, stacks them, and moves each field to the
+device in ONE copy (`stack_batches`). Index columns are int64 (torch's
+index type), flags are bool, payloads float32.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+
+
+def _map(fn, *batches):
+    """Apply fn field-wise over same-typed batches -> a new batch."""
+    cls = type(batches[0])
+    return cls(**{f.name: fn(*(getattr(b, f.name) for b in batches))
+                  for f in fields(cls)})
+
+
+@dataclass(frozen=True)
+class EdgeBatch:
+    """New-edge records for one tick: each scatters one directed edge
+    (u -> v) into the part the vertex-cut partitioner chose."""
+    part: torch.Tensor             # [C] destination part of the record
+    edge_slot: torch.Tensor        # [C] slot in the part's edge table
+    src_slot: torch.Tensor         # [C] local slot of u in `part`
+    dst_slot: torch.Tensor         # [C] local slot of v in `part`
+    dst_master_part: torch.Tensor  # [C] master coordinates of v
+    dst_master_slot: torch.Tensor  # [C]
+    valid: torch.Tensor            # [C] bool
+
+
+@dataclass(frozen=True)
+class ReplBatch:
+    """New replica records: master (part, slot) -> replica (part, slot)."""
+    part: torch.Tensor             # [C] master part (where the record lives)
+    repl_slot: torch.Tensor        # [C] slot in the replication table
+    master_slot: torch.Tensor      # [C] master's local slot
+    rep_part: torch.Tensor         # [C] replica coordinates
+    rep_slot: torch.Tensor         # [C]
+    valid: torch.Tensor            # [C] bool
+
+
+@dataclass(frozen=True)
+class VertexBatch:
+    """New vertex (replica) records: existence + mastership flags."""
+    part: torch.Tensor
+    slot: torch.Tensor
+    is_master: torch.Tensor        # [C] bool
+    valid: torch.Tensor            # [C] bool
+
+
+@dataclass(frozen=True)
+class FeatBatch:
+    """Feature updates addressed to master (part, slot)."""
+    part: torch.Tensor
+    slot: torch.Tensor
+    feat: torch.Tensor             # [C, d] float32
+    valid: torch.Tensor            # [C] bool
+
+
+@dataclass(frozen=True)
+class MsgBatch:
+    """Fixed-capacity, part-addressed message records — one round's
+    cross-part traffic. Round-A broadcast rows SET a feature value, Round-B
+    RMI rows ADD an aggregator (delta, dcnt) record."""
+    part: torch.Tensor             # [C] destination part
+    slot: torch.Tensor             # [C] destination slot in that part
+    vec: torch.Tensor              # [C, d] float payload
+    cnt: torch.Tensor              # [C] float count delta (zeros for A)
+    src_part: torch.Tensor         # [C] emitting part (cross-part stats)
+    valid: torch.Tensor            # [C] bool
+
+
+def _check_fits(what: str, n: int, cap: int) -> None:
+    if n > cap:
+        raise ValueError(f"{what} batch overflow: {n} rows > capacity {cap}")
+
+
+def _leaf(a: np.ndarray, device):
+    return a if device is None else torch.as_tensor(a).to(device)
+
+
+def _padded(col, n: int, cap: int, dtype=np.int64) -> np.ndarray:
+    out = np.zeros((cap,), dtype)
+    out[:n] = col
+    return out
+
+
+def _valid(n: int, cap: int) -> np.ndarray:
+    v = np.zeros((cap,), bool)
+    v[:n] = True
+    return v
+
+
+def vertex_batch_from_numpy(rows: dict, cap: int, device=None) -> VertexBatch:
+    n = len(rows["part"])
+    _check_fits("vertex", n, cap)
+    return VertexBatch(
+        part=_leaf(_padded(rows["part"], n, cap), device),
+        slot=_leaf(_padded(rows["slot"], n, cap), device),
+        is_master=_leaf(_padded(rows["is_master"], n, cap, bool), device),
+        valid=_leaf(_valid(n, cap), device))
+
+
+def edge_batch_from_numpy(rows: dict, cap: int, device=None) -> EdgeBatch:
+    n = len(rows["part"])
+    _check_fits("edge", n, cap)
+    col = lambda k: _leaf(_padded(rows[k], n, cap), device)
+    return EdgeBatch(part=col("part"), edge_slot=col("edge_slot"),
+                     src_slot=col("src_slot"), dst_slot=col("dst_slot"),
+                     dst_master_part=col("dst_master_part"),
+                     dst_master_slot=col("dst_master_slot"),
+                     valid=_leaf(_valid(n, cap), device))
+
+
+def repl_batch_from_numpy(rows: dict, cap: int, device=None) -> ReplBatch:
+    n = len(rows["part"])
+    _check_fits("repl", n, cap)
+    col = lambda k: _leaf(_padded(rows[k], n, cap), device)
+    return ReplBatch(part=col("part"), repl_slot=col("repl_slot"),
+                     master_slot=col("master_slot"), rep_part=col("rep_part"),
+                     rep_slot=col("rep_slot"),
+                     valid=_leaf(_valid(n, cap), device))
+
+
+def feat_batch_from_numpy(parts, slots, feats, cap: int, d: int,
+                          device=None) -> FeatBatch:
+    n = len(parts)
+    _check_fits("feat", n, cap)
+    f = np.zeros((cap, d), np.float32)
+    if n:
+        f[:n] = feats
+    return FeatBatch(part=_leaf(_padded(parts, n, cap), device),
+                     slot=_leaf(_padded(slots, n, cap), device),
+                     feat=_leaf(f, device),
+                     valid=_leaf(_valid(n, cap), device))
+
+
+def concat_msg_batches(a: MsgBatch, b: MsgBatch) -> MsgBatch:
+    """Concatenate two MsgBatches along the record axis (same payload
+    dim): Round B's new-edge and windowed delta RMIs ride as one lane."""
+    return _map(lambda x, y: torch.cat([x, y]), a, b)
+
+
+def _upload(a: np.ndarray, device):
+    """Host array -> device without a host sync on CUDA: the copy is
+    staged through pinned memory and issued non-blocking."""
+    t = torch.as_tensor(a)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def stack_batches(batches, device):
+    """Stack same-capacity numpy-leaf batches along a new leading tick
+    axis and move each field to `device` in ONE asynchronous copy
+    (super-tick staging; capacities derive from PipelineConfig, so shapes
+    agree)."""
+    if not batches:
+        raise ValueError("cannot stack an empty batch list")
+    return _map(lambda *xs: _upload(np.stack(xs), device), *batches)
+
+
+def batch_at(batch, t: int):
+    """Tick t of a stacked batch (a view along the leading axis)."""
+    return _map(lambda x: x[t], batch)

@@ -1,0 +1,69 @@
+"""Termination detection (paper §5.3).
+
+Counterpart of `repro/core/termination.py`. The pipeline is quiescent
+when, for `quiet_sweeps` consecutive ticks, no layer moved a message and
+no layer holds pending work (window timers). Two observation paths:
+
+  * per-tick (host): `TerminationCoordinator.observe` reads each tick's
+    stats — one host sync per tick, fine for the reference driver;
+  * super-tick (device): `quiet_update` advances a consecutive-quiet-tick
+    counter on the device, read once per super-tick (`observe_flag`).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.tick import has_work
+
+
+def moved_msgs(tick_stats):
+    """Total MOVEMENT of one layer's TickStats: emissions + reduces +
+    broadcasts (the vote both observation paths share)."""
+    return tick_stats.emitted + tick_stats.reduce_msgs \
+        + tick_stats.broadcast_msgs
+
+
+def pending_work(layer_states):
+    """In-flight-work count (0-d int64): layers with pending timers."""
+    work = torch.zeros((), dtype=torch.int64,
+                       device=layer_states[0].feat.device)
+    for ls in layer_states:
+        work = work + has_work(ls).to(torch.int64)
+    return work
+
+
+def quiet_update(quiet, layer_states, tick_stats):
+    """One on-device step of quiescence tracking: the consecutive quiet
+    tick counter resets to 0 on any movement or pending work."""
+    moved = torch.zeros((), dtype=torch.bool, device=quiet.device)
+    for s in tick_stats:
+        moved = moved | (moved_msgs(s) > 0)
+    busy = moved | (pending_work(layer_states) > 0)
+    return torch.where(busy, torch.zeros_like(quiet), quiet + 1)
+
+
+class TerminationCoordinator:
+    def __init__(self, quiet_sweeps: int = 2):
+        self.quiet_sweeps = quiet_sweeps
+        self._quiet = 0
+
+    def seed_quiet(self) -> int:
+        """Seed for a device-resident quiet counter when chaining
+        super-ticks: quiescence streaks survive the host round-trip."""
+        return self._quiet
+
+    def observe(self, layer_states, tick_stats) -> bool:
+        """Feed one tick's observations (host values); True once
+        terminated."""
+        moved = any(int(moved_msgs(s)) for s in tick_stats)
+        if moved or bool(pending_work(layer_states)):
+            self._quiet = 0
+        else:
+            self._quiet += 1
+        return self._quiet >= self.quiet_sweeps
+
+    def observe_flag(self, quiet_ticks: int) -> bool:
+        """Feed a device-computed consecutive-quiet counter (it replaces,
+        not adds to, the host count)."""
+        self._quiet = int(quiet_ticks)
+        return self._quiet >= self.quiet_sweeps

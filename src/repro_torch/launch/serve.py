@@ -1,0 +1,79 @@
+"""Serving launcher: the streaming-GNN online pipeline (d3gnn-sage).
+
+Counterpart of the `d3gnn-sage` stream path of `repro/launch/serve.py`,
+with the same flags plus --device and --dims; it prints the same line.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --edges 1500
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --edges 1500 --driver tick
+
+The weights are random (torch.Generator, seed 0): the pinned RMI and
+cross-part counts do not depend on their values.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+
+def serve_stream(args):
+    """Stream the serve workload; prints the summary line and returns the
+    pipeline."""
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.graphs import powerlaw_edges
+    from repro_torch.graph.sage import GraphSAGE
+    dims = tuple(int(d) for d in args.dims.split(","))
+    rng = np.random.default_rng(0)
+    n_nodes = 400
+    edges = powerlaw_edges(rng, n_nodes, args.edges)
+    feats = {v: rng.normal(size=dims[0]).astype(np.float32)
+             for v in range(n_nodes)}
+    cfg = PipelineConfig(n_parts=8, node_cap=256, edge_cap=4096,
+                         repl_cap=1024, feat_cap=2048, edge_tick_cap=512,
+                         max_nodes=n_nodes,
+                         window=win.WindowConfig(kind=win.SESSION, interval=4))
+    pipe = D3Pipeline(GraphSAGE(dims), cfg, device=args.device)
+    t0 = time.perf_counter()
+    if args.driver == "super":
+        # T micro-ticks per host sync (the serving default for throughput)
+        pipe.run_stream_super(edges, feats, tick_edges=args.tick_edges,
+                              super_ticks=args.super_ticks)
+        pipe.flush_super(max_ticks=64, T=4)
+    else:
+        pipe.run_stream(edges, feats, tick_edges=args.tick_edges)
+        pipe.flush()
+    dt = time.perf_counter() - t0
+    print(f"streamed {args.edges} edges in {dt:.2f}s "
+          f"[{args.driver} driver, {args.edges / dt:.0f} ev/s]; "
+          f"materialized {len(pipe.embeddings())} embeddings; "
+          f"{pipe.metrics.reduce_msgs} RMIs, "
+          f"{pipe.metrics.cross_part_msgs} cross-part msgs")
+    return pipe
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="d3gnn-sage", choices=["d3gnn-sage"])
+    ap.add_argument("--edges", type=int, default=2000)
+    ap.add_argument("--driver", choices=["super", "tick"], default="super",
+                    help="super: T ticks per host sync (default); "
+                         "tick: per-tick reference driver")
+    ap.add_argument("--tick-edges", type=int, default=256)
+    ap.add_argument("--super-ticks", type=int, default=16,
+                    help="micro-ticks per host sync (super driver)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without it)")
+    ap.add_argument("--dims", default="16,64,64",
+                    help="GraphSAGE widths in,hidden,...,out")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    return serve_stream(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,65 @@
+"""The port stands alone: nothing under src/repro_torch/ and not
+chip_smoke.py imports `jax` or the JAX package `repro`, importing the port
+leaves jax out of sys.modules, and its entry points refuse to run without
+a device when no CUDA is present."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
+    [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_no_jax_or_repro_imports(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, repro_torch.core.pipeline, repro_torch.launch.serve, "
+            "repro_torch.kernels.segment_reduce.ops, repro_torch.convert; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]; print(bad); assert not bad")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PipelineConfig(n_parts=2, node_cap=8, edge_cap=8, repl_cap=8,
+                         feat_cap=8, edge_tick_cap=8, max_nodes=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        D3Pipeline(GraphSAGE((4, 4)), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--edges", "10"])
+
+
+def test_kernel_build_needs_no_nvcc_at_import():
+    """Importing the kernel modules builds nothing and looks for no nvcc:
+    the build directory is only touched at first CUDA launch."""
+    from repro_torch.kernels import cuda_lib
+    assert cuda_lib._LOADED == {}
+    assert (cuda_lib.CSRC / "segment_reduce.cu").exists()

@@ -1,0 +1,148 @@
+"""The port's D3Pipeline (per-tick and super-tick drivers) against the JAX
+D3Pipeline (delivery_backend="xla") on a small stream, for all four
+window policies, plus the serve CLI's pinned counts.
+
+Tolerances: StreamMetrics counters, the busy vector and aggregator counts
+exactly equal; sink embeddings within 1e-5 of the JAX run (absolute and
+relative) and within 1e-4 of the port's static oracle (core/oracle.py, the
+bound examples/quickstart.py uses). The JAX xla backend is the reference
+here; the integer stats do not depend on its backend.
+"""
+import numpy as np
+import jax
+import pytest
+import torch
+
+from repro.core import windowing as jwin
+from repro.core.pipeline import D3Pipeline as JaxPipeline
+from repro.core.pipeline import PipelineConfig as JaxConfig
+from repro.graph.sage import GraphSAGE as JaxSAGE
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import windowing as twin
+from repro_torch.core.oracle import build_snapshot, oracle_embeddings
+from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+from repro_torch.graph.sage import GraphSAGE
+from repro_torch.launch import serve
+
+N_NODES, D_IN, DIMS = 40, 8, (8, 12, 12)
+POLICIES = ["streaming", "tumbling", "session", "adaptive"]
+CAPS = dict(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+            feat_cap=128, edge_tick_cap=32, max_nodes=N_NODES)
+
+
+def _window(kind, mod):
+    return mod.WindowConfig(kind=kind, interval=3)
+
+
+def _stream():
+    rng = np.random.default_rng(0)
+    edges = np.stack([rng.integers(0, N_NODES, 150),
+                      rng.integers(0, N_NODES, 150)], 1)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    feats = {v: rng.normal(size=D_IN).astype(np.float32)
+             for v in range(N_NODES)}
+    return edges, feats
+
+
+def _drive(pipe, driver, edges, feats):
+    if driver == "super":
+        pipe.run_stream_super(edges, feats, tick_edges=24, super_ticks=4)
+        pipe.flush_super(max_ticks=96, T=4)
+    else:
+        pipe.run_stream(edges, feats, tick_edges=24)
+        pipe.flush(max_ticks=96)
+    return pipe
+
+
+def _port_model(jparams):
+    model = GraphSAGE(DIMS)
+    model.load_state_dict(params_from_numpy(
+        jax.tree.map(np.asarray, jparams)))
+    return model
+
+
+@pytest.mark.parametrize("kind", POLICIES)
+@pytest.mark.parametrize("driver", ["tick", "super"])
+def test_pipeline_matches_jax_and_oracle(driver, kind):
+    edges, feats = _stream()
+    jmodel = JaxSAGE(DIMS)
+    jparams = jmodel.init(jax.random.key(0))
+    ref = _drive(JaxPipeline(jmodel, jparams, JaxConfig(
+        **CAPS, window=_window(kind, jwin))), driver, edges, feats)
+    model = _port_model(jparams)
+    for backend in ("kernel", "scatter"):
+        pipe = _drive(D3Pipeline(model, PipelineConfig(
+            **CAPS, window=_window(kind, twin), delivery_backend=backend),
+            device="cpu"), driver, edges, feats)
+        for name in ("ticks", "reduce_msgs", "broadcast_msgs",
+                     "cross_part_msgs", "emitted_total", "dropped"):
+            assert getattr(pipe.metrics, name) == \
+                getattr(ref.metrics, name), name
+        np.testing.assert_array_equal(pipe.metrics.busy_logical,
+                                      ref.metrics.busy_logical)
+        for li in range(len(DIMS) - 1):
+            np.testing.assert_array_equal(
+                pipe.states[li].agg_cnt.numpy(),
+                np.asarray(ref.states[li].agg_cnt))
+        want, got = ref.embeddings(), pipe.embeddings()
+        assert set(got) == set(want) and len(got) > 0
+        for vid in want:
+            np.testing.assert_allclose(got[vid], want[vid], rtol=1e-5,
+                                       atol=1e-5)
+    g, _ = build_snapshot(edges, feats, D_IN, N_NODES, "cpu")
+    oracle = oracle_embeddings(model, g).numpy()
+    for vid, vec in got.items():
+        np.testing.assert_allclose(vec, oracle[vid], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("driver,rmis,cross", [("tick", 3032, 2491),
+                                               ("super", 3049, 2507)])
+def test_serve_cli_pinned_counts(driver, rmis, cross, capsys):
+    """The JAX serve CLI's pinned counts at --edges 1500 (both drivers
+    materialize the same embeddings)."""
+    pipe = serve.main(["--device", "cpu", "--edges", "1500",
+                       "--driver", driver])
+    assert (pipe.metrics.reduce_msgs, pipe.metrics.cross_part_msgs) == \
+        (rmis, cross)
+    assert len(pipe.embeddings()) == 185
+    line = capsys.readouterr().out
+    assert f"{rmis} RMIs, {cross} cross-part msgs" in line
+    assert "materialized 185 embeddings" in line
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("n_stages", 2, 13), ("route_cap", 8, 13), ("delta_eps", 1e-3, 8),
+    ("query_cap", 4, 9), ("train_cap", 4, 10), ("telemetry", True, 11)])
+def test_unported_planes_raise(field, value, item):
+    cfg = PipelineConfig(**CAPS, **{field: value})
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        D3Pipeline(GraphSAGE(DIMS), cfg, device="cpu")
+
+
+def test_unported_pipeline_arguments_raise():
+    cfg = PipelineConfig(**CAPS)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        D3Pipeline(GraphSAGE(DIMS), cfg, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        D3Pipeline(GraphSAGE(DIMS), cfg, train=object(), device="cpu")
+    with pytest.raises(ValueError, match="not registered"):
+        PipelineConfig(**CAPS, delivery_backend="xla").validate()
+
+
+def test_super_driver_single_stats_sync_matches_tick_stats():
+    """run_super_tick's summed stats equal the per-tick stats summed on the
+    host, tick for tick, from identical pipelines."""
+    edges, feats = _stream()
+    model = GraphSAGE(DIMS)
+    a = D3Pipeline(model, PipelineConfig(**CAPS), device="cpu")
+    b = D3Pipeline(model, PipelineConfig(**CAPS), device="cpu")
+    e_chunks, f_chunks = a.chunk_stream(edges, feats, 24)
+    per_tick = [a.tick(e, f) for e, f in zip(e_chunks[:3], f_chunks[:3])]
+    summed, _ = b.run_super_tick(e_chunks[:3], f_chunks[:3], T=3)
+    for li in range(len(DIMS) - 1):
+        assert int(summed[li].reduce_msgs) == sum(
+            int(t[li].reduce_msgs) for t in per_tick)
+        assert torch.equal(summed[li].busy,
+                           sum(t[li].busy for t in per_tick))
+    for x, y in zip(a.states, b.states):
+        assert torch.equal(x.agg, y.agg) and torch.equal(x.feat, y.feat)
