@@ -26,11 +26,33 @@ Phases (any failure exits non-zero; no phase is caught):
   6. device time by operator over one steady-state full-width super-tick
      (torch.profiler), beside its wall and host staging time.
 
+Then the LM serve path (mistral-nemo-12b), after the phases above free
+their memory:
+
+  [lm-kernel] the flash-attention kernel against its plain version in
+     bf16 and f32, each measured against float64 attention per 64-query
+     block of one head: causal and not, GQA G in {1, 4}, ragged S and T,
+     every head dim, strided q/k/v, and one layer's q/k/v at S = 32768,
+     where two planted faults (output x 0.9; one kv tile dropped from one
+     block) must be rejected;
+  [lm-parity] the reduced config (f32, TF32 off) built on the CPU from a
+     seed, its state_dict copied to the card: a 512-token prefill and 8
+     greedy decode steps give equal tokens and logits on both;
+  [lm-full] the published widths and depth (40 layers), random weights
+     drawn on the card: at S = 2048 the kernel path agrees with the
+     plain-attention path; one prefill_32k prefill (S = 32768, batch cut
+     from 32 to 1) with finite logits and exactly 40 kernel launches; the
+     serve CLI at full width (batch 4, 32 tokens); prefill and decode
+     tokens/s and peak memory;
+  [lm-time] the kernel at the prefill shape beside its bound, its plain
+     version and scaled_dot_product_attention (timed only, as a yardstick).
+
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository around it, the script exits non-zero and prints no
 result.
 """
 import copy
+import gc
 import json
 import subprocess
 import sys
@@ -38,6 +60,7 @@ import time
 import warnings
 from collections import Counter
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -47,6 +70,7 @@ SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12      # tensor cores, dense
 
 # full-width configuration: the paper model's widths (configs/d3gnn_sage.py
 # D_IN, D_HID) with depth (parts, caps) cut from the 1024-part sizing
@@ -61,6 +85,30 @@ FULL = dict(n_nodes=40_000, n_edges=400_000, tick_edges=4096,
 # sink vs oracle and vs the scatter backend: |diff| <= SINK_TOL *
 # max(1, |ref|) (streamed f32 sums of telescoping deltas vs a static sum).
 KA_TOL, KB_TOL, SINK_TOL = 1e-5, 1e-6, 1e-4
+
+# LM serve path: mistral-nemo-12b at its published widths and depth;
+# prefill_32k's batch cut from 32 to 1
+LM = dict(arch="mistral-nemo-12b", shape="prefill_32k",
+          check_s=2048, decode_tokens=32,
+          prefill_qkv=(1, 32768, 32, 8, 128))   # B, S, H, Kh, D: one layer
+# flash kernel vs its plain version, both measured against float64
+# attention on the same inputs, per block of FA_ROWS query rows of one head
+# (one CTA of the kernel): ||kernel - f64|| <= FA_RATIO * ||plain - f64|| +
+# FA_FLOOR * ||f64||. The two round p and the output at the same points, so
+# a right kernel errs as much as the plain version, give or take the order
+# of its f32 sums; the floor covers blocks that both get (almost) exact.
+FA_ROWS = 64
+FA_RATIO = {"bf16": 1.5, "f32": 4.0}
+FA_FLOOR = {"bf16": 2.0 ** -10, "f32": 1e-6}
+# reduced f32 model, CPU vs card, TF32 off: |diff| <= LM_PARITY_TOL *
+# (1 + |cpu|) on logits (f32 sums in another order over 4 layers)
+LM_PARITY_TOL = 1e-4
+# full width bf16 at S = check_s, over the final hidden states: kernel path
+# vs plain-attention path ||h_kernel - h_plain|| / ||h_plain|| <=
+# LM_PATH_TOL (40 layers of bf16 rounding at other places), and the kernel
+# path no farther than LM_PATH_RATIO times the plain path from a path whose
+# attention runs in f32
+LM_PATH_TOL, LM_PATH_RATIO = 3e-2, 1.25
 
 
 def fail(msg):
@@ -512,6 +560,364 @@ def phase_profile(full, device, warm_super_ticks=6, top=12):
               f"{e.key[:90]}")
 
 
+# ------------------------------------------------------------- LM phases
+def free_cuda():
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def attention_f64(q, k, v, causal, rows=None, drop_keys=None, q_chunk=256):
+    """Softmax attention in float64 throughout, by kernel.py's mask
+    convention: [B,S,H,D] q, [B,T,Kh,D] k/v -> [B,S,H,D] float64. `rows`
+    (a slice of S) computes those query rows only; keys in `drop_keys` (a
+    slice of T) are masked out, to plant a fault."""
+    import torch
+    rows = rows or slice(0, q.shape[1])
+    B, _, H, D = q.shape
+    T, Kh = k.shape[1], k.shape[2]
+    kd, vd = k.double(), v.double()
+    k_pos = torch.arange(T, device=q.device)
+    keep = torch.ones(T, dtype=torch.bool, device=q.device)
+    if drop_keys is not None:
+        keep[drop_keys] = False
+    outs = []
+    for s0 in range(rows.start, rows.stop, q_chunk):
+        c = min(q_chunk, rows.stop - s0)
+        qc = q[:, s0:s0 + c].double().reshape(B, c, Kh, H // Kh, D)
+        s = torch.einsum("bqkgd,btkd->bkgqt", qc, kd) / D ** 0.5
+        vis = keep[None, :].expand(c, T)
+        if causal:
+            q_pos = s0 + torch.arange(c, device=q.device)
+            vis = vis & (k_pos[None, :] <= q_pos[:, None])
+        p = torch.softmax(s.masked_fill(~vis, float("-inf")), dim=-1)
+        outs.append(torch.einsum("bkgqt,btkd->bkgqd", p, vd).permute(
+            0, 3, 1, 2, 4).reshape(B, c, H, D))
+    return torch.cat(outs, dim=1)
+
+
+def fa_excess(got, plain, hi):
+    """Per (batch, block of FA_ROWS queries, head): ||got - hi|| over
+    FA_RATIO ||plain - hi|| + FA_FLOOR ||hi||, norms over the block's rows
+    and head dim. A right kernel reads <= 1 in every block."""
+    import torch
+    import torch.nn.functional as F
+    name = "bf16" if got.dtype == torch.bfloat16 else "f32"
+    B, S, H, D = hi.shape
+    pad = (0, 0, 0, 0, 0, (-S) % FA_ROWS)
+    norm = lambda t: F.pad(t, pad).reshape(B, -1, FA_ROWS, H, D).square() \
+        .sum(dim=(2, 4)).sqrt()
+    return norm(got.double() - hi) / (FA_RATIO[name] * norm(
+        plain.double() - hi) + FA_FLOOR[name] * norm(hi))
+
+
+def fa_check(fa, ref, q, k, v, causal):
+    """The kernel against its plain version on one input. Returns the max
+    abs err between the two, the per-block excess (fa_excess), and the
+    kernel's, the plain version's and the float64 outputs."""
+    got = fa.flash_attention(q, k, v, causal=causal)
+    plain = ref.attention_ref(q, k, v, causal=causal)
+    hi = attention_f64(q, k, v, causal)
+    sync(got)
+    excess = fa_excess(got, plain, hi)
+    worst = tuple(int(i) for i in divmod(int(excess.argmax()),
+                                         excess.shape[2]))
+    check(bool((excess <= 1).all()),
+          f"flash_attention disagrees ({got.dtype}, causal={causal}, q "
+          f"{tuple(q.shape)}, k {tuple(k.shape)}): block (batch x query "
+          f"block, head) {worst} reads {float(excess.max()):.3f} > 1")
+    err = float((got.float() - plain.float()).abs().max())
+    return err, float(excess.max()), (got, plain, hi)
+
+
+def fa_planted_faults(q, k, v, got, plain, hi):
+    """The check must reject two faults planted in the kernel's output at
+    the prefill shape: every value scaled by 0.9, and head 0's last block
+    of queries computed without kv tile 1 (keys 64-127, far below the
+    diagonal). Returns the least excess each reads where it was planted."""
+    S = q.shape[1]
+    scaled = fa_excess((got.double() * 0.9).to(got.dtype), plain, hi)
+    r0 = (S - 1) // FA_ROWS * FA_ROWS
+    dropped = got.clone()
+    dropped[:1, r0:, :1] = attention_f64(
+        q[:1, :, :1], k[:1, :, :1], v[:1, :, :1], True, rows=slice(r0, S),
+        drop_keys=slice(FA_ROWS, 2 * FA_ROWS)).to(got.dtype)
+    tile = fa_excess(dropped, plain, hi)[0, -1, 0]
+    reads = {"x0.9": float(scaled.min()), "tile 1 dropped": float(tile)}
+    check(min(reads.values()) > 1, f"the flash check passes a planted "
+                                   f"fault ({got.dtype}): {reads}")
+    return reads
+
+
+def make_qkv(gen, dtype, B, S, H, Kh, D, T=None):
+    import torch
+    T = S if T is None else T
+    dev = gen.device
+    return (torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype),
+            torch.randn(B, T, Kh, D, generator=gen, device=dev).to(dtype),
+            torch.randn(B, T, Kh, D, generator=gen, device=dev).to(dtype))
+
+
+def lm_profile(what, fn, top=6):
+    """Device time by kernel over one call of fn (torch.profiler), beside
+    the call's wall time under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    events = [e for e in prof.key_averages()
+              if "CUDA" in str(e.device_type) and dev_us(e) > 0
+              and e.key != "Command Buffer Full"]
+    busy = sum(dev_us(e) for e in events) / 1e3
+    print(f"[lm-profile] {what}: wall {wall:.3f} ms; device busy "
+          f"{busy:.3f} ms ({busy / wall:.3f} of wall); "
+          f"{sum(e.count for e in events)} device activities")
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
+        print(f"[lm-profile] {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  "
+              f"{e.key[:90]}")
+
+
+def phase_lm_kernel(device, lm=LM):
+    """Returns the max abs error over every check."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cases = [  # B, S, H, Kh, D, T
+        (2, 256, 8, 8, 64, 256),      # G = 1
+        (2, 256, 8, 2, 64, 256),      # G = 4
+        (1, 200, 8, 2, 128, 200),     # ragged S = T
+        (1, 100, 4, 1, 32, 300),      # S < T, ragged
+        (1, 300, 4, 4, 16, 100),      # S > T, ragged
+    ] + [(1, 129, 4, 1, D, 129) for D in fa.HEAD_DIMS]
+    errs = {"bf16": 0.0, "f32": 0.0}
+    excess = {"bf16": 0.0, "f32": 0.0}
+    planted = {}
+
+    def run(name, q, k, v, causal):
+        err, ex, outs = fa_check(fa, ref, q, k, v, causal)
+        errs[name], excess[name] = max(errs[name], err), max(excess[name], ex)
+        return outs
+
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for B, S, H, Kh, D, T in cases:
+            q, k, v = make_qkv(gen, dtype, B, S, H, Kh, D, T)
+            for causal in (True, False):
+                run(name, q, k, v, causal)
+        # q, k, v as strided views of one fused [B, S, H + 2 Kh, D] tensor
+        qkv = torch.randn(2, 190, 12, 64, generator=gen,
+                          device=device).to(dtype)
+        run(name, qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:], True)
+        # one layer of the prefill, and the faults the check must reject
+        q, k, v = make_qkv(gen, dtype, *lm["prefill_qkv"])
+        planted[name] = fa_planted_faults(q, k, v, *run(name, q, k, v, True))
+        del q, k, v, qkv
+        free_cuda()
+    print(f"[lm-kernel] flash_attention vs plain passed (causal and not, "
+          f"G in {{1, 4}}, ragged, D in {fa.HEAD_DIMS}, strided, q/k/v "
+          f"{lm['prefill_qkv']}); max abs err {errs}; worst block "
+          f"||kernel - f64|| / ({FA_RATIO} ||plain - f64|| + {FA_FLOOR} "
+          f"||f64||) {excess} (limit 1); planted faults at the prefill "
+          f"shape read {planted} (must be > 1)")
+    return max(errs.values())
+
+
+def phase_lm_parity(device, lm=LM):
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    # f32 matmuls in full f32 on the card (TF32 keeps ~3 decimal digits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = get_arch(lm["arch"])
+    cpu = spec.build_reduced(device="cpu", seed=SEED)
+    card = spec.build_reduced(device=device, seed=SEED + 1)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(SEED)
+
+    def agree(got, want, what):
+        err = (got.cpu() - want).abs()
+        check(bool((err <= LM_PARITY_TOL * (1 + want.abs())).all()),
+              f"reduced {what} logits, card vs CPU: max err "
+              f"{float(err.max())}")
+        return float(err.max())
+
+    toks = torch.as_tensor(rng.integers(0, cpu.cfg.vocab, (2, 512)))
+    fa.reset_launches()
+    got = card.logits(toks.to(device))
+    if device.type == "cuda":
+        check(fa.LAUNCHES["flash_attention"] == cpu.cfg.n_layers,
+              f"the reduced prefill launched {fa.LAUNCHES} kernels")
+    want = cpu.logits(toks)
+    err = agree(got, want, "prefill")
+    B, n = 4, 8
+    tok = torch.as_tensor(rng.integers(0, cpu.cfg.vocab, (B, 1)))
+    c_cpu, c_card = cpu.init_cache(B, n + 8), card.init_cache(B, n + 8)
+    t_cpu, t_card, derr = tok, tok.to(device), 0.0
+    for _ in range(n):
+        l_cpu, c_cpu = cpu.decode_step(c_cpu, t_cpu)
+        l_card, c_card = card.decode_step(c_card, t_card)
+        derr = max(derr, agree(l_card, l_cpu, "decode"))
+        t_cpu = torch.argmax(l_cpu[:, -1:], dim=-1)
+        t_card = torch.argmax(l_card[:, -1:], dim=-1)
+        check(torch.equal(t_card.cpu(), t_cpu), "greedy tokens differ")
+    print(f"[lm-parity] reduced f32 model, card vs CPU: prefill S=512 "
+          f"logits max err {err:.3e} (max |logit| "
+          f"{float(want.abs().max()):.3f}); {n} greedy decode steps x {B}: equal "
+          f"tokens, logits max err {derr:.3e}; tolerance {LM_PARITY_TOL} x "
+          f"(1 + |cpu|)")
+    del card
+    free_cuda()
+
+
+def phase_lm_full(device, lm=LM):
+    """Full width: kernel vs plain path, one prefill, the serve CLI.
+    Returns the kernel launches counted over the prefill."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    from repro_torch.launch import serve
+    from repro_torch.nn import attention
+    from repro_torch.nn.module import param_bytes, param_count
+    cuda = device.type == "cuda"
+    spec = get_arch(lm["arch"])
+    S = spec.shapes[lm["shape"]].dims["seq"]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = spec.build(device=device, seed=SEED)
+    sync(model.lm_head)
+    cfg = model.cfg
+    print(f"[lm-full] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {param_count(model)} params, "
+          f"{param_bytes(model)} bytes ({cfg.dtype}), drawn on the device in "
+          f"{time.perf_counter() - t0:.2f}s")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    # the kernel path against the plain-attention path
+    toks = torch.randint(0, cfg.vocab, (1, lm["check_s"]), generator=gen,
+                         device=device)
+    # and both against attention computed in f32 throughout (a yardstick
+    # of bf16's own noise over the depth)
+    f32_attention = lambda q, k, v, causal=True: ref.attention_ref(
+        q.float(), k.float(), v.float(), causal).to(q.dtype)
+    h_kernel = model.hidden_states(toks)
+    with mock.patch.object(attention, "flash_attention", ref.attention_ref):
+        h_plain = model.hidden_states(toks)
+    with mock.patch.object(attention, "flash_attention", f32_attention):
+        h_f32 = model.hidden_states(toks)
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / b.float().norm())
+    path_err = rel(h_kernel, h_plain)
+    from_f32 = rel(h_kernel, h_f32), rel(h_plain, h_f32)
+    same_next = bool(torch.equal((h_kernel[:, -1] @ model.lm_head).argmax(-1),
+                                 (h_plain[:, -1] @ model.lm_head).argmax(-1)))
+    print(f"[lm-full] S={lm['check_s']}: kernel path vs plain-attention "
+          f"path: final hidden states ||diff||/||plain|| {path_err:.3e} "
+          f"(tolerance {LM_PATH_TOL}); same next token: {same_next}; vs f32 "
+          f"attention: kernel {from_f32[0]:.3e}, plain {from_f32[1]:.3e} "
+          f"(kernel at most {LM_PATH_RATIO}x plain)")
+    check(path_err <= LM_PATH_TOL, f"kernel path vs plain path: "
+                                   f"{path_err:.3e}")
+    check(from_f32[0] <= LM_PATH_RATIO * from_f32[1],
+          f"kernel path {from_f32[0]:.3e} from f32 attention, plain path "
+          f"{from_f32[1]:.3e}")
+    del h_kernel, h_plain, h_f32
+
+    # one prefill of the assigned shape at batch 1
+    toks = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=device)
+    prefill = spec.step(model, lm["shape"])
+    sync(toks)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(toks)
+    sync(logits)
+    secs = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    check(logits.shape == (1, cfg.vocab) and bool(logits.isfinite().all()),
+          "prefill logits misshapen or not finite")
+    if cuda:
+        check(launches["flash_attention"] == cfg.n_layers,
+              f"the prefill launched the flash kernel {launches} times, "
+              f"expected {cfg.n_layers}")
+    print(f"[lm-full] prefill S={S} batch 1: {secs:.3f}s = "
+          f"{S / secs:.1f} tokens/s; launches {launches}; logits finite")
+    if cuda:
+        lm_profile(f"one prefill S={S}", lambda: prefill(toks))
+    del model, prefill, logits, toks
+    free_cuda()
+
+    # the serve CLI: batch 4, greedy, from an empty cache
+    n = lm["decode_tokens"]
+    model, generated, secs = serve.main(
+        ["--arch", lm["arch"], "--tokens", str(n), "--device", str(device)])
+    check(generated.shape == (4, n) and int(generated.min()) >= 0
+          and int(generated.max()) < cfg.vocab, "served tokens out of range")
+    # the same decode again, warm
+    cache = model.init_cache(4, n + 8)
+    tok = generated[:, :1].to(device)
+    sync(tok)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        lg, cache = model.decode_step(cache, tok)
+        tok = torch.argmax(lg[:, -1:], dim=-1)
+    sync(tok)
+    warm = time.perf_counter() - t0
+    if cuda:
+        lm_profile("one warm decode step, batch 4",
+                   lambda: model.decode_step(cache, tok))
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    print(f"[lm-full] serve: {4 * n / secs:.1f} tokens/s over its {n} steps "
+          f"(first step included); warm decode batch 4: {4 * n / warm:.1f} "
+          f"tokens/s; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    del model, cache
+    free_cuda()
+    return launches
+
+
+def phase_lm_time(device, launches, max_err, lm=LM):
+    """The kernel at the prefill shape beside its bound, its plain version
+    and the library's fused attention (timed only, never on the path)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v = make_qkv(gen, torch.bfloat16, *lm["prefill_qkv"])
+    B, S, H, D = q.shape
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=True))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    # causal: S (S + 1) / 2 visible (query, key) pairs per head, two
+    # matmuls of 2 D FLOPs each; q, k, v read once, o written once
+    flops = 4 * D * H * B * (S * (S + 1) // 2)
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_OPS_PER_S
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes > t_ops else "operations"
+    print(f"[lm-time] flash_attention bf16 q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)} causal: {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s); bound {bound:.3f} ms by {by} ({flops} FLOPs, "
+          f"{n_bytes} bytes); plain {plain_ms:.3f} ms; "
+          f"scaled_dot_product_attention (flash backend) {lib_ms:.3f} ms")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
+            "launches": launches["flash_attention"], "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms}
+
 def main():
     try:
         import torch
@@ -537,6 +943,11 @@ def main():
     result = phase_timing(pipe, launches, errs)
     del pipe
     phase_profile(FULL, device)
+    free_cuda()
+    fa_err = phase_lm_kernel(device)
+    phase_lm_parity(device)
+    lm_launches = phase_lm_full(device)
+    result["kernels"].append(phase_lm_time(device, lm_launches, fa_err))
     print("[card] all times above on this card:")
     print(card)
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

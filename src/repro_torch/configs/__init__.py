@@ -1,0 +1,20 @@
+"""Architecture registry of the port: ``--arch <id>`` resolves here.
+
+Counterpart of `repro/configs/__init__.py`, over the architectures ported
+so far. Each module defines SPEC: configs.base.ArchSpec.
+"""
+from __future__ import annotations
+
+from importlib import import_module
+
+_MODULES = {
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "d3gnn-sage": "repro_torch.configs.d3gnn_sage",
+}
+
+
+def get_arch(arch_id: str):
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown or unported arch {arch_id!r}; ported: "
+                       f"{sorted(_MODULES)}")
+    return import_module(_MODULES[arch_id]).SPEC

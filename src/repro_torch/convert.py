@@ -1,8 +1,9 @@
-"""Parameter conversion from the JAX package's pytree.
+"""Parameter conversion from the JAX package's pytrees.
 
 Torch cannot reproduce `jax.random`, so the parity tests initialise a
-model with the JAX `GraphSAGE.init`, convert the pytree to numpy, and load
-it here; both packages then compute the same function.
+model with the JAX `init` (`GraphSAGE.init`, `TransformerLM.init`),
+convert the pytree to numpy, and load it here; both packages then compute
+the same function.
 """
 from __future__ import annotations
 
@@ -30,4 +31,40 @@ def params_from_numpy(tree: dict) -> dict:
             for leaf, arr in layer[jax_name].items():
                 out[f"layers.{i}.{port_name}.{leaf}"] = torch.tensor(
                     np.asarray(arr, np.float32))
+    return out
+
+
+def _flatten(tree: dict, prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flatten(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def lm_params_from_numpy(tree: dict, cfg) -> dict:
+    """JAX `TransformerLM.init` pytree (leaves numpy arrays) -> a
+    `state_dict` for `repro_torch.nn.transformer.TransformerLM(cfg)`.
+
+    Every leaf under "groups" is stacked [n_groups, ...] by `jax.vmap`;
+    group g's block "b<j>" becomes layer g * len(cfg.pattern) + j, so
+    "groups.b0.attn.wq"[g] maps to "blocks.<g>.attn.wq". Weights keep JAX's
+    [in, out] layout and are cast to cfg.dtype, as the port stores them."""
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE blocks are not ported (ROADMAP "
+                                  "Queue 1 item 14)")
+    dtype = cfg.torch_dtype
+    as_t = lambda a: torch.tensor(np.asarray(a, np.float32)).to(dtype)
+    out = {"embed.table": as_t(tree["embed"]["table"]),
+           "final_norm.scale": as_t(tree["final_norm"]["scale"]),
+           "lm_head": as_t(tree["lm_head"])}
+    n_b = len(cfg.pattern)
+    for j in range(n_b):
+        for name, stacked in _flatten(tree["groups"][f"b{j}"]):
+            if stacked.shape[0] != cfg.n_groups:
+                raise ValueError(f"groups.b{j}.{name} stacks "
+                                 f"{stacked.shape[0]} groups, config has "
+                                 f"{cfg.n_groups}")
+            for g in range(cfg.n_groups):
+                out[f"blocks.{g * n_b + j}.{name}"] = as_t(stacked[g])
     return out

@@ -1,14 +1,21 @@
-"""Serving launcher: the streaming-GNN online pipeline (d3gnn-sage).
+"""Serving launcher: the streaming-GNN online pipeline (d3gnn-sage) or LM
+batched greedy decode (mistral-nemo-12b), selected by --arch.
 
-Counterpart of the `d3gnn-sage` stream path of `repro/launch/serve.py`,
-with the same flags plus --device and --dims; it prints the same line.
+Counterpart of `repro/launch/serve.py`, with the same flags plus --device
+and --dims; each path prints the same line.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --edges 1500
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --edges 1500 --driver tick
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mistral-nemo-12b --tokens 32                # full width
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mistral-nemo-12b --reduced --device cpu
 
 The weights are random (torch.Generator, seed 0): the pinned RMI and
-cross-part counts do not depend on their values.
+cross-part counts do not depend on their values. The LM runs at full
+width unless --reduced is given (the JAX launcher always builds the
+reduced model, ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -54,10 +61,41 @@ def serve_stream(args):
     return pipe
 
 
+def serve_lm(args):
+    """Greedy decode of --tokens tokens for 4 random prompts from an empty
+    cache of --tokens + 8 slots; prints the JAX launcher's line and returns
+    (model, generated tokens [4, --tokens], seconds)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    spec = get_arch(args.arch)
+    build = spec.build_reduced if args.reduced else spec.build
+    model = build(device=args.device)
+    B = 4
+    cache = model.init_cache(B, args.tokens + 8)
+    tok = torch.as_tensor(np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (B, 1)), device=model.device)
+    out = []
+    t0 = time.perf_counter()
+    for _ in range(args.tokens):
+        logits, cache = model.decode_step(cache, tok)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        out.append(tok)
+    generated = torch.cat(out, dim=1).cpu() if out else torch.empty(B, 0)
+    dt = time.perf_counter() - t0
+    print(f"decoded {args.tokens} tokens x {B} seqs in {dt:.2f}s "
+          f"({B * args.tokens / dt:.1f} tok/s)")
+    return model, generated, dt
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="d3gnn-sage", choices=["d3gnn-sage"])
+    ap.add_argument("--arch", default="d3gnn-sage",
+                    choices=["d3gnn-sage", "mistral-nemo-12b"])
     ap.add_argument("--edges", type=int, default=2000)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--reduced", action="store_true",
+                    help="LM: the reduced config instead of full width")
     ap.add_argument("--driver", choices=["super", "tick"], default="super",
                     help="super: T ticks per host sync (default); "
                          "tick: per-tick reference driver")
@@ -72,7 +110,10 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    return serve_stream(parse_args(argv))
+    args = parse_args(argv)
+    if args.arch == "d3gnn-sage":
+        return serve_stream(args)
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,110 @@
+"""Grouped-query attention with RoPE and KV-cache decode.
+
+Counterpart of `repro/nn/attention.py`. Prefill attention goes through
+`kernels/flash_attention`: on a CUDA tensor that is the hand-written kernel
+(the port's counterpart of both `use_flash=True` and the `q_chunk` path,
+which compute the same function), on a CPU tensor its plain version.
+Decode attends one new token against the cache in plain PyTorch, as the
+JAX package leaves it to XLA. The sequence-sharded decode
+(`decode_attend_partial`, `combine_partial_decodes`) belongs to the
+multi-device slice (ROADMAP Queue 1 item 13).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.nn.layers import init_param, lecun
+from repro_torch.nn.rotary import apply_rope
+
+NEG_INF = -1e30
+
+
+def causal_mask(q_len: int, kv_len: int, q_offset: int = 0,
+                device=None) -> torch.Tensor:
+    """[q_len, kv_len] boolean mask; True = attend."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    return kv_pos <= q_pos
+
+
+def mha(q, k, v, mask=None, scale=None):
+    """Reference attention. q: [B,S,H,D]; k/v: [B,T,Kh,D] with H % Kh == 0.
+    Scores are taken in the input dtype and softmaxed in f32, as JAX's
+    `mha` does."""
+    B, S, H, D = q.shape
+    Kh = k.shape[2]
+    G = H // Kh
+    scale = scale if scale is not None else 1.0 / D ** 0.5
+    qg = q.reshape(B, S, Kh, G, D)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    if mask is not None:
+        logits = torch.where(mask[None, None, None], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", w, v).reshape(B, S, H, D)
+
+
+def decode_attend(q, cache_k, cache_v, valid):
+    """Attend q [B,1,H,D] over cache [B,T,Kh,D] with validity mask [B,T]."""
+    B, _, H, D = q.shape
+    Kh = cache_k.shape[2]
+    G = H // Kh
+    qg = q.reshape(B, Kh, G, D)
+    logits = torch.einsum("bkgd,btkd->bkgt", qg, cache_k).float()
+    logits = logits / D ** 0.5
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(cache_v.dtype)
+    return torch.einsum("bkgt,btkd->bkgd", w, cache_v).reshape(B, 1, H, D)
+
+
+class GQAAttention(nn.Module):
+    def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
+                 rope_theta: float = 10000.0, dtype=torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_heads, self.n_kv, self.head_dim = n_heads, n_kv, head_dim
+        self.rope_theta = rope_theta
+        hd, kd = n_heads * head_dim, n_kv * head_dim
+        self.wq = init_param((d_model, hd), lecun, dtype, device, generator)
+        self.wk = init_param((d_model, kd), lecun, dtype, device, generator)
+        self.wv = init_param((d_model, kd), lecun, dtype, device, generator)
+        self.wo = init_param((hd, d_model), lecun, dtype, device, generator)
+
+    def _qkv(self, x, positions):
+        B, S, _ = x.shape
+        q = (x @ self.wq.to(x.dtype)).reshape(B, S, self.n_heads,
+                                              self.head_dim)
+        k = (x @ self.wk.to(x.dtype)).reshape(B, S, self.n_kv, self.head_dim)
+        v = (x @ self.wv.to(x.dtype)).reshape(B, S, self.n_kv, self.head_dim)
+        q = apply_rope(q, positions, self.rope_theta)
+        k = apply_rope(k, positions, self.rope_theta)
+        return q, k, v
+
+    def forward(self, x, positions=None):
+        """Full (prefill) causal self-attention. x: [B,S,d_model]."""
+        B, S, _ = x.shape
+        if positions is None:
+            positions = torch.arange(S, device=x.device).expand(B, S)
+        q, k, v = self._qkv(x, positions)
+        out = flash_attention(q, k, v, causal=True)
+        return out.reshape(B, S, -1) @ self.wo.to(x.dtype)
+
+    def decode(self, x, cache_k, cache_v, cache_len):
+        """One-token decode. x: [B,1,d]; cache_k/v: [B,T,Kh,D]; cache_len:
+        [B] int64 on x's device. Writes the new k/v at cache_len IN PLACE
+        (the JAX package returns updated copies) and returns
+        (out [B,1,d], cache_k, cache_v)."""
+        B, S, _ = x.shape
+        if S != 1:
+            raise ValueError(f"decode takes one token per row, got {S}")
+        q, k, v = self._qkv(x, cache_len[:, None])
+        rows = torch.arange(B, device=x.device)
+        cache_k[rows, cache_len] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, cache_len] = v[:, 0].to(cache_v.dtype)
+        valid = torch.arange(cache_k.shape[1],
+                             device=x.device)[None, :] <= cache_len[:, None]
+        out = decode_attend(q, cache_k, cache_v, valid).reshape(B, 1, -1)
+        return out @ self.wo.to(x.dtype), cache_k, cache_v

@@ -1,15 +1,20 @@
-"""Linear layer, kept in the JAX package's layout.
+"""Core layers kept in the JAX package's layout: Linear, RMSNorm,
+Embedding, SwiGLU.
 
-Counterpart of `repro/nn/layers.py:Linear`. The weight is stored [in, out]
-exactly as the JAX pytree holds it (y = x @ w + b), so
-`convert.params_from_numpy` copies arrays without transposing.
+Counterparts of `repro/nn/layers.py`. Weights are stored [in, out] exactly
+as the JAX pytree holds them (y = x @ w + b), so `convert` copies arrays
+without transposing. The LM layers draw each parameter in f32 on its own
+device with a `torch.Generator` and store it in the model's dtype
+(`init_param`): JAX keeps f32 parameters and casts each to the activation
+dtype at use, so storing them cast gives the matmuls the same operands.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # JAX's lecun_normal: truncated normal on [-2, 2] rescaled to unit variance
@@ -22,6 +27,24 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
     with torch.no_grad():
         return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                                      generator=generator)
+
+
+def init_param(shape, fill: Callable, dtype, device,
+               generator: Optional[torch.Generator] = None) -> nn.Parameter:
+    """A parameter drawn by `fill(t, generator)` into an f32 tensor on
+    `device`, then cast to `dtype`. Inference-only: no gradient."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    fill(t, generator)
+    return nn.Parameter(t.to(dtype), requires_grad=False)
+
+
+def lecun(t, generator):
+    """JAX's lecun_normal for an [in, out] matrix."""
+    lecun_normal_(t, t.shape[-2], generator)
+
+
+def ones(t, generator):
+    t.fill_(1.0)
 
 
 class Linear(nn.Module):
@@ -38,3 +61,48 @@ class Linear(nn.Module):
         if self.b is not None:
             y = y + self.b.to(x.dtype)
         return y
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = init_param((dim,), ones, dtype, device)
+
+    def forward(self, x):
+        # variance in f32; rsqrt cast to x.dtype before the product, as JAX
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        y = x * torch.rsqrt(var + self.eps).to(x.dtype)
+        return y * self.scale.to(x.dtype)
+
+
+class Embedding(nn.Module):
+    """Token table, normal(0, 0.02); a lookup returns the table's dtype
+    (the caller casts, as transformer.py does)."""
+
+    def __init__(self, vocab: int, dim: int, dtype=torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.table = init_param(
+            (vocab, dim), lambda t, g: t.normal_(0.0, 0.02, generator=g),
+            dtype, device, generator)
+
+    def forward(self, ids):
+        return F.embedding(ids, self.table)
+
+
+class SwiGLU(nn.Module):
+    """Gated FFN: (silu(x W_g) * x W_u) W_d — the LLaMA-family FFN."""
+
+    def __init__(self, dim: int, hidden: int, dtype=torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.wg = init_param((dim, hidden), lecun, dtype, device, generator)
+        self.wu = init_param((dim, hidden), lecun, dtype, device, generator)
+        self.wd = init_param((hidden, dim), lecun, dtype, device, generator)
+
+    def forward(self, x):
+        g = F.silu(x @ self.wg.to(x.dtype))
+        u = x @ self.wu.to(x.dtype)
+        return (g * u) @ self.wd.to(x.dtype)

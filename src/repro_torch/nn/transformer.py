@@ -1,0 +1,148 @@
+"""Decoder-only transformer (dense) for prefill and KV-cache decode.
+
+Counterpart of `repro/nn/transformer.py`. The JAX model scans over stacked
+layer groups; here the layers are an `nn.ModuleList` run in a Python loop
+(`convert.lm_params_from_numpy` splits JAX's stacked groups into layers).
+Every parameter is drawn in f32 on the model's device from one
+`torch.Generator` seeded with `seed`, tensor by tensor, and stored in
+`cfg.dtype`, so a full-width model never exists in f32 or on the host.
+
+Ported: prefill (`hidden_states`, `logits`) and decode (`init_cache`,
+`decode_step`) of dense blocks. MoE blocks wait for their slice (ROADMAP
+Queue 1 item 14) and `loss` for the training slice (item 10).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.nn.attention import GQAAttention
+from repro_torch.nn.layers import Embedding, RMSNorm, SwiGLU, init_param, lecun
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    moe: Optional[object] = None  # an MoE config: not ported yet
+    rope_theta: float = 500000.0
+    dtype: str = "bfloat16"
+
+    @property
+    def pattern(self) -> tuple:
+        """Block pattern within one layer group (JAX's scan unit)."""
+        if self.moe is None:
+            return ("dense",)
+        every = self.moe.every
+        return tuple(["dense"] * (every - 1) + ["moe"])
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
+class Block(nn.Module):
+    """Pre-norm block: x += attn(norm(x)); x += ffn(norm(x))."""
+
+    def __init__(self, cfg: TransformerConfig, kind: str, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if kind != "dense":
+            raise NotImplementedError(
+                f"{kind!r} blocks are not ported: MoE layers belong to the "
+                "off-path zoo (ROADMAP Queue 1 item 14)")
+        c, dt = cfg, cfg.torch_dtype
+        self.norm1 = RMSNorm(c.d_model, dtype=dt, device=device)
+        self.attn = GQAAttention(c.d_model, c.n_heads, c.n_kv, c.head_dim,
+                                 c.rope_theta, dtype=dt, device=device,
+                                 generator=generator)
+        self.norm2 = RMSNorm(c.d_model, dtype=dt, device=device)
+        self.ffn = SwiGLU(c.d_model, c.d_ff, dtype=dt, device=device,
+                          generator=generator)
+
+    def forward(self, x, positions):
+        x = x + self.attn(self.norm1(x), positions)
+        return x + self.ffn(self.norm2(x))
+
+    def decode(self, x, ck, cv, cache_len):
+        h, ck, cv = self.attn.decode(self.norm1(x), ck, cv, cache_len)
+        x = x + h
+        return x + self.ffn(self.norm2(x)), ck, cv
+
+
+class TransformerLM(nn.Module):
+    """`device=None` is CUDA (raises without it); pass "cpu" for the CPU."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        dt = cfg.torch_dtype
+        self.embed = Embedding(cfg.vocab, cfg.d_model, dtype=dt,
+                               device=self.device, generator=gen)
+        self.blocks = nn.ModuleList(
+            Block(cfg, cfg.pattern[i % len(cfg.pattern)], self.device, gen)
+            for i in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.d_model, dtype=dt, device=self.device)
+        self.lm_head = init_param((cfg.d_model, cfg.vocab), lecun, dt,
+                                  self.device, gen)
+
+    # ---- forward ----
+    @torch.no_grad()
+    def hidden_states(self, tokens):
+        """tokens [B,S] -> final hidden [B,S,d] (after the final norm)."""
+        B, S = tokens.shape
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        x = self.embed(tokens.to(self.device)).to(self.cfg.torch_dtype)
+        for blk in self.blocks:
+            x = blk(x, positions)
+        return self.final_norm(x)
+
+    @torch.no_grad()
+    def logits(self, tokens):
+        x = self.hidden_states(tokens)
+        return (x @ self.lm_head.to(x.dtype)).float()
+
+    # ---- decode ----
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
+        """JAX's cache layout: k/v [n_groups, blocks per group, B, T, Kh,
+        D] and the per-row length."""
+        c = self.cfg
+        shape = (c.n_groups, len(c.pattern), batch, max_len, c.n_kv,
+                 c.head_dim)
+        dtype = dtype or c.torch_dtype
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device),
+                "len": torch.zeros(batch, dtype=torch.int64,
+                                   device=self.device)}
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens):
+        """tokens [B,1] -> (logits [B,1,vocab] f32, cache). The new k/v are
+        written into cache["k"]/cache["v"] in place; "len" is a new
+        tensor."""
+        x = self.embed(tokens.to(self.device)).to(self.cfg.torch_dtype)
+        n_b = len(self.cfg.pattern)
+        for i, blk in enumerate(self.blocks):
+            g, j = divmod(i, n_b)
+            x, _, _ = blk.decode(x, cache["k"][g, j], cache["v"][g, j],
+                                 cache["len"])
+        x = self.final_norm(x)
+        logits = (x @ self.lm_head.to(x.dtype)).float()
+        return logits, {"k": cache["k"], "v": cache["v"],
+                        "len": cache["len"] + 1}

@@ -35,7 +35,11 @@ def test_no_jax_or_repro_imports(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch.core.pipeline, repro_torch.launch.serve, "
-            "repro_torch.kernels.segment_reduce.ops, repro_torch.convert; "
+            "repro_torch.kernels.segment_reduce.ops, repro_torch.convert, "
+            "repro_torch.nn.attention, repro_torch.nn.transformer, "
+            "repro_torch.configs, repro_torch.configs.mistral_nemo_12b, "
+            "repro_torch.configs.d3gnn_sage, "
+            "repro_torch.kernels.flash_attention.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -45,6 +49,7 @@ def test_import_leaves_jax_out():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import get_arch
     from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
     from repro_torch.graph.sage import GraphSAGE
     from repro_torch.launch import serve
@@ -55,6 +60,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         D3Pipeline(GraphSAGE((4, 4)), cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--edges", "10"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "mistral-nemo-12b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "mistral-nemo-12b", "--reduced"])
+    spec = get_arch("mistral-nemo-12b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spec.step(spec.build_reduced(), "prefill_32k")
 
 
 def test_kernel_build_needs_no_nvcc_at_import():
@@ -63,3 +75,4 @@ def test_kernel_build_needs_no_nvcc_at_import():
     from repro_torch.kernels import cuda_lib
     assert cuda_lib._LOADED == {}
     assert (cuda_lib.CSRC / "segment_reduce.cu").exists()
+    assert (cuda_lib.CSRC / "flash_attention.cu").exists()

@@ -1,0 +1,300 @@
+"""The port's LM serve path (repro_torch.nn.{rotary,layers,attention,
+transformer}, configs, convert, launch.serve) against the JAX package on
+the CPU, on mistral-nemo-12b's REDUCED config (f32, 4 layers, head_dim 16)
+with the parameters of JAX's `TransformerLM.init` carried over by
+`convert.lm_params_from_numpy`.
+
+Tolerances (f32): 1e-5 for RoPE and the layers; 1e-4 for hidden states,
+logits and the prefill step at S = 512, where JAX runs its chunked
+attention (q_chunk 256) and the port the flash kernel's plain version;
+2e-4 for decode logits, the bound of tests/test_models_smoke.py:68. Greedy
+tokens are equal.
+
+The JAX model compiles slowly on the CPU, so each JAX result is computed
+once per module (module-scoped fixtures).
+"""
+import re
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.configs import get_arch as jax_get_arch
+from repro.configs.base import lm_input_specs as jax_lm_input_specs
+from repro.configs.base import lm_step as jax_lm_step
+from repro.nn import layers as jlayers
+from repro.nn.module import param_count as jax_param_count
+from repro.nn.rotary import apply_rope as jax_apply_rope
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import LM_SHAPES
+from repro_torch.configs.mistral_nemo_12b import CONFIG, REDUCED
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.launch import serve
+from repro_torch.nn import layers
+from repro_torch.nn.module import param_bytes, param_count
+from repro_torch.nn.rotary import apply_rope
+from repro_torch.nn.transformer import TransformerLM
+
+ARCH = "mistral-nemo-12b"
+S_PREFILL, B = 512, 2
+N_DECODE, B_DECODE = 8, 4
+
+
+@pytest.fixture(scope="module")
+def jax_lm():
+    model = jax_get_arch(ARCH).build_reduced()
+    params = model.init(jax.random.key(0))
+    return model, params
+
+
+@pytest.fixture(scope="module")
+def port_lm(jax_lm):
+    _, params = jax_lm
+    tree = jax.tree.map(np.asarray, params)
+    model = TransformerLM(REDUCED, device="cpu")
+    model.load_state_dict(lm_params_from_numpy(tree, REDUCED))
+    return model
+
+
+@pytest.fixture(scope="module")
+def tokens():
+    return np.random.default_rng(0).integers(0, REDUCED.vocab,
+                                             (B, S_PREFILL))
+
+
+@pytest.fixture(scope="module")
+def jax_forward(jax_lm, tokens):
+    model, params = jax_lm
+    toks = jnp.asarray(tokens, jnp.int32)
+    hidden = jax.jit(lambda p, t: model.hidden_states(p, t)[0])(params, toks)
+    logits = jax.jit(model.logits)(params, toks)
+    prefill = jax.jit(jax_lm_step(model, "prefill_32k"))(params, toks)
+    return np.asarray(hidden), np.asarray(logits), np.asarray(prefill)
+
+
+@pytest.fixture(scope="module")
+def jax_greedy(jax_lm):
+    """N_DECODE greedy steps from random prompts, as serve_lm runs them."""
+    model, params = jax_lm
+    cache = model.init_cache(B_DECODE, N_DECODE + 8)
+    tok = jnp.asarray(np.random.default_rng(1).integers(
+        0, REDUCED.vocab, (B_DECODE, 1)), jnp.int32)
+    decode = jax.jit(model.decode_step)
+    toks, logits = [], []
+    for _ in range(N_DECODE):
+        lg, cache = decode(params, cache, tok)
+        tok = jnp.argmax(lg[:, -1:], axis=-1).astype(jnp.int32)
+        toks.append(np.asarray(tok))
+        logits.append(np.asarray(lg))
+    return np.concatenate(toks, 1), np.stack(logits)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+# ------------------------------------------------------------- layers
+@pytest.mark.parametrize("theta", [10000.0, 1000000.0])
+def test_apply_rope_matches_jax(theta):
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 24, 4, 16)).astype(np.float32)
+    pos = rng.integers(0, 40000, (2, 24))
+    want = jax_apply_rope(jnp.asarray(x), jnp.asarray(pos, jnp.int32), theta)
+    got = apply_rope(_t(x), _t(pos), theta)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_rmsnorm_matches_jax():
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(3, 5, 64)).astype(np.float32) * 3
+    scale = rng.normal(size=64).astype(np.float32)
+    want = jlayers.RMSNorm(64)({"scale": jnp.asarray(scale)}, jnp.asarray(x))
+    norm = layers.RMSNorm(64, device="cpu")
+    norm.scale.copy_(_t(scale))
+    np.testing.assert_allclose(norm(_t(x)).numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_swiglu_matches_jax():
+    mod = jlayers.SwiGLU(64, 160)
+    params = mod.init(jax.random.key(4))
+    x = np.random.default_rng(4).normal(size=(2, 7, 64)).astype(np.float32)
+    ffn = layers.SwiGLU(64, 160, device="cpu")
+    ffn.load_state_dict({k: _t(v) for k, v in params.items()})
+    np.testing.assert_allclose(ffn(_t(x)).numpy(),
+                               np.asarray(mod(params, jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_embedding_takes_in_table_dtype():
+    emb = layers.Embedding(10, 4, dtype=torch.bfloat16, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    out = emb(torch.tensor([[1, 9]]))
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 2, 4)
+    assert torch.equal(out[0, 1], emb.table[9])
+
+
+@pytest.mark.parametrize("S,T,q_offset", [(9, 9, 0), (3, 11, 8)])
+def test_mha_matches_jax(S, T, q_offset):
+    """The reference attention with a causal mask (offset queries: the last
+    S of T positions), GQA 4 heads over 2."""
+    from repro.nn.attention import causal_mask as jax_causal_mask
+    from repro.nn.attention import mha as jax_mha
+    from repro_torch.nn.attention import causal_mask, mha
+    rng = np.random.default_rng(S + T)
+    q = rng.normal(size=(2, S, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(2, T, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(2, T, 2, 16)).astype(np.float32)
+    mask = causal_mask(S, T, q_offset)
+    np.testing.assert_array_equal(mask.numpy(),
+                                  np.asarray(jax_causal_mask(S, T, q_offset)))
+    want = jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   mask=jax_causal_mask(S, T, q_offset))
+    np.testing.assert_allclose(mha(_t(q), _t(k), _t(v), mask=mask).numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------- model
+def test_param_count_matches_jax(jax_lm, port_lm):
+    assert param_count(port_lm) == jax_param_count(jax_lm[1])
+    assert param_bytes(port_lm) == 4 * param_count(port_lm)     # f32
+
+
+def test_hidden_states_match_jax(port_lm, tokens, jax_forward):
+    got = port_lm.hidden_states(_t(tokens))
+    np.testing.assert_allclose(got.numpy(), jax_forward[0], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_logits_match_jax(port_lm, tokens, jax_forward):
+    got = port_lm.logits(_t(tokens))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), jax_forward[1], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_prefill_step_matches_jax(port_lm, tokens, jax_forward):
+    got = get_arch(ARCH).step(port_lm, "prefill_32k")(_t(tokens))
+    assert got.shape == (B, REDUCED.vocab)
+    np.testing.assert_allclose(got.numpy(), jax_forward[2], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_greedy_decode_matches_jax(port_lm, jax_greedy):
+    want_toks, want_logits = jax_greedy
+    cache = port_lm.init_cache(B_DECODE, N_DECODE + 8)
+    tok = _t(np.random.default_rng(1).integers(0, REDUCED.vocab,
+                                               (B_DECODE, 1)))
+    step = get_arch(ARCH).step(port_lm, "decode_32k")
+    k, v, length = cache["k"], cache["v"], cache["len"]
+    toks, logits = [], []
+    for _ in range(N_DECODE):
+        lg, k, v, length = step(tok, k, v, length)
+        tok = torch.argmax(lg[:, -1:], dim=-1)
+        toks.append(tok.numpy())
+        logits.append(lg.numpy())
+    np.testing.assert_array_equal(np.concatenate(toks, 1), want_toks)
+    np.testing.assert_allclose(np.stack(logits), want_logits, rtol=2e-4,
+                               atol=2e-4)
+    assert length.tolist() == [N_DECODE] * B_DECODE
+
+
+def test_decode_matches_forward(port_lm, tokens):
+    """Decode logits, one token at a time, equal the forward's slice."""
+    S = 12
+    toks = _t(tokens[:, :S])
+    full = port_lm.logits(toks)
+    cache = port_lm.init_cache(B, S + 4)
+    outs = []
+    for t in range(S):
+        lg, cache = port_lm.decode_step(cache, toks[:, t:t + 1])
+        outs.append(lg[:, 0])
+    np.testing.assert_allclose(torch.stack(outs, 1).numpy(), full.numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------------------------- configs
+def test_input_specs_match_jax_shapes(jax_lm, port_lm):
+    spec = get_arch(ARCH)
+    for shape in LM_SHAPES:
+        want = jax_lm_input_specs(jax_lm[0], shape)
+        got = spec.input_specs(port_lm, shape)
+        assert set(got) == set(want)
+        for name, (shp, _) in got.items():
+            assert shp == tuple(want[name].shape), (shape, name)
+
+
+def test_full_config_is_the_published_one():
+    jcfg = jax_get_arch(ARCH).build().cfg
+    for f in ("n_layers", "d_model", "n_heads", "n_kv", "head_dim", "d_ff",
+              "vocab", "rope_theta", "dtype"):
+        assert getattr(CONFIG, f) == getattr(jcfg, f), f
+    c = CONFIG
+    per_layer = (2 * c.d_model + c.d_model * c.head_dim
+                 * (2 * c.n_heads + 2 * c.n_kv) + 3 * c.d_model * c.d_ff)
+    assert (2 * c.vocab * c.d_model + c.d_model
+            + c.n_layers * per_layer) == 12_247_782_400
+
+
+def test_d3gnn_input_specs_match_jax_shapes():
+    want = jax_get_arch("d3gnn-sage").input_specs(None, "stream_tick")
+    got = get_arch("d3gnn-sage").input_specs(None, "stream_tick")
+    assert got["now"][0] == ()
+    for group in ("topo", "state0", "state1", "inbox", "eb", "rb"):
+        for name, (shp, _) in got[group].items():
+            assert shp == tuple(getattr(want[group], name).shape), name
+
+
+def test_d3gnn_step_runs_an_empty_tick():
+    """The d3gnn-sage step (both layers' ticks) on a tiny empty state: no
+    record is valid, so nothing is emitted and no state changes."""
+    from repro_torch.core.events import EdgeBatch, FeatBatch, ReplBatch
+    from repro_torch.core.state import init_layer, init_topo
+    spec = get_arch("d3gnn-sage")
+    topo = init_topo(2, 8, 8, 8, "cpu")
+    s0, s1 = init_layer(2, 8, 8, 8, "cpu"), init_layer(2, 8, 8, 8, "cpu")
+    idx = lambda: torch.zeros(4, dtype=torch.int64)
+    off = torch.zeros(4, dtype=torch.bool)
+    inbox = FeatBatch(part=idx(), slot=idx(), feat=torch.zeros(4, 8),
+                      valid=off)
+    eb = EdgeBatch(part=idx(), edge_slot=idx(), src_slot=idx(),
+                   dst_slot=idx(), dst_master_part=idx(),
+                   dst_master_slot=idx(), valid=off)
+    rb = ReplBatch(part=idx(), repl_slot=idx(), master_slot=idx(),
+                   rep_part=idx(), rep_slot=idx(), valid=off)
+    n0, n1, out = spec.step(spec.build_reduced(), "stream_tick")(
+        topo, s0, s1, inbox, eb, rb, torch.tensor(0))
+    assert not out.valid.any()
+    for new, old in ((n0, s0), (n1, s1)):
+        assert torch.equal(new.feat, old.feat)
+        assert not new.red_pending.any() and not new.fwd_pending.any()
+
+
+def test_unported_paths_raise():
+    with pytest.raises(KeyError, match="unported"):
+        get_arch("llama4-maverick-400b-a17b")
+    with pytest.raises(NotImplementedError, match="training slice"):
+        get_arch(ARCH).step(None, "train_4k")
+    from repro.configs.llama4_maverick_400b_a17b import REDUCED as jmoe
+    from repro_torch.nn.transformer import TransformerConfig
+    moe = TransformerConfig(**{f: getattr(jmoe, f) for f in (
+        "name", "n_layers", "d_model", "n_heads", "n_kv", "head_dim",
+        "d_ff", "vocab", "moe")})
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TransformerLM(moe, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        lm_params_from_numpy({}, moe)
+
+
+# ------------------------------------------------------------- serve CLI
+def test_serve_reduced_cpu_prints_jax_line(capsys):
+    model, generated, _ = serve.main(["--arch", ARCH, "--reduced",
+                                      "--device", "cpu", "--tokens", "5"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert re.fullmatch(r"decoded 5 tokens x 4 seqs in \d+\.\d\ds "
+                        r"\(\d+\.\d tok/s\)", line), line
+    assert model.cfg is REDUCED and generated.shape == (4, 5)
+    assert int(generated.max()) < REDUCED.vocab
