@@ -47,6 +47,29 @@ their memory:
   [lm-time] the kernel at the prefill shape beside its bound, its plain
      version and scaled_dot_product_attention (timed only, as a yardstick).
 
+Then the two-tower recsys serve path (two-tower-retrieval), after the LM
+phases free their memory:
+
+  [rs-kernel] the embedding-bag kernel against its plain version: sum and
+     mean, W in {1, 2, 3, 8, 16}, d in {16, 30, 32, 256}, int32 and int64
+     ids, all-padding bags, ids < -1, ids >= V (NaN in the same bags as
+     the plain version and nowhere else), B = 0 and B = 100; and 4096 bags
+     of the full-width shape (W 8, d 256, the item table's 10,000,384
+     rows) against float64 bags;
+  [rs-parity] the reduced config built on the CPU from a seed, its
+     state_dict copied to the card (TF32 off): serve_p99, serve_bulk and
+     retrieval_cand at small batches agree, one kernel launch per tower;
+  [rs-full] the published widths, the user table cut to 50,000,384 rows
+     for one card (configs/two_tower_retrieval.py), tables drawn on the
+     card: 64 serve_p99 requests through the serve CLI, 2 serve_bulk
+     steps of 262,144 pairs, 2 retrieval_cand queries over 1,000,448
+     candidates; unit-norm user vectors, the first request equal to its
+     plain-lookup path, exact launch counts; users/s with p50/p99 ms,
+     pairs/s, ms per query, peak memory; one request under torch.profiler;
+  [rs-time] the kernel at retrieval_cand's item side (2,000,896 bags)
+     on a fresh item-sized table beside its bound, its plain version and
+     F.embedding_bag (timed only, as a yardstick).
+
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository around it, the script exits non-zero and prints no
 result.
@@ -109,6 +132,20 @@ LM_PARITY_TOL = 1e-4
 # path no farther than LM_PATH_RATIO times the plain path from a path whose
 # attention runs in f32
 LM_PATH_TOL, LM_PATH_RATIO = 3e-2, 1.25
+
+# two-tower serve path at full width (the user table cut for one card);
+# bulk/cand None: the serve_bulk and retrieval_cand shapes of input_specs
+RS = dict(arch="two-tower-retrieval", requests=64, bulk_steps=2, queries=2,
+          bulk=None, cand=None, check_bags=4096, time_bags=2_000_896,
+          time_rows=10_000_384)
+# embedding-bag kernel vs plain version (and vs float64 bags), per element:
+# |diff| <= EB_TOL * (1 + sum_i |w_i row_i|): f32 sums of at most W terms
+# in another order; mean divides once by the same count
+EB_TOL = 1e-6
+# reduced f32 two-tower, card vs CPU, TF32 off; the full-width first
+# request, kernel vs plain lookup: |diff| <= RS_TOL * (1 + |ref|) (f32
+# matmuls in another order; scores are divided by the 0.05 temperature)
+RS_TOL = 1e-5
 
 
 def fail(msg):
@@ -659,7 +696,7 @@ def make_qkv(gen, dtype, B, S, H, Kh, D, T=None):
             torch.randn(B, T, Kh, D, generator=gen, device=dev).to(dtype))
 
 
-def lm_profile(what, fn, top=6):
+def profile_call(tag, what, fn, top=6):
     """Device time by kernel over one call of fn (torch.profiler), beside
     the call's wall time under the profiler."""
     import torch
@@ -677,11 +714,11 @@ def lm_profile(what, fn, top=6):
               if "CUDA" in str(e.device_type) and dev_us(e) > 0
               and e.key != "Command Buffer Full"]
     busy = sum(dev_us(e) for e in events) / 1e3
-    print(f"[lm-profile] {what}: wall {wall:.3f} ms; device busy "
+    print(f"[{tag}] {what}: wall {wall:.3f} ms; device busy "
           f"{busy:.3f} ms ({busy / wall:.3f} of wall); "
           f"{sum(e.count for e in events)} device activities")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
-        print(f"[lm-profile] {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  "
+        print(f"[{tag}] {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  "
               f"{e.key[:90]}")
 
 
@@ -851,7 +888,8 @@ def phase_lm_full(device, lm=LM):
     print(f"[lm-full] prefill S={S} batch 1: {secs:.3f}s = "
           f"{S / secs:.1f} tokens/s; launches {launches}; logits finite")
     if cuda:
-        lm_profile(f"one prefill S={S}", lambda: prefill(toks))
+        profile_call("lm-profile", f"one prefill S={S}",
+                     lambda: prefill(toks))
     del model, prefill, logits, toks
     free_cuda()
 
@@ -872,8 +910,8 @@ def phase_lm_full(device, lm=LM):
     sync(tok)
     warm = time.perf_counter() - t0
     if cuda:
-        lm_profile("one warm decode step, batch 4",
-                   lambda: model.decode_step(cache, tok))
+        profile_call("lm-profile", "one warm decode step, batch 4",
+                     lambda: model.decode_step(cache, tok))
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     print(f"[lm-full] serve: {4 * n / secs:.1f} tokens/s over its {n} steps "
           f"(first step included); warm decode batch 4: {4 * n / warm:.1f} "
@@ -918,6 +956,334 @@ def phase_lm_time(device, launches, max_err, lm=LM):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": lib_ms}
 
+
+# ------------------------------------------------------------- RS phases
+def bags_f64(table, ids, mode):
+    """(float64 bags, per element sum_i |w_i row_i|) with the plain
+    version's semantics, from the gathered rows alone; bags holding an id
+    past the table are left out (their rows count as 0)."""
+    V = table.shape[0]
+    rows = table[ids.clamp(0, V - 1)].double() \
+        * ((ids >= 0) & (ids < V))[..., None]
+    n = (ids >= 0).sum(dim=-1, keepdim=True).clamp(min=1).double() \
+        if mode == "mean" else 1.0
+    return rows.sum(dim=-2) / n, rows.abs().sum(dim=-2) / n
+
+
+def eb_check(ops, ref, table, ids, mode):
+    """The kernel against its plain version on one input: NaN in the same
+    elements, elsewhere within EB_TOL. Returns (max abs err, kernel out)."""
+    import torch
+    got = ops.embedding_bag(table, ids, mode)
+    want = ref.embedding_bag_ref(table, ids, mode)
+    _, mag = bags_f64(table, ids, mode)
+    sync(got)
+    what = (f"mode {mode}, ids {tuple(ids.shape)} {ids.dtype}, d "
+            f"{table.shape[1]}")
+    nan = want.isnan()
+    check(torch.equal(got.isnan(), nan), f"embedding_bag NaN elsewhere "
+                                         f"than the plain version ({what})")
+    err = (got - want).abs().masked_fill(nan, 0.0)
+    worst = float(err.max()) if err.numel() else 0.0
+    check(bool((err <= EB_TOL * (1 + mag)).all()),
+          f"embedding_bag disagrees ({what}): max err {worst}")
+    return worst, got
+
+
+def phase_rs_kernel(device, rs=RS):
+    """Returns the max abs error over every check."""
+    import torch
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.launch.serve import random_bag_ids
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    V, err, n_calls = 1000, 0.0, 0
+
+    def run(table, ids, n_nan_bags):
+        nonlocal err, n_calls
+        for id_dtype in (torch.int32, torch.int64):
+            for mode in ("sum", "mean"):
+                e, got = eb_check(ops, ref, table, ids.to(id_dtype), mode)
+                err, n_calls = max(err, e), n_calls + 1
+                check(int(got.isnan().any(dim=1).sum()) == n_nan_bags
+                      and bool(got[got.isnan().any(dim=1)].isnan().all()),
+                      "embedding_bag: a NaN bag is not NaN throughout")
+
+    for d in (16, 30, 32, 256):
+        table = torch.randn(V, d, generator=gen, device=device)
+        for W in (1, 2, 3, 8, 16):
+            run(table, torch.zeros(0, W, dtype=torch.int64, device=device), 0)
+            ids = torch.randint(-4, V, (100, W), generator=gen, device=device)
+            ids[:5] = -1                      # all-padding bags
+            ids[5] = -3
+            ids[6, W - 1] = V                 # ids past the table: NaN bags
+            ids[7, 0] = V + 12345
+            run(table, ids, 2)
+    # a table 4 bytes off 16-byte alignment: one float per lane
+    flat = torch.randn(V * 32 + 1, generator=gen, device=device)
+    run(flat[1:].view(V, 32), ids[:, :8].clamp(max=V - 1), 0)
+    print(f"[rs-kernel] embedding_bag vs plain passed ({n_calls} calls: sum "
+          f"and mean, W in (1, 2, 3, 8, 16), d in (16, 30, 32, 256), int32 "
+          f"and int64 ids, B in (0, 100), all-padding bags, ids < -1, ids "
+          f">= V as NaN bags, an unaligned table); max abs err {err:.3e}; "
+          f"tolerance {EB_TOL} x (1 + sum |w row|)")
+    del table, flat, ids
+
+    # the full-width shape against float64 bags
+    from repro_torch.configs.two_tower_retrieval import CONFIG
+    d, W, V = CONFIG.embed_dim, CONFIG.max_ids_per_field, rs["time_rows"]
+    table = torch.randn(V, d, generator=gen, device=device)
+    ids = random_bag_ids(gen, (rs["check_bags"], W), V)
+    e64 = 0.0
+    for mode in ("sum", "mean"):
+        e, got = eb_check(ops, ref, table, ids, mode)
+        err = max(err, e)
+        hi, mag = bags_f64(table, ids, mode)
+        diff = (got.double() - hi).abs()
+        check(bool((diff <= EB_TOL * (1 + mag)).all()),
+              f"embedding_bag vs float64 bags ({mode}): max err "
+              f"{float(diff.max())}")
+        e64 = max(e64, float(diff.max()))
+    print(f"[rs-kernel] full-width shape, {rs['check_bags']} bags of W={W} "
+          f"over a [{V}, {d}] f32 table: vs float64 bags max err "
+          f"{e64:.3e} (tolerance {EB_TOL} x (1 + sum |w row|))")
+    del table, ids, got
+    free_cuda()
+    return err
+
+
+def phase_rs_parity(device, rs=RS):
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.launch.serve import random_bag_ids
+    # f32 matmuls in full f32 on the card (TF32 keeps ~3 decimal digits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = get_arch(rs["arch"])
+    cpu = spec.build_reduced(device="cpu", seed=SEED)
+    card = spec.build_reduced(device=device, seed=SEED + 1)
+    card.load_state_dict(cpu.state_dict())
+    c = cpu.cfg
+    gen = torch.Generator().manual_seed(SEED)
+    W = c.max_ids_per_field
+    users = random_bag_ids(gen, (64, c.user_fields, W), c.user_vocab)
+    items = random_bag_ids(gen, (64, c.item_fields, W), c.item_vocab)
+    cands = random_bag_ids(gen, (2000, c.item_fields, W), c.item_vocab)
+    cases = {"serve_p99": ({"user_ids": users}, 1),
+             "serve_bulk": ({"user_ids": users, "item_ids": items}, 2),
+             "retrieval_cand": ({"user_ids": users[:1], "cand_ids": cands},
+                                2)}
+    errs = {}
+    for shape, (batch, towers) in cases.items():
+        want = spec.step(cpu, shape)(batch)
+        eb.reset_launches()
+        got = spec.step(card, shape)({k: v.to(device)
+                                      for k, v in batch.items()})
+        sync(got)
+        if device.type == "cuda":
+            check(eb.LAUNCHES["embedding_bag"] == towers,
+                  f"reduced {shape} launched {eb.LAUNCHES} kernels, "
+                  f"expected {towers}")
+        err = (got.cpu() - want).abs()
+        check(bool((err <= RS_TOL * (1 + want.abs())).all()),
+              f"reduced {shape}, card vs CPU: max err {float(err.max())}")
+        errs[shape] = float(err.max())
+    print(f"[rs-parity] reduced f32 two-tower, card vs CPU: max err "
+          f"{errs}; one kernel launch per tower call; tolerance {RS_TOL} "
+          f"x (1 + |cpu|)")
+    del card
+    free_cuda()
+
+
+def phase_rs_full(device, rs=RS):
+    """Full width: the serve CLI's serve_p99 requests, serve_bulk steps and
+    retrieval_cand queries. Returns the kernel launches counted over the
+    three (each checked exactly)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import ops as eb, ref as eb_ref
+    from repro_torch.launch import serve
+    from repro_torch.nn.module import param_bytes, param_count
+    cuda = device.type == "cuda"
+    spec = get_arch(rs["arch"])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    eb.reset_launches()
+    n = rs["requests"]
+    model, ids0, u0, secs = serve.main(
+        ["--arch", rs["arch"], "--requests", str(n), "--device",
+         str(device)])
+    launches = eb.LAUNCHES["embedding_bag"]
+    c = model.cfg
+    print(f"[rs-full] {c.name}: user table {tuple(model.user_emb.table.shape)}"
+          f", item table {tuple(model.item_emb.table.shape)} "
+          f"{model.user_emb.table.dtype}, embed_dim {c.embed_dim}, towers "
+          f"{c.tower_mlp}, {c.user_fields}/{c.item_fields} fields of "
+          f"{c.max_ids_per_field} ids; {param_count(model)} params, "
+          f"{param_bytes(model)} bytes, drawn on the device")
+    if cuda:
+        check(launches == n, f"{n} serve_p99 requests launched the kernel "
+                             f"{launches} times")
+    B = ids0.shape[0]
+    ms = np.asarray(secs) * 1e3
+    print(f"[rs-full] serve_p99: {n} requests x {B} users: "
+          f"{n * B / sum(secs):.1f} users/s; per request p50 "
+          f"{np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} "
+          f"ms, first {ms[0]:.3f} ms; launches {launches}")
+    # the first request: unit norm (0 for a user with no id at all), and
+    # equal to the same request through the plain lookup
+    check(u0.shape == (B, c.tower_mlp[-1]) and bool(u0.isfinite().all()),
+          "user vectors misshapen or not finite")
+    empty = (ids0 < 0).all(dim=-1).all(dim=-1).cpu()
+    norms = u0.norm(dim=-1)
+    check(bool(((norms - 1).abs()[~empty] <= 1e-5).all())
+          and bool((norms[empty] == 0).all()),
+          f"user vectors not of unit norm: {float((norms - 1).abs().max())}")
+    p99_step = spec.step(model, "serve_p99")
+    with mock.patch.object(eb, "embedding_bag", eb_ref.embedding_bag_ref):
+        plain = p99_step({"user_ids": ids0}).cpu()
+    err = (u0 - plain).abs()
+    check(bool((err <= RS_TOL * (1 + plain.abs())).all()),
+          f"first request, kernel vs plain lookup: max err "
+          f"{float(err.max())}")
+    print(f"[rs-full] first request vs its plain-lookup path: max err "
+          f"{float(err.max()):.3e} (tolerance {RS_TOL} x (1 + |plain|)); "
+          f"unit norms within {float((norms - 1).abs()[~empty].max()):.3e} "
+          f"({int(empty.sum())} users without ids)")
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    W = c.max_ids_per_field
+
+    def mlp_flops(n_users, n_items):
+        """f32 FLOPs of the towers' MLPs (2 per multiply-add)."""
+        macs = lambda dims: sum(a * b for a, b in zip(dims, dims[1:]))
+        d = c.embed_dim
+        return 2 * (n_users * macs((d * c.user_fields, *c.tower_mlp))
+                    + n_items * macs((d * c.item_fields, *c.tower_mlp)))
+
+    def timed_steps(shape, n_steps, make_batch, towers, out_shape, what,
+                    flops):
+        """n_steps timed steps (launches counted), then one more under
+        torch.profiler."""
+        step = spec.step(model, shape)
+        eb.reset_launches()
+        times = []
+        for _ in range(n_steps):
+            batch = make_batch()
+            sync(batch["user_ids"])
+            t0 = time.perf_counter()
+            out = step(batch)
+            sync(out)
+            times.append(time.perf_counter() - t0)
+            check(out.shape == out_shape and bool(out.isfinite().all())
+                  and float(out.abs().max()) <= (1 + 1e-5) / c.temperature,
+                  f"{shape} scores misshapen, not finite or past "
+                  f"1/temperature")
+            del batch, out
+        got = eb.LAUNCHES["embedding_bag"]
+        if cuda:
+            check(got == towers * n_steps, f"{n_steps} {shape} steps "
+                                           f"launched the kernel {got} times")
+        print(f"[rs-full] {shape}: {what(times)}; per step "
+              + ", ".join(f"{t * 1e3:.3f} ms" for t in times)
+              + f"; launches {got}; MLPs {flops} f32 FLOPs a step, "
+              f"{flops / PEAK_F32_OPS_PER_S * 1e3:.3f} ms at the f32 peak")
+        if cuda:
+            batch = make_batch()
+            profile_call("rs-profile", f"one {shape} step",
+                         lambda: step(batch), top=8)
+        return got
+
+    bulk = rs["bulk"] or spec.input_specs(model, "serve_bulk")[
+        "user_ids"][0][0]
+    launches += timed_steps(
+        "serve_bulk", rs["bulk_steps"], lambda: {
+            "user_ids": serve.random_bag_ids(
+                gen, (bulk, c.user_fields, W), c.user_vocab),
+            "item_ids": serve.random_bag_ids(
+                gen, (bulk, c.item_fields, W), c.item_vocab)},
+        2, (bulk,), lambda ts: f"{bulk} pairs a step, "
+                               f"{bulk * len(ts) / sum(ts):.1f} pairs/s",
+        mlp_flops(bulk, bulk))
+    cand = rs["cand"] or spec.input_specs(model, "retrieval_cand")[
+        "cand_ids"][0][0]
+    launches += timed_steps(
+        "retrieval_cand", rs["queries"], lambda: {
+            "user_ids": serve.random_bag_ids(
+                gen, (1, c.user_fields, W), c.user_vocab),
+            "cand_ids": serve.random_bag_ids(
+                gen, (cand, c.item_fields, W), c.item_vocab)},
+        2, (1, cand), lambda ts: f"1 query x {cand} candidates, "
+                                 f"{sum(ts) / len(ts) * 1e3:.3f} ms per query",
+        mlp_flops(1, cand))
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    print(f"[rs-full] peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    if cuda:
+        profile_call("rs-profile", f"one serve_p99 request, {B} users",
+                     lambda: p99_step({"user_ids": ids0}).cpu(), top=8)
+    del model, ids0, u0, plain
+    free_cuda()
+    return {"embedding_bag": launches}
+
+
+def phase_rs_time(device, launches, max_err, rs=RS):
+    """The kernel at retrieval_cand's item side (2,000,896 bags of W = 8,
+    d = 256, ~4 valid ids a bag, ids uniform over a fresh item-sized
+    table) beside its bound, its plain version and F.embedding_bag (timed
+    only, never on the path)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.two_tower_retrieval import CONFIG
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.launch.serve import random_bag_ids
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    V, d = rs["time_rows"], CONFIG.embed_dim
+    B, W = rs["time_bags"], CONFIG.max_ids_per_field
+    table = torch.randn(V, d, generator=gen, device=device)
+    ids = random_bag_ids(gen, (B, W), V)
+    got = ops.embedding_bag(table, ids, "mean")
+    want = ref.embedding_bag_ref(table, ids, "mean")
+    mag = ref.embedding_bag_ref(table.abs(), ids, "mean")
+    err = (got - want).abs()
+    check(bool((err <= EB_TOL * (1 + mag)).all()),
+          f"embedding_bag at the timing shape: max err {float(err.max())}")
+    max_err = max(max_err, float(err.max()))
+    del want, mag, err
+    valid = ids >= 0
+    n_valid = int(valid.sum())
+    flat = ids[valid]
+    offsets = torch.zeros(B, dtype=torch.int64, device=device)
+    offsets[1:] = torch.cumsum(valid.sum(dim=1), 0)[:-1]
+    lib = F.embedding_bag(flat, table, offsets, mode="mean")
+    lib_err = float((lib - got).abs().max())
+    del lib, got
+    free_cuda()
+    ms = time_ms(lambda: ops.embedding_bag(table, ids, "mean"))
+    plain_ms = time_ms(lambda: ref.embedding_bag_ref(table, ids, "mean"))
+    lib_ms = time_ms(lambda: F.embedding_bag(flat, table, offsets,
+                                             mode="mean"))
+    # each valid row read once, the ids once, the bags written once; an
+    # add per element of a valid row and a division per output element
+    n_bytes = n_valid * d * 4 + ids.numel() * ids.element_size() + B * d * 4
+    n_ops = n_valid * d + B * d
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_F32_OPS_PER_S
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes > t_ops else "operations"
+    print(f"[rs-time] embedding_bag mean, {B} bags of W={W} ({n_valid} "
+          f"valid ids, {n_valid / B:.3f} a bag) over a [{V}, {d}] f32 "
+          f"table: {ms:.3f} ms ({n_bytes / ms / 1e6:.1f} GB/s); bound "
+          f"{bound:.3f} ms by {by} ({n_bytes} bytes); plain {plain_ms:.3f} "
+          f"ms; F.embedding_bag {lib_ms:.3f} ms (its max diff from the "
+          f"kernel {lib_err:.3e})")
+    del table, ids, flat, offsets
+    free_cuda()
+    return {"name": "embedding_bag", "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag/kernel.py:43",
+            "launches": launches["embedding_bag"], "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms}
+
+
 def main():
     try:
         import torch
@@ -948,6 +1314,11 @@ def main():
     phase_lm_parity(device)
     lm_launches = phase_lm_full(device)
     result["kernels"].append(phase_lm_time(device, lm_launches, fa_err))
+    free_cuda()
+    eb_err = phase_rs_kernel(device)
+    phase_rs_parity(device)
+    rs_launches = phase_rs_full(device)
+    result["kernels"].append(phase_rs_time(device, rs_launches, eb_err))
     print("[card] all times above on this card:")
     print(card)
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -10,6 +10,7 @@ from importlib import import_module
 _MODULES = {
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "d3gnn-sage": "repro_torch.configs.d3gnn_sage",
+    "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
 }
 
 

@@ -1,14 +1,19 @@
 """ArchSpec: the contract between configs and the launchers.
 
 Counterpart of `repro/configs/base.py`. An ArchSpec bundles:
-  * build(device=None, seed=0):         the published config, verbatim
+  * build(device=None, seed=0):         the published config, verbatim,
+    except where one card cannot hold it: the recsys family's build()
+    cuts the two-tower user table to ONE_CARD_USER_VOCAB rows
+    (configs/two_tower_retrieval.py), while its CONFIG keeps the
+    published value
   * build_reduced(device=None, seed=0): a tiny model of the same family
   * shapes:        {shape_name: ShapeSpec}, the assigned input shapes
   * input_specs(model, shape) -> {name: (shape tuple, torch dtype)}
   * step(model, shape) -> the serve step callable
 
-An LM's build and build_reduced run on CUDA unless given a device (and
-raise without CUDA); GraphSAGE is moved to its device by D3Pipeline.
+Families: "lm", "recsys" (two-tower-retrieval), "d3gnn". An LM's and a
+two-tower's build and build_reduced run on CUDA unless given a device
+(and raise without CUDA); GraphSAGE is moved to its device by D3Pipeline.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ class ShapeSpec:
 @dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str                   # "lm" | "d3gnn"
+    family: str                   # "lm" | "recsys" | "d3gnn"
     build: Callable[..., Any]
     build_reduced: Callable[..., Any]
     shapes: Dict[str, ShapeSpec]

@@ -1,7 +1,8 @@
 """Parameter conversion from the JAX package's pytrees.
 
 Torch cannot reproduce `jax.random`, so the parity tests initialise a
-model with the JAX `init` (`GraphSAGE.init`, `TransformerLM.init`),
+model with the JAX `init` (`GraphSAGE.init`, `TransformerLM.init`,
+`TwoTower.init`),
 convert the pytree to numpy, and load it here; both packages then compute
 the same function.
 """
@@ -67,4 +68,23 @@ def lm_params_from_numpy(tree: dict, cfg) -> dict:
                                  f"{cfg.n_groups}")
             for g in range(cfg.n_groups):
                 out[f"blocks.{g * n_b + j}.{name}"] = as_t(stacked[g])
+    return out
+
+
+def two_tower_params_from_numpy(tree: dict) -> dict:
+    """JAX `TwoTower.init` pytree (leaves numpy arrays) -> a `state_dict`
+    for `repro_torch.recsys.two_tower.TwoTower`.
+
+    "user_emb.table" maps to the user EmbeddingBag's table and
+    "user_mlp.l<i>.{w, b}" to "user_mlp.layers.<i>.{w, b}"; the same for
+    the item side. Weights keep JAX's [in, out] layout: nothing is
+    transposed."""
+    out = {}
+    for side in ("user", "item"):
+        out[f"{side}_emb.table"] = torch.tensor(
+            np.asarray(tree[f"{side}_emb"]["table"], np.float32))
+        for key, layer in tree[f"{side}_mlp"].items():
+            for leaf, arr in layer.items():
+                out[f"{side}_mlp.layers.{int(key[1:])}.{leaf}"] = \
+                    torch.tensor(np.asarray(arr, np.float32))
     return out

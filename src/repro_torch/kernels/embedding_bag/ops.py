@@ -1,0 +1,77 @@
+"""Embedding-bag wrapper: checks in PyTorch, gather and reduce in CUDA.
+
+Counterpart of `repro/kernels/embedding_bag/ops.py:embedding_bag`. The
+kernel, `csrc/embedding_bag.cu`, replaces kernel.py:embedding_bag_kernel
+and the `jnp.take` gather before it: it reads each valid row once and
+reduces it into its bag, so no [B*W, d] intermediate exists. Unlike the
+JAX wrapper it takes any bag count (the Pallas kernel asserts
+B % min(64, B) == 0).
+
+The wrapper runs its plain version (`ref.py`) for CPU tensors and, for
+CUDA tensors, launches the kernel or raises. `LAUNCHES` counts kernel
+launches (a plain integer; `reset_launches()` zeroes it) so a run can show
+that its path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.embedding_bag import ref
+
+LAUNCHES = {"embedding_bag": 0}
+
+_ID_DTYPES = {torch.int32: 0, torch.int64: 1}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+_SIGNATURE = [_P, _P, _P] + [_I] * 6 + [_P]
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_lib.load("embedding_bag")
+    lib.d3_embedding_bag.argtypes = _SIGNATURE
+    lib.d3_embedding_bag.restype = ctypes.c_int
+    return lib
+
+
+def _check(table, ids, mode: str) -> None:
+    if mode not in ref.MODES:
+        raise ValueError(f"mode {mode!r} not in {ref.MODES}")
+    if table.ndim != 2 or ids.ndim != 2:
+        raise ValueError(f"need table [V, d] and ids [B, W]; got "
+                         f"{tuple(table.shape)}, {tuple(ids.shape)}")
+    if ids.dtype not in _ID_DTYPES:
+        raise ValueError(f"ids must be int32 or int64, got {ids.dtype}")
+    if table.device != ids.device:
+        raise ValueError(f"table on {table.device}, ids on {ids.device}")
+
+
+def embedding_bag(table, ids, mode: str = "mean"):
+    """table [V, d] f32; ids [B, W] int32/int64, negative = padding ->
+    [B, d] f32 (semantics of `ref.embedding_bag_ref`)."""
+    _check(table, ids, mode)
+    if table.device.type == "cpu":
+        return ref.embedding_bag_ref(table, ids, mode)
+    if table.dtype != torch.float32:
+        raise ValueError(f"the kernel takes an f32 table, got {table.dtype}")
+    if not (table.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("table and ids must be contiguous")
+    (V, d), (B, W) = table.shape, ids.shape
+    out = torch.empty(B, d, dtype=torch.float32, device=table.device)
+    if B * d == 0:
+        return out
+    rc = _lib().d3_embedding_bag(
+        table.data_ptr(), ids.data_ptr(), out.data_ptr(), V, d, B, W,
+        _ID_DTYPES[ids.dtype], int(mode == "mean"),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"embedding_bag launch failed: cudaError {rc}")
+    LAUNCHES["embedding_bag"] += 1
+    return out

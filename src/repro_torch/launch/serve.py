@@ -1,8 +1,11 @@
-"""Serving launcher: the streaming-GNN online pipeline (d3gnn-sage) or LM
-batched greedy decode (mistral-nemo-12b), selected by --arch.
+"""Serving launcher: the streaming-GNN online pipeline (d3gnn-sage), LM
+batched greedy decode (mistral-nemo-12b) or two-tower user-tower requests
+(two-tower-retrieval), selected by --arch.
 
-Counterpart of `repro/launch/serve.py`, with the same flags plus --device
-and --dims; each path prints the same line.
+Counterpart of `repro/launch/serve.py`, with the same flags plus --device,
+--dims and --requests; the GNN and LM paths print the same line. The JAX
+launcher sends two-tower-retrieval into its LM path, which has no cache
+for it (ROADMAP Queue 3); here it answers serve_p99 requests.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --edges 1500
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
@@ -11,11 +14,15 @@ and --dims; each path prints the same line.
         --arch mistral-nemo-12b --tokens 32                # full width
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mistral-nemo-12b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch two-tower-retrieval --requests 64             # full width
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch two-tower-retrieval --reduced --device cpu
 
 The weights are random (torch.Generator, seed 0): the pinned RMI and
-cross-part counts do not depend on their values. The LM runs at full
-width unless --reduced is given (the JAX launcher always builds the
-reduced model, ROADMAP Queue 3).
+cross-part counts do not depend on their values. The LM and the two-tower
+model run at full width unless --reduced is given (the JAX launcher
+always builds the reduced LM, ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -88,14 +95,66 @@ def serve_lm(args):
     return model, generated, dt
 
 
+def random_bag_ids(gen, shape, vocab: int):
+    """Multi-hot ids [..., W] on the generator's device: each bag's length
+    is uniform on 0..W, its ids uniform over [0, vocab), the rest -1."""
+    import torch
+    *lead, W = shape
+    dev = gen.device
+    lengths = torch.randint(0, W + 1, (*lead, 1), generator=gen, device=dev)
+    ids = torch.randint(0, vocab, tuple(shape), generator=gen, device=dev)
+    return ids.masked_fill_(torch.arange(W, device=dev) >= lengths, -1)
+
+
+def serve_recsys(args):
+    """Answer --requests serve_p99 requests, each a batch of 512 users
+    (every field's ids drawn by random_bag_ids, seed 0), the user vectors
+    copied back to the host as a server returns them. Prints one line and
+    returns (model, the first request's ids, its user vectors on the host,
+    per-request seconds)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    spec = get_arch(args.arch)
+    model = (spec.build_reduced if args.reduced else spec.build)(
+        device=args.device)
+    c = model.cfg
+    B = spec.shapes["serve_p99"].dims["batch"]
+    serve = spec.step(model, "serve_p99")
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    cuda = model.device.type == "cuda"
+    first, secs = (None, None), []
+    for _ in range(args.requests):
+        ids = random_bag_ids(gen, (B, c.user_fields, c.max_ids_per_field),
+                             c.user_vocab)
+        if cuda:
+            torch.cuda.synchronize(model.device)
+        t0 = time.perf_counter()
+        vectors = serve({"user_ids": ids}).cpu()
+        secs.append(time.perf_counter() - t0)
+        if first[0] is None:
+            first = (ids, vectors)
+    total = sum(secs)
+    p50, p99 = np.percentile(np.asarray(secs) * 1e3, [50, 99]) if secs \
+        else (0.0, 0.0)
+    print(f"served {args.requests} requests x {B} users in {total:.2f}s "
+          f"({args.requests * B / max(total, 1e-12):.1f} users/s, p50 "
+          f"{p50:.3f} ms, p99 {p99:.3f} ms per request)")
+    return model, *first, secs
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="d3gnn-sage",
-                    choices=["d3gnn-sage", "mistral-nemo-12b"])
+                    choices=["d3gnn-sage", "mistral-nemo-12b",
+                             "two-tower-retrieval"])
     ap.add_argument("--edges", type=int, default=2000)
     ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--requests", type=int, default=64,
+                    help="two-tower: serve_p99 requests of 512 users")
     ap.add_argument("--reduced", action="store_true",
-                    help="LM: the reduced config instead of full width")
+                    help="LM, two-tower: the reduced config instead of "
+                         "full width")
     ap.add_argument("--driver", choices=["super", "tick"], default="super",
                     help="super: T ticks per host sync (default); "
                          "tick: per-tick reference driver")
@@ -113,6 +172,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.arch == "d3gnn-sage":
         return serve_stream(args)
+    if args.arch == "two-tower-retrieval":
+        return serve_recsys(args)
     return serve_lm(args)
 
 

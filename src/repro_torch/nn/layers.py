@@ -1,5 +1,5 @@
 """Core layers kept in the JAX package's layout: Linear, RMSNorm,
-Embedding, SwiGLU.
+Embedding, MLP, SwiGLU.
 
 Counterparts of `repro/nn/layers.py`. Weights are stored [in, out] exactly
 as the JAX pytree holds them (y = x @ w + b), so `convert` copies arrays
@@ -48,13 +48,17 @@ def ones(t, generator):
 
 
 class Linear(nn.Module):
+    """y = x @ w + b; w [in, out] drawn by lecun_normal on `device` (the
+    generator must live there too), b zeros."""
+
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.in_dim, self.out_dim = in_dim, out_dim
-        self.w = nn.Parameter(lecun_normal_(torch.empty(in_dim, out_dim),
-                                            in_dim, generator))
-        self.b = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
+        self.w = nn.Parameter(lecun_normal_(
+            torch.empty(in_dim, out_dim, device=device), in_dim, generator))
+        self.b = nn.Parameter(torch.zeros(out_dim, device=device)) \
+            if use_bias else None
 
     def forward(self, x):
         y = x @ self.w.to(x.dtype)
@@ -90,6 +94,26 @@ class Embedding(nn.Module):
 
     def forward(self, ids):
         return F.embedding(ids, self.table)
+
+
+class MLP(nn.Module):
+    """Linear layers of widths dims = (in, h1, ..., out) with relu between
+    them and none after the last: JAX's MLP with act=relu and
+    final_act=False. Layer i is `layers.<i>` (JAX's "l<i>")."""
+
+    def __init__(self, dims, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            Linear(dims[i], dims[i + 1], generator=generator, device=device)
+            for i in range(len(dims) - 1))
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = torch.relu(x)
+        return x
 
 
 class SwiGLU(nn.Module):

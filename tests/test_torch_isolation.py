@@ -39,7 +39,11 @@ def test_import_leaves_jax_out():
             "repro_torch.nn.attention, repro_torch.nn.transformer, "
             "repro_torch.configs, repro_torch.configs.mistral_nemo_12b, "
             "repro_torch.configs.d3gnn_sage, "
-            "repro_torch.kernels.flash_attention.ops; "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.embedding_bag.ops, "
+            "repro_torch.kernels.embedding_bag.ref, repro_torch.recsys, "
+            "repro_torch.recsys.embedding_bag, repro_torch.recsys.two_tower, "
+            "repro_torch.configs.two_tower_retrieval; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -67,6 +71,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     spec = get_arch("mistral-nemo-12b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spec.step(spec.build_reduced(), "prefill_32k")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "two-tower-retrieval"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "two-tower-retrieval", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_arch("two-tower-retrieval").build_reduced()
 
 
 def test_kernel_build_needs_no_nvcc_at_import():
@@ -76,3 +86,4 @@ def test_kernel_build_needs_no_nvcc_at_import():
     assert cuda_lib._LOADED == {}
     assert (cuda_lib.CSRC / "segment_reduce.cu").exists()
     assert (cuda_lib.CSRC / "flash_attention.cu").exists()
+    assert (cuda_lib.CSRC / "embedding_bag.cu").exists()
