@@ -26,6 +26,32 @@ Phases (any failure exits non-zero; no phase is caught):
   6. device time by operator over one steady-state full-width super-tick
      (torch.profiler), beside its wall and host staging time.
 
+Then the sharded 1-D mesh path, four gloo ranks that share the card (one
+process each, started after the parent frees its memory; every kernel is
+built before any rank starts):
+
+  [mesh-kernel] the route_pack kernel against its plain version, bit for
+     bit (int32 views): N = 0, every row dropped, every bucket
+     overflowing, cap = 1, D in {2, 4} x W in {1, 5, 69, 607}, NaN / Inf /
+     -0.0 rows, hub-skewed destinations, integer columns through the
+     packed wire, and the full-width layer-0 RMI lane (W = 607, 299,008
+     rows: a 32,768-row ring and 266,240 fresh);
+  [mesh-parity] the serve CLI's --edges 1500 stream (dims 16,64,64) at
+     route_cap 2176 (C // D) and 16, each on the card and on the CPU over
+     the same gloo group: integer TickStats of every super-tick, busy and
+     metrics (wire counters included) exactly equal, float state within
+     MESH_TOL;
+  [mesh-full] GraphSAGE (602, 64, 64) with FULL's caps (16 parts a rank),
+     route_cap 4096, route_defer_cap 32,768, 100,000 power-law edges,
+     super-tick driver: no row dropped, route_pack launched 4 times a tick
+     on every rank, the sink within SINK_TOL of the float64 oracle and of a
+     single-rank run whose aggregator counts it equals; edges/s, wire
+     counters, collectives (host syncs) per super-tick, time blocked in
+     all_to_all and peak memory per rank;
+  [mesh-time] route_pack at [mesh-full]'s layer-0 RMI shape and at the
+     dense shape beside its bound, its plain version and zeros +
+     index_copy_ of pre-gathered rows (timed only, as a yardstick).
+
 Then the LM serve path (mistral-nemo-12b), after the phases above free
 their memory:
 
@@ -108,6 +134,25 @@ FULL = dict(n_nodes=40_000, n_edges=400_000, tick_edges=4096,
 # sink vs oracle and vs the scatter backend: |diff| <= SINK_TOL *
 # max(1, |ref|) (streamed f32 sums of telescoping deltas vs a static sum).
 KA_TOL, KB_TOL, SINK_TOL = 1e-5, 1e-6, 1e-4
+
+# the sharded 1-D mesh path: d3gnn-sage at FULL's widths and caps on 4
+# gloo ranks that share the one card (NCCL refuses two ranks on one
+# device). Cuts: 100,000 edges (FULL streams 400,000) to hold the script's
+# time; route_cap 4096 rows a destination bucket (the dense buckets would
+# be 131,072 and 266,240 rows), route_defer_cap 32,768 ring rows a lane a
+# rank. `live` is the share of live rows in the synthetic layer-0 RMI lane
+# [mesh-kernel] and [mesh-time] pack. [mesh-parity] runs the serve CLI's
+# stream (8 parts, 2 a rank) at route_cap 2176 = its RMI lane's C // D
+# (512 + 2 x 4096 rows over 4 ranks) and 16, where rows defer without
+# dropping. Not at 2: two rows a destination a tick cannot drain the
+# stream's backlog within the serve CLI's 64 flush ticks, and serve_stream
+# raises "pipeline failed to terminate" (a CPU run).
+MESH = dict(ranks=4, n_edges=100_000, route_cap=4096, route_defer_cap=32768,
+            live=0.05, parity_edges=1500, parity_caps=(2176, 16),
+            timeout=900)
+# [mesh-parity] float state, card vs CPU: |diff| <= MESH_TOL * (1 + |cpu|)
+# (f32 sums of the same records in another order)
+MESH_TOL = 1e-5
 
 # LM serve path: mistral-nemo-12b at its published widths and depth;
 # prefill_32k's batch cut from 32 to 1
@@ -595,6 +640,386 @@ def phase_profile(full, device, warm_super_ticks=6, top=12):
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"[profile] {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  "
               f"{e.key[:90]}")
+
+
+# ------------------------------------------------------------- mesh phases
+def mesh_inputs(gen, N, D, cap, W, live, hub):
+    """Packed rows [N, W] f32 with NaN payloads, +-Inf and -0.0 planted,
+    destinations over D ranks (hub: power-law, rank 0 the hub's owner),
+    a live mask with `live` of the rows set; and route_plan's plan."""
+    import torch
+    from repro_torch.kernels.route_pack import ops
+    dev = gen.device
+    rows = torch.randn(N, W, generator=gen, device=dev)
+    if N * W:
+        bits = rows.view(torch.int32).reshape(-1)
+        spots = torch.randint(0, N * W, (12,), generator=gen, device=dev)
+        specials = torch.tensor([0x7FC00000, 0x7F800001, -4194304 + 0x1234,
+                                 0x7F800000, -8388608, -2 ** 31],
+                                dtype=torch.int32, device=dev)
+        bits[spots] = specials.repeat(2)
+    dst = (powerlaw_rows(gen, D, N) if hub else
+           torch.randint(0, D, (N,), generator=gen, device=dev))
+    ok = torch.rand(N, generator=gen, device=dev) < live
+    return rows, ops.route_plan(dst, ok, D, cap)
+
+
+def mesh_pack_check(rows, plan, D, cap):
+    """route_pack's kernel against its plain version on one input, bit for
+    bit (int32 views). Returns the number of shipped rows and the max
+    |kernel - plain| over the entries finite in both."""
+    import torch
+    from repro_torch.kernels.route_pack import ops, ref
+    order, ship_s, slot_s, _, starts = plan
+    got = ops.route_pack(rows, order, slot_s, starts, D, cap)
+    want = ref.route_pack_ref(rows[order], slot_s, D * cap)
+    sync(got)
+    check(got.shape == want.shape, f"route_pack gave {tuple(got.shape)}, "
+                                   f"its plain version {tuple(want.shape)}")
+    n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got - want).abs()[fin].max()) if bool(fin.any()) else 0.0
+    check(n_diff == 0,
+          f"route_pack differs from its plain version in {n_diff} 32-bit "
+          f"words, max abs err {err} over finite entries (N={rows.shape[0]}, "
+          f"W={rows.shape[1]}, D={D}, cap={cap})")
+    return int(ship_s.sum()), err
+
+
+def phase_mesh_kernel(device, full=FULL, m=MESH):
+    """The route_pack kernel against its plain version, bit for bit: edge
+    cases, integer columns through the wire, the full-width layer-0 RMI
+    lane. Returns the max |kernel - plain| over every check's entries
+    that are finite in both."""
+    import torch
+    from repro_torch.core.events import MsgBatch
+    from repro_torch.dist import wire
+    from repro_torch.kernels.route_pack import ops
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n_checks, worst = 0, 0.0
+    cases = [  # N, D, cap, W, live, hub
+        (0, 4, 3, 5, 1.0, False),          # nothing to send
+        (300, 4, 5, 69, 0.0, True),        # every row dropped
+        (400, 4, 8, 69, 1.0, False),       # every bucket overflows
+        (77, 2, 1, 5, 0.9, True),          # cap = 1
+        (64, 4, 64, 12, 1.0, False)]       # dense: cap = N, all live
+    cases += [(1000, D, 64, W, 0.7, True) for D in (2, 4)
+              for W in (1, 5, 69, 607)]
+    for N, D, cap, W, live, hub in cases:
+        rows, plan = mesh_inputs(gen, N, D, cap, W, live, hub)
+        worst = max(worst, mesh_pack_check(rows, plan, D, cap)[1])
+        n_checks += 1
+    # integer columns (parts, slots below 2**24) survive the kernel exactly
+    C, d = 5000, 16
+    ri = lambda hi: torch.randint(0, hi, (C,), generator=gen, device=device)
+    b = MsgBatch(part=ri(2 ** 24), slot=ri(2 ** 24),
+                 vec=torch.randn(C, d, generator=gen, device=device),
+                 cnt=torch.randn(C, generator=gen, device=device),
+                 src_part=ri(2 ** 24), valid=ri(2) > 0)
+    D, cap = 4, 700
+    order, ship_s, slot_s, _, starts = ops.route_plan(b.part % D, b.valid, D,
+                                                      cap)
+    buf = wire.pack_lane(b)
+    worst = max(worst, mesh_pack_check(
+        buf, (order, ship_s, slot_s, None, starts), D, cap)[1])
+    sent = wire.unpack_lane(ops.route_pack(buf, order, slot_s, starts, D,
+                                           cap), b)
+    moved = order[ship_s]
+    at = slot_s[ship_s]
+    for name in ("part", "slot", "vec", "cnt", "src_part", "valid"):
+        check(torch.equal(getattr(sent, name)[at], getattr(b, name)[moved]),
+              f"wire field {name} changed through route_pack")
+    n_checks += 1
+    # the full-width layer-0 RMI lane: its ring rows, then its capacity
+    c = full["caps"]
+    D = m["ranks"]
+    C = c["edge_tick_cap"] + c["n_parts"] // D * c["edge_cap"]
+    N, W = m["route_defer_cap"] + C, full["dims"][0] + 5
+    rows, plan = mesh_inputs(gen, N, D, m["route_cap"], W, m["live"], True)
+    n_ship, err = mesh_pack_check(rows, plan, D, m["route_cap"])
+    worst = max(worst, err)
+    n_checks += 1
+    print(f"[mesh-kernel] route_pack vs plain: bit-exact (int32 views) in "
+          f"{n_checks} checks: N = 0, all rows dropped, every bucket "
+          f"overflowing, cap = 1, dense, D in (2, 4) x W in (1, 5, 69, 607), "
+          f"NaN/Inf/-0.0 planted, hub-skewed destinations, integer columns "
+          f"< 2**24 through the wire, and the layer-0 RMI lane at full width "
+          f"(N={N}, W={W}, D={D}, cap={m['route_cap']}, {n_ship} rows "
+          f"shipped); max |kernel - plain| over finite entries {worst}")
+    del rows, plan
+    free_cuda()
+    return worst
+
+
+def _tick_recorder(record):
+    """A D3Pipeline.run_super_tick that also records each call's integer
+    TickStats (per layer: the scalar fields, then the busy vector)."""
+    from repro_torch.core.pipeline import D3Pipeline
+    from repro_torch.core.tick import SCALAR_FIELDS
+    run = D3Pipeline.run_super_tick
+
+    def run_super_tick(self, *a, **k):
+        stats, quiet = run(self, *a, **k)
+        record.append([[int(getattr(s, f)) for f in SCALAR_FIELDS]
+                       + s.busy.tolist() for s in stats])
+        return stats, quiet
+    return run_super_tick
+
+
+def _mesh_parity_rank(mesh, m):
+    """One rank of [mesh-parity]: the serve CLI's stream at each route_cap
+    on this rank's card and on the CPU, over the same gloo group."""
+    import dataclasses
+    import torch
+    from repro_torch.core.pipeline import D3Pipeline
+    from repro_torch.launch import serve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for cap in m["parity_caps"]:
+        for dev in (mesh.device, torch.device("cpu")):
+            view = dataclasses.replace(mesh, device=dev, calls={})
+            record = []
+            args = serve.parse_args(["--edges", str(m["parity_edges"])])
+            with mock.patch.object(D3Pipeline, "run_super_tick",
+                                   _tick_recorder(record)):
+                pipe = serve.serve_stream(args, view, route_cap=cap)
+            st = lambda name: [getattr(ls, name).cpu().numpy()
+                               for ls in pipe.states]
+            out[cap, dev.type] = {
+                "stats": record,
+                "metrics": {k: v for k, v in vars(pipe.metrics).items()
+                            if isinstance(v, int)},
+                "busy": pipe.metrics.busy_logical.tolist(),
+                "agg_cnt": st("agg_cnt"), "agg": st("agg"), "feat": st("feat"),
+                "sink": pipe.sink.cpu().numpy(),
+                "seen": pipe.sink_seen.cpu().numpy()}
+    return out
+
+
+def phase_mesh_parity(device, m=MESH):
+    """4 gloo ranks sharing the card, the serve CLI's --edges 1500 stream
+    (dims 16,64,64) at two route_caps: the card run equals the CPU run
+    exactly on every integer stat and within MESH_TOL on float state."""
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    free_cuda()
+    t0 = time.perf_counter()
+    ranks = spawn_stream_mesh(m["ranks"], _mesh_parity_rank, backend="gloo",
+                              device=device, args=(m,), timeout=m["timeout"])
+    secs = time.perf_counter() - t0
+    worst = 0.0
+    for cap in m["parity_caps"]:
+        for r, res in enumerate(ranks):
+            a, b = res[cap, device.type], res[cap, "cpu"]
+            for key in ("stats", "metrics", "busy"):
+                check(a[key] == b[key], f"[mesh-parity] cap {cap} rank {r}: "
+                                        f"{key} differ, card vs CPU")
+            check(a["metrics"]["route_dropped"] == 0,
+                  f"[mesh-parity] cap {cap}: rows dropped")
+            check(all(np.array_equal(x, y) for x, y in zip(
+                a["agg_cnt"], b["agg_cnt"])) and np.array_equal(
+                a["seen"], b["seen"]), f"[mesh-parity] cap {cap} rank {r}: "
+                                       "counts or sink flags differ")
+            for key in ("agg", "feat", "sink"):
+                for x, y in zip(*((a[key], b[key]) if key != "sink" else
+                                  ([a[key]], [b[key]]))):
+                    err = np.abs(x - y)
+                    check(bool((err <= MESH_TOL * (1 + np.abs(y))).all()),
+                          f"[mesh-parity] cap {cap} rank {r}: {key} max err "
+                          f"{float(err.max())}")
+                    worst = max(worst, float(err.max()) if err.size else 0.0)
+        mt = ranks[0][cap, device.type]["metrics"]
+        print(f"[mesh-parity] route_cap {cap}: card = CPU on "
+              f"{len(ranks[0][cap, 'cpu']['stats'])} super-ticks of integer "
+              f"TickStats, busy and metrics (ticks {mt['ticks']}, RMIs "
+              f"{mt['reduce_msgs']}, cross-part {mt['cross_part_msgs']}, "
+              f"wire_rows {mt['wire_rows']}, wire_bytes {mt['wire_bytes']}, "
+              f"route_deferred {mt['route_deferred']}, route_dropped "
+              f"{mt['route_dropped']})")
+    print(f"[mesh-parity] {m['ranks']} gloo ranks: float state (agg, feat, "
+          f"sink) card vs CPU max err {worst:.3e} (tolerance {MESH_TOL} x "
+          f"(1 + |cpu|)); {secs:.1f}s with the ranks' start")
+
+
+def _mesh_full_rank(mesh, full, m):
+    """One rank of [mesh-full]: the full-width stream, super-tick driver,
+    kernel backend, capped exchange. Returns the rank's measurements."""
+    import torch
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.kernels.route_pack import ops as rp
+    from repro_torch.kernels.segment_reduce import ops as sr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    edges, feats = make_stream(full["n_nodes"], m["n_edges"],
+                               full["dims"][0])
+    cfg = PipelineConfig(**full["caps"], max_nodes=full["n_nodes"],
+                         delivery_backend="kernel",
+                         route_cap=m["route_cap"],
+                         route_defer_cap=m["route_defer_cap"],
+                         window=win.WindowConfig(kind=win.SESSION,
+                                                 interval=4))
+    pipe = D3Pipeline(GraphSAGE(full["dims"], seed=SEED), cfg, mesh=mesh)
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rp.reset_launches()
+    sr.reset_launches()
+    mesh.reset_calls()
+    t0 = time.perf_counter()
+    pipe.run_stream_super(edges, feats, tick_edges=full["tick_edges"],
+                          super_ticks=full["super_ticks"])
+    pipe.flush_super(max_ticks=256, T=full["super_ticks"])
+    if cuda:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {**rp.LAUNCHES, **sr.LAUNCHES}
+    calls = {k: list(v) for k, v in mesh.calls.items()}
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    emb = pipe.embeddings()
+    return {"secs": secs, "launches": launches, "calls": calls,
+            "peak": peak, "host_seconds": pipe.metrics.host_seconds,
+            "metrics": {k: v for k, v in vars(pipe.metrics).items()
+                        if isinstance(v, int)},
+            "emb": emb if mesh.rank == 0 else None,
+            "agg_cnt": [ls.agg_cnt.cpu().numpy() for ls in pipe.states]}
+
+
+def phase_mesh_full(device, full=FULL, m=MESH):
+    """d3gnn-sage at full width on 4 gloo ranks sharing the card; against
+    the float64 oracle and a single-rank LocalRouter run of the stream.
+    Returns the route_pack launches summed over the ranks."""
+    import torch
+    from repro_torch.core.oracle import build_snapshot, oracle_embeddings
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    free_cuda()
+    t0 = time.perf_counter()
+    ranks = spawn_stream_mesh(m["ranks"], _mesh_full_rank, backend="gloo",
+                              device=device, args=(full, m),
+                              timeout=m["timeout"])
+    spawn_secs = time.perf_counter() - t0
+    mt = ranks[0]["metrics"]
+    T, L = full["super_ticks"], len(full["dims"]) - 1
+    n_super = mt["ticks"] // T
+    print(f"[mesh-full] {m['ranks']} gloo ranks on one card, dims "
+          f"{full['dims']}, caps {full['caps']} ({full['caps']['n_parts'] // m['ranks']} "
+          f"parts a rank), route_cap {m['route_cap']}, route_defer_cap "
+          f"{m['route_defer_cap']}, window session(4), driver super(T={T}), "
+          f"{m['n_edges']} edges; {spawn_secs:.1f}s with the ranks' start")
+    print(f"[mesh-full] ticks {mt['ticks']}; RMIs {mt['reduce_msgs']}; "
+          f"cross-part msgs {mt['cross_part_msgs']}; wire_rows "
+          f"{mt['wire_rows']}; wire_bytes {mt['wire_bytes']}; route_deferred "
+          f"{mt['route_deferred']}; route_dropped {mt['route_dropped']}")
+    for r, res in enumerate(ranks):
+        check(res["metrics"] == mt, f"rank {r}'s metrics differ from rank 0's")
+        n_calls = sum(c[0] for c in res["calls"].values())
+        a2a = res["calls"].get("all_to_all", [0, 0.0, 0])
+        print(f"[mesh-full] rank {r}: {res['secs']:.3f}s = "
+              f"{m['n_edges'] / res['secs']:.1f} edges/s; host staging "
+              f"{res['host_seconds']:.3f}s; blocked in all_to_all "
+              f"{a2a[1]:.3f}s ({a2a[1] / res['secs']:.3f} of wall) over "
+              f"{a2a[0]} calls, {a2a[2]} bytes sent; collectives "
+              f"{ {k: c[0] for k, c in res['calls'].items()} } = "
+              f"{n_calls / max(n_super, 1):.1f} per super-tick, each a host "
+              f"sync under gloo, plus 1 stats read a super-tick; launches "
+              f"{res['launches']}; peak memory {res['peak']} bytes "
+              f"({res['peak'] / 2**30:.2f} GiB)")
+        if device.type == "cuda":
+            check(res["launches"]["route_pack"] == 2 * L * mt["ticks"],
+                  f"rank {r} launched route_pack {res['launches']} times, "
+                  f"expected {2 * L} a tick x {mt['ticks']} ticks")
+            check(all(v > 0 for v in res["launches"].values()),
+                  f"rank {r}: a kernel never launched: {res['launches']}")
+    check(mt["route_dropped"] == 0, f"{mt['route_dropped']} rows dropped: "
+                                    "the defer rings are too small")
+    emb = ranks[0]["emb"]
+    check(len(emb) > 0 and all(
+        np.isfinite(v).all() and v.shape == (full["dims"][-1],)
+        for v in emb.values()), "non-finite, misshapen or no embeddings")
+
+    # the same stream on one rank (LocalRouter), and the float64 oracle
+    one = dict(full, n_edges=m["n_edges"])
+    edges, feats = make_stream(full["n_nodes"], m["n_edges"],
+                               full["dims"][0])
+    single, s_secs, _ = stream_pipeline(one, "kernel", device, edges, feats)
+    for li, ls in enumerate(single.states):
+        check(np.array_equal(np.concatenate([r["agg_cnt"][li]
+                                             for r in ranks]),
+                             ls.agg_cnt.cpu().numpy()),
+              f"layer {li}: aggregator counts differ from the single rank")
+    emb1 = single.embeddings()
+    check(set(emb1) == set(emb), "materialized sets differ from the single "
+                                 "rank's")
+    model64 = GraphSAGE(full["dims"], seed=SEED).to(device).double()
+    g, _ = build_snapshot(edges, feats, full["dims"][0], full["n_nodes"],
+                          device, dtype=torch.float64)
+    ref = oracle_embeddings(model64, g).cpu()
+    del model64, g, single
+    errs = {"mesh vs oracle": sink_error(emb, lambda vids: ref[vids]),
+            "single rank vs oracle": sink_error(emb1, lambda vids: ref[vids]),
+            "mesh vs single rank": sink_error(emb, lambda vids: torch.as_tensor(
+                np.stack([emb1[v] for v in vids]), dtype=torch.float64))}
+    for what, (err, vid) in errs.items():
+        print(f"[mesh-full] sink {what}: max |diff|/max(1,|ref|) {err:.3e} "
+              f"at vid {vid}; tolerance {SINK_TOL}")
+        check(err <= SINK_TOL, f"sink {what}: {err:.3e} > {SINK_TOL}")
+    print(f"[mesh-full] the single-rank run of the same stream: {s_secs:.3f}s"
+          f" = {m['n_edges'] / s_secs:.1f} edges/s; aggregator counts equal "
+          f"to the mesh's; materialized {len(emb)}")
+    free_cuda()
+    return sum(r["launches"]["route_pack"] for r in ranks)
+
+
+def phase_mesh_time(device, launches, max_err, full=FULL, m=MESH):
+    """route_pack at [mesh-full]'s layer-0 RMI shape and at the dense shape
+    (route_cap None: cap = C, every row live), beside its bound, its plain
+    version and the library yardstick: index_copy_ of pre-gathered rows
+    into a zeroed buffer (two calls, not one; the gather is not timed).
+    max_err: [mesh-kernel]'s max |kernel - plain|; the checks at these two
+    shapes fold into it."""
+    import torch
+    from repro_torch.kernels.route_pack import ops, ref
+    c = full["caps"]
+    D, W = m["ranks"], full["dims"][0] + 5
+    C = c["edge_tick_cap"] + c["n_parts"] // D * c["edge_cap"]
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    shapes = {"capped": (m["route_defer_cap"] + C, m["route_cap"],
+                         m["live"], True),
+              "dense": (C, C, 1.0, False)}
+    out = {}
+    for name, (N, cap, live, hub) in shapes.items():
+        rows, plan = mesh_inputs(gen, N, D, cap, W, live, hub)
+        order, ship_s, slot_s, _, starts = plan
+        n_ship, err = mesh_pack_check(rows, plan, D, cap)
+        max_err = max(max_err, err)
+        rows_s = rows[order]
+        ms = time_ms(lambda: ops.route_pack(rows, order, slot_s, starts, D,
+                                            cap))
+        plain = time_ms(lambda: ref.route_pack_ref(rows[order], slot_s,
+                                                   D * cap))
+        lib = time_ms(lambda: torch.zeros(D * cap + 1, W, device=device)
+                      .index_copy_(0, slot_s, rows_s))
+        # shipped rows read once with their order entries, starts read,
+        # the send buffer written once; no arithmetic
+        n_bytes = n_ship * W * 4 + n_ship * 8 + (D + 1) * 8 + D * cap * W * 4
+        bound = bound_ms(n_bytes, 0)
+        out[name] = (ms, plain, bound, lib)
+        print(f"[mesh-time] route_pack {name}: N={N} W={W} D={D} cap={cap} "
+              f"shipped {n_ship}: {ms:.4f} ms ({n_bytes / ms / 1e6:.1f} "
+              f"GB/s); bound {bound:.4f} ms by bytes ({n_bytes} bytes); plain "
+              f"{plain:.4f} ms; zeros + index_copy_ of pre-gathered rows "
+              f"{lib:.4f} ms")
+        del rows, plan, rows_s, order, ship_s, slot_s, starts
+        free_cuda()
+    ms, plain, bound, lib = out["capped"]
+    return {"name": "route_pack", "route": "cuda",
+            "source": "src/repro_torch/csrc/route_pack.cu",
+            "replaces": "src/repro/kernels/route_pack/ops.py:70",
+            "launches": launches, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib}
 
 
 # ------------------------------------------------------------- LM phases
@@ -1309,6 +1734,11 @@ def main():
     result = phase_timing(pipe, launches, errs)
     del pipe
     phase_profile(FULL, device)
+    free_cuda()
+    mesh_err = phase_mesh_kernel(device)
+    phase_mesh_parity(device)
+    mesh_launches = phase_mesh_full(device)
+    result["kernels"].append(phase_mesh_time(device, mesh_launches, mesh_err))
     free_cuda()
     fa_err = phase_lm_kernel(device)
     phase_lm_parity(device)

@@ -1,6 +1,6 @@
-"""The D3-GNN dataflow pipeline driver (paper Fig. 1), one device.
+"""The D3-GNN dataflow pipeline driver (paper Fig. 1).
 
-Counterpart of the 1-D local subset of `repro/core/pipeline.py`:
+Counterpart of the 1-D subset of `repro/core/pipeline.py`:
 
 Dataset -> Partitioner -> Splitter -> GraphStorage_1 .. GraphStorage_L -> sink
 
@@ -8,6 +8,14 @@ The host cuts the stream into micro-ticks, assigns parts/slots
 (partitioner.py) and builds padded batches; the device runs one tick per
 GraphStorage operator per tick, layer l's outbox being layer l+1's inbox,
 and the final outbox materializes into the embedding sink.
+
+Distributed execution: pass `mesh=` (a `dist/mesh.py:StreamMesh`, one
+process per rank) and the same program runs on every rank over its block
+of parts (MeshRouter). The host batches are replicated: every rank runs
+the same seeded partitioner over the same stream, as JAX feeds its
+shard_map replicated inputs, and each rank's state tables hold only its
+[Pl, ...] rows. Every method that touches the device is then collective:
+all ranks call it, in the same order.
 
 Two drivers share ONE device program (`_tick_program`: topology apply + L
 layer ticks + sink update):
@@ -18,12 +26,13 @@ layer ticks + sink update):
     of batches (stacked, one host-to-device copy per field), the device
     runs the T tick programs back to back with the stats sums and the
     quiescence counter kept ON THE DEVICE, and the host reads them once
-    per super-tick (exactly one device-to-host sync). Capturing the T
-    ticks as one CUDA graph is a later step (ROADMAP).
+    per super-tick (exactly one device-to-host sync on one device; on a
+    mesh each collective waits for the device too). Capturing the T ticks
+    as one CUDA graph is a later step (ROADMAP).
 
-Planes this slice does not port raise NotImplementedError naming the
-ROADMAP item that will port them: mesh= / n_stages > 1, query_cap > 0,
-train_cap > 0 / train=, telemetry=True, delta_eps > 0, route_cap.
+Planes this port does not have yet raise NotImplementedError naming the
+ROADMAP item that will port them: n_stages > 1 (the 2-D stage program),
+query_cap > 0, train_cap > 0 / train=, telemetry=True, delta_eps > 0.
 """
 from __future__ import annotations
 
@@ -44,14 +53,20 @@ from repro_torch.core.termination import TerminationCoordinator, quiet_update
 from repro_torch.core.tick import (SCALAR_FIELDS, TickStats, add_stats,
                                    layer_tick_body, zero_stats)
 from repro_torch.device import resolve_device
-from repro_torch.dist.router import LocalRouter
+from repro_torch.dist.mesh import StreamMesh
+from repro_torch.dist.router import LocalRouter, MeshRouter
 
 
 @dataclass(frozen=True)
 class Capacities:
-    """Resolved per-tick emission budgets of a config."""
+    """Resolved per-tick budgets of a (config, mesh) pair. Defer-ring rows
+    are GLOBAL (n_devices x per-rank) and 0 whenever the capped exchange
+    cannot overflow (dense default, one device, or route_cap >= the lane
+    capacity)."""
     outbox: int            # per-tick emission budget (rows, all parts)
     outbox_per_part: int   # emission slots per part (outbox // n_parts)
+    bc_defer_rows: int     # broadcast-lane defer-ring rows
+    rmi_defer_rows: int    # RMI-lane defer-ring rows
 
 
 @dataclass
@@ -66,7 +81,13 @@ class PipelineConfig:
     edge_tick_cap: int = 1024         # new-edge records per tick
     query_cap: int = 0                # query plane (not ported yet)
     train_cap: int = 0                # training plane (not ported yet)
-    route_cap: Optional[int] = None   # capped exchange (not ported yet)
+    route_cap: Optional[int] = None   # per-destination all_to_all bucket
+                                      # rows (None = each lane's capacity:
+                                      # the dense, never-overflow wire);
+                                      # overflow defers (dist/router.py)
+    route_defer_cap: Optional[int] = None  # per-rank defer-ring rows per
+                                      # lane (default: the lane's local
+                                      # capacity; 0 = overflow drops)
     window: win.WindowConfig = field(default_factory=win.WindowConfig)
     delta_eps: float = 0.0            # delta gating (not ported yet)
     delivery_backend: str = "kernel"  # "kernel" (CUDA kernels) | "scatter"
@@ -76,24 +97,38 @@ class PipelineConfig:
     max_nodes: int = 100_000          # global id space for the host tables
     seed: int = 0
 
-    def capacities(self) -> Capacities:
+    def capacities(self, n_devices: int = 1) -> Capacities:
+        """Every resolved per-tick budget for a mesh of n_devices ranks
+        (1 covers the LocalRouter)."""
         outbox = self.feat_cap if self.outbox_cap is None else self.outbox_cap
-        return Capacities(outbox=outbox,
-                          outbox_per_part=max(1, outbox // self.n_parts))
+        p_loc = self.n_parts // max(n_devices, 1)
+        return Capacities(
+            outbox=outbox, outbox_per_part=max(1, outbox // self.n_parts),
+            bc_defer_rows=self._defer_rows(p_loc * self.repl_cap, n_devices),
+            rmi_defer_rows=self._defer_rows(
+                self.edge_tick_cap + p_loc * self.edge_cap, n_devices))
 
-    def validate(self) -> None:
-        unported = (
-            (self.n_stages != 1, "n_stages > 1 (pipeline stages)", 13),
-            (self.route_cap is not None, "route_cap (capped exchange)", 13),
-            (self.delta_eps != 0.0, "delta_eps > 0 (delta gating)", 8),
-            (self.query_cap != 0, "query_cap > 0 (query plane)", 9),
-            (self.train_cap != 0, "train_cap > 0 (training plane)", 10),
-            (self.telemetry, "telemetry=True (telemetry plane)", 11))
-        for hit, what, item in unported:
+    def _defer_rows(self, lane_capacity: int, n_devices: int) -> int:
+        if n_devices <= 1 or self.route_cap is None:
+            return 0
+        if self.route_cap >= lane_capacity:    # bucket >= lane: no overflow
+            return 0
+        per_dev = (lane_capacity if self.route_defer_cap is None
+                   else self.route_defer_cap)
+        return n_devices * per_dev
+
+    def _raise_unported(self, checks) -> None:
+        for hit, what, item in checks:
             if hit:
                 raise NotImplementedError(
                     f"PipelineConfig: {what} is not ported to repro_torch "
                     f"yet (ROADMAP Queue 1 item {item})")
+
+    def validate(self, n_devices: int = 1) -> None:
+        """Fail fast with a clear message; n_devices is the mesh size (1
+        for the LocalRouter)."""
+        self._raise_unported(
+            ((self.n_stages != 1, "n_stages > 1 (pipeline stages)", 13),))
         caps = {"n_parts": self.n_parts, "node_cap": self.node_cap,
                 "edge_cap": self.edge_cap, "repl_cap": self.repl_cap,
                 "feat_cap": self.feat_cap,
@@ -102,6 +137,15 @@ class PipelineConfig:
         for name, v in caps.items():
             if v <= 0:
                 raise ValueError(f"PipelineConfig.{name}={v} must be > 0")
+        if self.route_cap is not None and self.route_cap <= 0:
+            raise ValueError(
+                f"PipelineConfig.route_cap={self.route_cap} must be > 0 "
+                "(or None for the dense never-overflow exchange)")
+        if self.route_defer_cap is not None and self.route_defer_cap < 0:
+            raise ValueError(
+                f"PipelineConfig.route_defer_cap={self.route_defer_cap} "
+                "must be >= 0 (0 disables deferral: bucket overflow then "
+                "drops, counted in TickStats.route_dropped)")
         if self.delivery_backend not in DELIVERY_BACKENDS:
             raise ValueError(
                 f"PipelineConfig.delivery_backend="
@@ -112,6 +156,17 @@ class PipelineConfig:
                 f"the emission budget capacities().outbox="
                 f"{self.capacities().outbox} must be a multiple of "
                 f"n_parts={self.n_parts}")
+        if n_devices > 1 and self.n_parts % n_devices:
+            raise ValueError(
+                f"n_parts={self.n_parts} is not divisible by the mesh's "
+                f"{n_devices} devices: the part axis is block-sharded over "
+                "the ranks, so pick n_parts as a multiple of the device "
+                "count (each rank owns n_parts // n_devices parts)")
+        self._raise_unported((
+            (self.delta_eps != 0.0, "delta_eps > 0 (delta gating)", 8),
+            (self.query_cap != 0, "query_cap > 0 (query plane)", 9),
+            (self.train_cap != 0, "train_cap > 0 (training plane)", 10),
+            (self.telemetry, "telemetry=True (telemetry plane)", 11)))
 
 
 @dataclass
@@ -122,6 +177,12 @@ class StreamMetrics:
     broadcast_msgs: int = 0
     cross_part_msgs: int = 0
     dropped: int = 0
+    # measured routing-plane wire counters, summed over every all_to_all
+    # of every tick (0 under the LocalRouter)
+    wire_rows: int = 0                 # live records shipped on the wire
+    wire_bytes: int = 0                # exchanged send-buffer bytes
+    route_deferred: int = 0            # records carried by backpressure
+    route_dropped: int = 0             # records lost to FULL defer rings
     host_seconds: float = 0.0          # host-side staging time
     wall_seconds: float = 0.0
     busy_logical: Optional[np.ndarray] = None
@@ -135,71 +196,119 @@ def _sink_update_body(sink, seen, fb: ev.FeatBatch, part0=0):
     return sink.reshape(P, N, d), seen.reshape(P, N)
 
 
-def _stats_to_host(stats_all, *extra):
-    """Per-layer TickStats (+ extra 0-d int64 tensors) to the host in ONE
-    device-to-host copy. Returns (list of host TickStats, extra ints)."""
-    L = len(stats_all)
-    P = stats_all[0].busy.shape[0]
-    parts = [torch.stack([getattr(s, f) for f in SCALAR_FIELDS])
-             for s in stats_all] + [s.busy for s in stats_all]
-    if extra:
-        parts.append(torch.stack(list(extra)))
-    flat = torch.cat(parts).cpu()
-    F = len(SCALAR_FIELDS)
-    out = []
-    for li in range(L):
-        sc = flat[li * F:(li + 1) * F]
-        busy = flat[L * F + li * P: L * F + (li + 1) * P]
-        out.append(TickStats(**dict(zip(SCALAR_FIELDS, sc)), busy=busy))
-    return out, [int(v) for v in flat[L * (F + P):]]
-
-
 class D3Pipeline:
     """L chained GraphStorage operators + the host driver."""
 
     def __init__(self, model, cfg: PipelineConfig, mesh=None, train=None,
                  device=None):
         """model: graph/sage.GraphSAGE (an nn.Module whose `layers` have
-        message/update); it is moved to `device`. device: where the
-        pipeline runs — CUDA unless given; raises without CUDA."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "D3Pipeline(mesh=...) is not ported to repro_torch yet "
-                "(ROADMAP Queue 1 item 13)")
+        message/update); it is moved to the pipeline's device.
+        mesh: optional `dist/mesh.py:StreamMesh` — this process is one
+        rank of a 1-D mesh that shards the part axis (MeshRouter), and the
+        pipeline runs on the mesh's device. device: where a pipeline
+        without a mesh runs — CUDA unless given; raises without CUDA."""
         if train is not None:
             raise NotImplementedError(
                 "D3Pipeline(train=...) is not ported to repro_torch yet "
                 "(ROADMAP Queue 1 item 10)")
-        cfg.validate()
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, StreamMesh):
+            raise TypeError(f"mesh must be a dist.mesh.StreamMesh, got "
+                            f"{type(mesh).__name__}")
+        n_dev = mesh.size if mesh is not None else 1
+        cfg.validate(n_devices=n_dev)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device={device} but the mesh's rank runs "
+                                 f"on {mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
         self.model = model.to(self.device)
         self.layers = list(model.layers)
-        self.router = LocalRouter(cfg.n_parts)
+        self.router = (MeshRouter(cfg.n_parts, mesh, route_cap=cfg.route_cap,
+                                  pack_backend=cfg.delivery_backend)
+                       if mesh is not None else LocalRouter(cfg.n_parts))
         self.delivery = make_delivery(cfg.delivery_backend)
         self.part = StreamingPartitioner(
             cfg.n_parts, cfg.max_nodes, method=cfg.partitioner,
             seed=cfg.seed, node_cap=cfg.node_cap, edge_cap=cfg.edge_cap,
             repl_cap=cfg.repl_cap)
         dev = self.device
-        self.topo = st.init_topo(cfg.n_parts, cfg.edge_cap, cfg.repl_cap,
+        # this rank's block of parts; the defer rings are sized per lane
+        # from the rank's local emission capacities
+        p_loc = cfg.n_parts // n_dev
+        caps = cfg.capacities(n_dev)
+        self.topo = st.init_topo(p_loc, cfg.edge_cap, cfg.repl_cap,
                                  cfg.node_cap, dev)
         dims = [l.in_dim for l in self.layers] + [self.layers[-1].out_dim]
-        self.states = [st.init_layer(cfg.n_parts, cfg.node_cap, dims[i],
-                                     dims[i], dev)
-                       for i in range(len(self.layers))]
+        self.states = [st.init_layer(
+            p_loc, cfg.node_cap, dims[i], dims[i], dev,
+            bc_defer_rows=caps.bc_defer_rows // n_dev,
+            rmi_defer_rows=caps.rmi_defer_rows // n_dev)
+            for i in range(len(self.layers))]
         self.d_in, self.d_out = dims[0], dims[-1]
-        self.sink = torch.zeros((cfg.n_parts, cfg.node_cap, self.d_out),
+        self.sink = torch.zeros((p_loc, cfg.node_cap, self.d_out),
                                 dtype=torch.float32, device=dev)
-        self.sink_seen = torch.zeros((cfg.n_parts, cfg.node_cap),
+        self.sink_seen = torch.zeros((p_loc, cfg.node_cap),
                                      dtype=torch.bool, device=dev)
         self.now = 0
+        self._wire_bytes_per_tick = self._static_wire_bytes(dims, n_dev)
         self.metrics = StreamMetrics(
             busy_logical=np.zeros(cfg.n_parts, np.int64))
         self._empty_edge_rows = {
             k: np.zeros(0, np.int64) for k in
             ("part", "edge_slot", "src_slot", "dst_slot",
              "dst_master_part", "dst_master_slot")}
+
+    def parts_per_shard(self) -> list:
+        """Logical parts owned by each rank (block sharding)."""
+        D = self.router.n_devices
+        p_loc = self.cfg.n_parts // D
+        return [np.arange(d * p_loc, (d + 1) * p_loc) for d in range(D)]
+
+    def _static_wire_bytes(self, dims, n_dev: int) -> int:
+        """EXACT collective bytes per tick across the whole mesh: every
+        rank ships a [D, cap * W] f32 send buffer per lane per route_lanes
+        call, so a tick moves D * sum_lanes D * cap * W * 4 bytes (host
+        int arithmetic, as in JAX). MsgBatch lanes are d + 5 wide."""
+        if self.mesh is None or n_dev <= 1:
+            return 0
+        cfg = self.cfg
+        p_loc = cfg.n_parts // n_dev
+        lanes = []
+        for li in range(len(self.layers)):
+            lanes.append((p_loc * cfg.repl_cap, dims[li] + 5))
+            lanes.append((cfg.edge_tick_cap + p_loc * cfg.edge_cap,
+                          dims[li] + 5))
+        return n_dev * sum(n_dev * self.router.lane_cap(c) * w * 4
+                           for c, w in lanes)
+
+    def _stats_to_host(self, stats_all, *extra):
+        """Per-layer TickStats (+ extra 0-d int64 tensors) to the host in
+        ONE device-to-host copy; on a mesh the ranks' busy vectors are
+        gathered first (one all_gather) into the global [n_parts] vector.
+        Returns (list of host TickStats, extra ints)."""
+        L = len(stats_all)
+        P = stats_all[0].busy.shape[0]
+        parts = [torch.stack([getattr(s, f) for f in SCALAR_FIELDS])
+                 for s in stats_all] + [s.busy for s in stats_all]
+        if extra:
+            parts.append(torch.stack(list(extra)))
+        flat = torch.cat(parts)
+        F = len(SCALAR_FIELDS)
+        if self.mesh is None:
+            rows = flat.cpu()[None]
+        else:
+            # scalars and extras are reduced already: any rank's copy
+            rows = self.mesh.all_gather(flat).cpu()
+        out = []
+        for li in range(L):
+            sc = rows[0, li * F:(li + 1) * F]
+            busy = rows[:, L * F + li * P: L * F + (li + 1) * P].reshape(-1)
+            out.append(TickStats(**dict(zip(SCALAR_FIELDS, sc)), busy=busy))
+        return out, [int(v) for v in rows[0, L * (F + P):]]
 
     # ------------------------------------------------------------ host side
     def _build_batches(self, edges: Optional[np.ndarray],
@@ -245,11 +354,13 @@ class D3Pipeline:
     def _tick_program(self, topo, states, sink, sink_seen, fb, eb, rb, vb,
                       now, wconf):
         """ONE micro-tick on the device: topology application, L layer
-        ticks, the sink update. Never reads a value back to the host."""
+        ticks, the sink update. Apart from a mesh's collectives, never
+        reads a value back to the host."""
         outbox_cap = self.cfg.capacities().outbox
-        topo = st.apply_vertex_batch(topo, vb)
-        topo = st.apply_repl_batch(topo, rb)
-        topo = st.apply_edge_batch(topo, eb)
+        part0 = self.router.part0()
+        topo = st.apply_vertex_batch(topo, vb, part0)
+        topo = st.apply_repl_batch(topo, rb, part0)
+        topo = st.apply_edge_batch(topo, eb, part0)
         inbox = fb
         new_states, stats_all = [], []
         for li, layer in enumerate(self.layers):
@@ -260,7 +371,7 @@ class D3Pipeline:
             new_states.append(ls)
             stats_all.append(stats)
         # sink: final-layer emissions materialize the embedding table
-        sink, sink_seen = _sink_update_body(sink, sink_seen, inbox)
+        sink, sink_seen = _sink_update_body(sink, sink_seen, inbox, part0)
         return topo, new_states, sink, sink_seen, stats_all
 
     def tick(self, edges: Optional[np.ndarray] = None,
@@ -277,7 +388,7 @@ class D3Pipeline:
                                          self.sink_seen, fb, eb, rb, vb,
                                          now, wconf)
         self.now += 1
-        host_stats, _ = _stats_to_host(stats_all)
+        host_stats, _ = self._stats_to_host(stats_all)
         self.metrics.host_seconds += host_s
         self._accumulate(host_stats, time.perf_counter() - t0)
         return host_stats
@@ -288,11 +399,15 @@ class D3Pipeline:
         m = self.metrics
         m.ticks += ticks
         m.wall_seconds += dt
+        m.wire_bytes += ticks * self._wire_bytes_per_tick
         for s in stats_all:
             m.reduce_msgs += int(s.reduce_msgs)
             m.broadcast_msgs += int(s.broadcast_msgs)
             m.cross_part_msgs += int(s.cross_part_msgs)
             m.dropped += int(s.dropped)
+            m.wire_rows += int(s.wire_rows)
+            m.route_deferred += int(s.route_deferred)
+            m.route_dropped += int(s.route_dropped)
             m.busy_logical += s.busy.numpy().astype(np.int64)
         m.emitted_total += int(stats_all[-1].emitted)
 
@@ -334,7 +449,7 @@ class D3Pipeline:
         override = win.WindowConfig(kind=win.STREAMING) if drain else None
         for i in range(max_ticks):
             stats = self.tick(window=override)
-            if term.observe(self.states, stats):
+            if term.observe(self.states, stats, self.router):
                 return i + 1
         raise RuntimeError("pipeline failed to terminate "
                            f"within {max_ticks} flush ticks")
@@ -371,19 +486,20 @@ class D3Pipeline:
         # device-filled scalars: no host-to-device copy, no sync
         now = torch.full((), self.now, dtype=torch.int64, device=dev)
         quiet = torch.full((), quiet0, dtype=torch.int64, device=dev)
-        ssum = [zero_stats(self.cfg.n_parts, dev) for _ in self.layers]
+        ssum = [zero_stats(self.states[0].feat.shape[0], dev)
+                for _ in self.layers]
         for t in range(T):
             (self.topo, self.states, self.sink, self.sink_seen,
              stats_t) = self._tick_program(
                 self.topo, self.states, self.sink, self.sink_seen,
                 ev.batch_at(fb, t), ev.batch_at(eb, t), ev.batch_at(rb, t),
                 ev.batch_at(vb, t), now, wconf)
-            quiet = quiet_update(quiet, self.states, stats_t)
+            quiet = quiet_update(quiet, self.states, stats_t, self.router)
             ssum = [add_stats(a, b) for a, b in zip(ssum, stats_t)]
             now = now + 1
         self.now += T
         # the one host sync of the super-tick: summed stats + quiet counter
-        host_stats, (quiet_ticks,) = _stats_to_host(ssum, quiet)
+        host_stats, (quiet_ticks,) = self._stats_to_host(ssum, quiet)
         self._accumulate(host_stats, time.perf_counter() - t0, ticks=T)
         return host_stats, quiet_ticks
 
@@ -421,7 +537,9 @@ class D3Pipeline:
     def read_nodes(self, vids) -> dict:
         """Partial gather of sink embeddings for a vid set: only the
         requested rows are gathered on the device and copied back; vids
-        never seen, or whose master never materialized, are absent."""
+        never seen, or whose master never materialized, are absent. On a
+        mesh every rank calls it with the same vids: each reads the rows
+        of its parts and one all_gather gives every rank all of them."""
         vids = np.asarray(list(vids) if not isinstance(vids, np.ndarray)
                           else vids, np.int64).reshape(-1)
         t = self.part.t
@@ -432,10 +550,23 @@ class D3Pipeline:
         p = torch.as_tensor(t.master[vids].astype(np.int64)).to(self.device)
         s = torch.as_tensor(t.master_slot[vids].astype(np.int64)).to(
             self.device)
-        vecs = self.sink[p, s].cpu().numpy()
-        seen = self.sink_seen[p, s].cpu().numpy()
+        if self.mesh is None:
+            vecs = self.sink[p, s].cpu().numpy()
+            seen = self.sink_seen[p, s].cpu().numpy()
+        else:
+            p_loc = self.sink.shape[0]
+            lp = p - self.router.part0()
+            own = (lp >= 0) & (lp < p_loc)
+            lp = torch.where(own, lp, 0)
+            rows = torch.cat([self.sink[lp, s],
+                              (self.sink_seen[lp, s] & own)[:, None]], 1)
+            got = self.mesh.all_gather(rows)[
+                torch.div(p, p_loc, rounding_mode="floor"),
+                torch.arange(len(vids), device=self.device)].cpu()
+            vecs, seen = got[:, :-1].numpy(), got[:, -1].numpy() > 0.5
         return {int(v): vecs[i] for i, v in enumerate(vids) if seen[i]}
 
     def embeddings(self) -> dict:
-        """Materialized final-layer embeddings {vid: vector} (masters)."""
+        """Materialized final-layer embeddings {vid: vector} (masters);
+        collective on a mesh."""
         return self.read_nodes(np.flatnonzero(self.part.t.master >= 0))

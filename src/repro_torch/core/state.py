@@ -1,10 +1,11 @@
 """Device-side operator state (the paper's Graph Storage, §4.1/§5.2).
 
-Counterpart of `repro/core/state.py` for one device (LocalRouter): every
-table is [P, cap, ...] with the P logical parts stacked on the leading
-axis. Index tables are int64 (torch's index type), flags bool, features
-float32. The routing plane's defer rings are not carried: they are empty
-under the LocalRouter, and `route_cap` is not ported yet.
+Counterpart of `repro/core/state.py`: every table is [P, cap, ...] with
+the rank's P logical parts stacked on the leading axis (all parts under
+the LocalRouter, the rank's block of Pl under the MeshRouter). Index
+tables are int64 (torch's index type), flags bool, features float32. The
+routing plane's per-lane defer rings ride the LayerState as packed wire
+rows ([K, W] per rank, K = 0 when the exchange cannot overflow).
 
 JAX's `.at[idx].set(..., mode="drop")` has no torch counterpart: torch
 wraps negative indices and raises on out-of-range ones. Every scatter here
@@ -16,6 +17,8 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 
 import torch
+
+from repro_torch.dist.wire import init_defer
 
 
 def local_index(part, slot, part0, n_local_parts: int, stride: int, valid):
@@ -81,6 +84,12 @@ class LayerState:
     fwd_deadline: torch.Tensor     # [P, N] int64
     cms: torch.Tensor              # [depth, width] float32 CountMinSketch
     last_touch: torch.Tensor       # [P, N] int64
+    # routing-plane backpressure: rows that overflowed a capped
+    # all_to_all bucket, re-entering the next tick's exchange first
+    bc_defer: torch.Tensor         # [K_b, d_in + 5] f32 round-A lane
+    bc_defer_ok: torch.Tensor      # [K_b] bool occupied ring slots
+    rmi_defer: torch.Tensor        # [K_r, d_agg + 5] f32 round-B lane
+    rmi_defer_ok: torch.Tensor     # [K_r] bool
 
 
 def init_topo(n_parts: int, edge_cap: int, repl_cap: int, node_cap: int,
@@ -99,17 +108,25 @@ def init_topo(n_parts: int, edge_cap: int, repl_cap: int, node_cap: int,
 
 
 def init_layer(n_parts: int, node_cap: int, d_in: int, d_agg: int, device,
-               cms_depth: int = 4, cms_width: int = 2048) -> LayerState:
+               cms_depth: int = 4, cms_width: int = 2048,
+               bc_defer_rows: int = 0, rmi_defer_rows: int = 0) -> LayerState:
+    """bc/rmi_defer_rows: this rank's defer-ring rows per lane (0 turns
+    backpressure off); the ring row is the lane's packed MsgBatch width,
+    d + 5 (part, slot, cnt, src_part, valid; dist/wire.py)."""
     zf = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
     zi = lambda *s: torch.zeros(s, dtype=torch.int64, device=device)
     zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=device)
+    bc_defer, bc_defer_ok = init_defer(bc_defer_rows, d_in + 5, device)
+    rmi_defer, rmi_defer_ok = init_defer(rmi_defer_rows, d_agg + 5, device)
     return LayerState(
         feat=zf(n_parts, node_cap, d_in), has_feat=zb(n_parts, node_cap),
         x_sent=zf(n_parts, node_cap, d_in), has_sent=zb(n_parts, node_cap),
         agg=zf(n_parts, node_cap, d_agg), agg_cnt=zf(n_parts, node_cap),
         red_pending=zb(n_parts, node_cap), red_deadline=zi(n_parts, node_cap),
         fwd_pending=zb(n_parts, node_cap), fwd_deadline=zi(n_parts, node_cap),
-        cms=zf(cms_depth, cms_width), last_touch=zi(n_parts, node_cap))
+        cms=zf(cms_depth, cms_width), last_touch=zi(n_parts, node_cap),
+        bc_defer=bc_defer, bc_defer_ok=bc_defer_ok,
+        rmi_defer=rmi_defer, rmi_defer_ok=rmi_defer_ok)
 
 
 def apply_edge_batch(topo: TopoState, eb, part0=0) -> TopoState:

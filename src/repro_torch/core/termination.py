@@ -2,7 +2,10 @@
 
 Counterpart of `repro/core/termination.py`. The pipeline is quiescent
 when, for `quiet_sweeps` consecutive ticks, no layer moved a message and
-no layer holds pending work (window timers). Two observation paths:
+no layer holds pending work (window timers, routing defer rings). On a
+mesh the movement vote reads the already reduced TickStats and the
+pending-work vote is summed over the ranks (`router.psum`), so every rank
+sees the same counter. Two observation paths:
 
   * per-tick (host): `TerminationCoordinator.observe` reads each tick's
     stats — one host sync per tick, fine for the reference driver;
@@ -24,7 +27,8 @@ def moved_msgs(tick_stats):
 
 
 def pending_work(layer_states):
-    """In-flight-work count (0-d int64): layers with pending timers."""
+    """LOCAL in-flight-work count (0-d int64): layers with pending timers
+    or occupied defer rings."""
     work = torch.zeros((), dtype=torch.int64,
                        device=layer_states[0].feat.device)
     for ls in layer_states:
@@ -32,13 +36,17 @@ def pending_work(layer_states):
     return work
 
 
-def quiet_update(quiet, layer_states, tick_stats):
+def quiet_update(quiet, layer_states, tick_stats, router=None):
     """One on-device step of quiescence tracking: the consecutive quiet
-    tick counter resets to 0 on any movement or pending work."""
+    tick counter resets to 0 on any movement or pending work (summed over
+    the ranks when a router is given)."""
     moved = torch.zeros((), dtype=torch.bool, device=quiet.device)
     for s in tick_stats:
         moved = moved | (moved_msgs(s) > 0)
-    busy = moved | (pending_work(layer_states) > 0)
+    work = pending_work(layer_states)
+    if router is not None:
+        work = router.psum(work)
+    busy = moved | (work > 0)
     return torch.where(busy, torch.zeros_like(quiet), quiet + 1)
 
 
@@ -52,11 +60,15 @@ class TerminationCoordinator:
         super-ticks: quiescence streaks survive the host round-trip."""
         return self._quiet
 
-    def observe(self, layer_states, tick_stats) -> bool:
+    def observe(self, layer_states, tick_stats, router=None) -> bool:
         """Feed one tick's observations (host values); True once
-        terminated."""
+        terminated. With a router the pending-work vote is summed over the
+        ranks."""
         moved = any(int(moved_msgs(s)) for s in tick_stats)
-        if moved or bool(pending_work(layer_states)):
+        work = pending_work(layer_states)
+        if router is not None:
+            work = router.psum(work)
+        if moved or bool(work):
             self._quiet = 0
         else:
             self._quiet += 1

@@ -1,9 +1,9 @@
 """The per-layer micro-tick: streaming (Alg. 1) and windowed (Alg. 2)
 forward pass.
 
-Counterpart of `repro/core/tick.py` in exact mode (delta_eps = 0) under
-the LocalRouter. One tick = two routing rounds, four part-local stages
-with a Router delivery between them:
+Counterpart of `repro/core/tick.py` in exact mode (delta_eps = 0), under
+the LocalRouter or the 1-D MeshRouter. One tick = two routing rounds,
+four part-local stages with a Router delivery between them:
 
   round_a_apply : master-addressed feature updates land at local masters
                   (delivery.deliver_set); selectiveBroadcast records for
@@ -14,6 +14,9 @@ with a Router delivery between them:
                   RMI records (delta, dcnt) addressed to destination
                   masters (reduce / replace / remove are all additive).
        -- router.route_lanes --
+                  each route_lanes call is one packed all_to_all on the
+                  mesh, its buckets capped by route_cap; overflow defers
+                  into the LayerState's rings and re-enters next tick.
   apply_rmis    : ONE delivery (delivery.deliver_add) applies any RMI mix,
                   after canon_msg_batch puts the records in canonical
                   (destination, source part) order.
@@ -27,8 +30,12 @@ forward of a master (fwd_*). Counts follow Algorithm 1 exactly, so an
 aggregator count equals the number of in-edges whose source feature has
 been seen — the static oracle's in-degree once quiescent.
 
-Every function takes and returns tensors on one device and never reads a
-value back to the host, so the super-tick driver can queue T ticks with
+Every stage sees only the rank's LOCAL block of parts ([P_loc, ...], global
+part ids offset by `router.part0()`), so the same body runs on one device
+and on every rank of the mesh. Scalar TickStats are reduced over the ranks
+with one `router.psum` per layer tick; the per-part `busy` vector stays
+local. Apart from the mesh's collectives, no function reads a value back
+to the host, so on one device the super-tick driver queues T ticks with
 one host sync. The state is treated functionally (new tensors out), as in
 the JAX package.
 """
@@ -49,10 +56,11 @@ from repro_torch.dist.router import LocalRouter, add_receipts
 
 @dataclass(frozen=True)
 class TickStats:
-    """Per-layer tick counters: 0-d int64 tensors plus the [P] busy
-    vector. Field meanings as in the JAX package; the wire, suppression
-    and telemetry counters are zero on this slice (LocalRouter, exact
-    mode, telemetry off)."""
+    """Per-layer tick counters: 0-d int64 tensors (reduced over the mesh)
+    plus the rank's [P_loc] busy vector. Field meanings as in the JAX
+    package; the wire counters are zero under the LocalRouter, the
+    suppression and telemetry counters zero on the port (exact mode,
+    telemetry off)."""
     broadcast_msgs: torch.Tensor     # round-A replica messages
     reduce_msgs: torch.Tensor        # round-B aggregator RMIs routed
     cross_part_msgs: torch.Tensor    # messages leaving their part
@@ -332,14 +340,16 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
     (feat_flat, changed, has_feat, bcast, busy,
      n_bcast, bcast_cross) = round_a_apply(topo, ls, inbox, new_repl, part0,
                                            delivery)
-    (bcast_d,), rcpt = router.route_lanes((bcast,), dev)
+    (bcast_d,), (bc_defer,), rcpt = router.route_lanes(
+        (bcast,), ((ls.bc_defer, ls.bc_defer_ok),))
 
     # ---- Round B: apply broadcast at replicas, emit + route the RMIs
     (feat_flat, changed, has_feat, x_sent_flat, has_sent, red_pending,
      red_deadline, rmis, busy, n_reduce, red_cross) = round_b_emit(
         layer, topo, ls, feat_flat, changed, has_feat, bcast_d, new_edges,
         now, wconf, part0, busy, freq, delivery)
-    (rmis_d,), rcpt_b = router.route_lanes((rmis,), dev)
+    (rmis_d,), (rmi_defer,), rcpt_b = router.route_lanes(
+        (rmis,), ((ls.rmi_defer, ls.rmi_defer_ok),))
     rcpt = add_receipts(rcpt, rcpt_b)
 
     # ---- apply RMIs at local masters, in canonical order
@@ -371,19 +381,26 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
         fwd_pending=fwd_pending.reshape(P, N),
         fwd_deadline=fwd_deadline.reshape(P, N), cms=cms,
         last_touch=torch.where(changed, now,
-                               ls.last_touch.reshape(P * N)).reshape(P, N))
+                               ls.last_touch.reshape(P * N)).reshape(P, N),
+        bc_defer=bc_defer[0], bc_defer_ok=bc_defer[1],
+        rmi_defer=rmi_defer[0], rmi_defer_ok=rmi_defer[1])
+    # the scalar counters reduced over the ranks in ONE collective
+    g = router.psum(torch.stack([
+        n_bcast, n_reduce, bcast_cross + red_cross, n_emit, n_drop,
+        rcpt.rows, rcpt.deferred, rcpt.dropped]).to(torch.int64))
     z = torch.zeros((), dtype=torch.int64, device=dev)
-    stats = TickStats(broadcast_msgs=n_bcast, reduce_msgs=n_reduce,
-                      cross_part_msgs=bcast_cross + red_cross,
-                      emitted=n_emit, dropped=n_drop, wire_rows=rcpt.rows,
-                      route_deferred=rcpt.deferred,
-                      route_dropped=rcpt.dropped, n_suppressed=z,
+    stats = TickStats(broadcast_msgs=g[0], reduce_msgs=g[1],
+                      cross_part_msgs=g[2], emitted=g[3], dropped=g[4],
+                      wire_rows=g[5], route_deferred=g[6],
+                      route_dropped=g[7], n_suppressed=z,
                       occ_bc_defer=z, occ_rmi_defer=z, route_peak=z,
                       outbox_part_peak=z, busy=busy)
     return new_ls, outbox, stats
 
 
 def has_work(ls: LayerState):
-    """Termination predicate: any pending timer or unsent delta (0-d bool
-    tensor; the routing defer rings are empty on this slice)."""
-    return ls.red_pending.any() | ls.fwd_pending.any()
+    """Termination predicate (0-d bool tensor): any pending timer, unsent
+    delta, or record still waiting in a routing defer ring (carried wire
+    rows are in-flight work)."""
+    return (ls.red_pending.any() | ls.fwd_pending.any()
+            | ls.bc_defer_ok.any() | ls.rmi_defer_ok.any())

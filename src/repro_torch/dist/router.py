@@ -1,20 +1,48 @@
-"""The routing plane on one device.
+"""The routing plane: transport of part-addressed record batches.
 
-Counterpart of `repro/dist/router.py` (LocalRouter, RouteReceipt,
-zero_receipt, add_receipts). Every part is local, so transport is the
-identity and the wire counters stay zero; the sharded MeshRouter is ROADMAP
-Queue 1 item 13.
+Counterpart of `repro/dist/router.py` (RouteReceipt, zero_receipt,
+add_receipts, LocalRouter and the 1-D MeshRouter):
+
+  LocalRouter : one device owns every part; transport is the identity.
+  MeshRouter  : parts are block-sharded over the ranks of a 1-D
+                `dist/mesh.py:StreamMesh`; each `route_lanes` call
+                compacts the records of all its lanes by destination rank
+                (`kernels/route_pack`) and exchanges them with ONE packed
+                all_to_all (`dist/wire.py`).
+
+Capped exchange: a lane's per-destination send bucket holds
+`lane_cap(C)` rows (route_cap, default None = the lane's capacity C, the
+dense exchange under which nothing can overflow). Live records past their
+bucket are deferred into the lane's ring (packed rows carried in the
+LayerState) and re-enter the next tick's exchange AHEAD of fresh ones:
+FIFO per destination, so a replica's feature broadcasts apply in emission
+order. Only a full ring drops rows, counted in RouteReceipt.dropped.
+Invalid destinations are masked out of the exchange, never clipped onto
+the last rank.
+
+The telemetry peak gauge (ROADMAP Queue 1 item 11) and the stage-axis
+methods of the 2-D mesh (item 13) are not ported: `peak` stays 0, as in
+JAX with telemetry off.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.dist.wire import field_col, pack_lane, unpack_lane
+from repro_torch.kernels.route_pack import ops as route_ops
+from repro_torch.kernels.route_pack.ref import route_pack_ref
 
 
 @dataclass(frozen=True)
 class RouteReceipt:
-    """Measured wire telemetry of one route_lanes call (0-d int64)."""
+    """Measured wire telemetry of one route_lanes call (0-d int64, local
+    to the calling rank — the tick body psums them into TickStats):
+    rows shipped, rows deferred into rings, rows lost to a full ring, and
+    the peak gauge (0 on this port)."""
     rows: torch.Tensor
     deferred: torch.Tensor
     dropped: torch.Tensor
@@ -38,13 +66,130 @@ class LocalRouter:
     """Single-device router: every part is local, delivery is identity."""
     n_parts: int
 
+    n_devices = 1
+
+    @property
+    def n_local_parts(self) -> int:
+        return self.n_parts
+
     def part0(self) -> int:
         """Global id of the first locally-owned part."""
         return 0
 
-    def route_lanes(self, lanes, device):
-        """No wire: lanes deliver as-is."""
-        return tuple(lanes), zero_receipt(device)
+    def route_lanes(self, lanes, defers):
+        """No wire: lanes deliver as-is, the (empty) rings pass through."""
+        return tuple(lanes), tuple(defers), zero_receipt(lanes[0].part.device)
 
     def psum(self, x):
         return x
+
+
+@dataclass(frozen=True)
+class MeshRouter:
+    """Sharded router over a 1-D StreamMesh: rank r owns parts
+    [r * Pl, (r + 1) * Pl), Pl = n_parts // mesh.size (validated by
+    PipelineConfig.validate).
+
+    route_cap   : per-destination send-bucket rows (None = each lane's
+                  full capacity, the dense never-overflow exchange).
+    pack_backend: "kernel" (the CUDA route_pack on the card) or "scatter"
+                  (its plain version); follows PipelineConfig's
+                  delivery_backend.
+    """
+    n_parts: int
+    mesh: object
+    route_cap: Optional[int] = None
+    pack_backend: str = "kernel"
+
+    @property
+    def n_devices(self) -> int:
+        return self.mesh.size
+
+    @property
+    def n_local_parts(self) -> int:
+        return self.n_parts // self.mesh.size
+
+    def part0(self) -> int:
+        return self.mesh.rank * self.n_local_parts
+
+    def psum(self, x):
+        return self.mesh.all_reduce(x)
+
+    def lane_cap(self, capacity: int) -> int:
+        """Resolved per-destination bucket rows for a lane of the given
+        local emission capacity."""
+        if self.route_cap is None:
+            return capacity
+        return max(1, min(self.route_cap, capacity))
+
+    def _pack(self, allp, order, slot_s, starts, cap):
+        D = self.n_devices
+        if self.pack_backend == "kernel":
+            return route_ops.route_pack(allp, order, slot_s, starts, D, cap)
+        return route_pack_ref(allp[order], slot_s, D * cap)
+
+    def route_lanes(self, lanes, defers):
+        """Deliver several record lanes with ONE all_to_all.
+
+        lanes : part-addressed batches (MsgBatch, ...) with `part`/`valid`
+                fields, local capacities C_i.
+        defers: matching (packed rows [K_i, W_i] f32, occupied [K_i] bool)
+                rings; K_i = 0 disables backpressure for the lane (then an
+                overflow, impossible at the dense default, drops, counted).
+
+        Returns (delivered lanes — capacity D * cap_i each, block j = what
+        rank j sent here, in its emission order; new rings; RouteReceipt).
+        """
+        D = self.n_devices
+        dev = lanes[0].part.device
+        if D == 1:
+            return tuple(lanes), tuple(defers), zero_receipt(dev)
+        Pl = self.n_local_parts
+        sends, metas, new_defers, counts = [], [], [], []
+        for lane, (dbuf, dok) in zip(lanes, defers):
+            packed = pack_lane(lane)                           # [C, W]
+            C, W = packed.shape
+            K = dbuf.shape[0]
+            cap = self.lane_cap(C)
+            # carried rows re-enter first; their occupancy flag is the
+            # live mask (they only ever hold valid records)
+            allp = torch.cat([dbuf, packed]) if K else packed
+            fresh_ok = (lane.valid & (lane.part >= 0)
+                        & (lane.part < self.n_parts))
+            ok = torch.cat([dok, fresh_ok]) if K else fresh_ok
+            parts = allp[:, field_col(lane, "part")].to(torch.int64)
+            dst = torch.where(ok, torch.div(parts, Pl, rounding_mode="floor"),
+                              D)
+            order, ship_s, slot_s, left_s, starts = route_ops.route_plan(
+                dst, ok, D, cap)
+            sends.append(self._pack(allp, order, slot_s, starts, cap)
+                         .reshape(D, cap * W))
+            metas.append((lane, cap, W))
+            n_left = left_s.sum()
+            if K:
+                # ring slot j <- the (j+1)-th overflowing row in sorted
+                # (FIFO) order; a gather of K rows, not of all N
+                cum = torch.cumsum(left_s, 0)
+                j = torch.arange(K, device=dev)
+                pos = torch.clamp(torch.searchsorted(cum, j + 1),
+                                  max=cum.shape[0] - 1)
+                nok = j < n_left
+                nbuf = allp[order[pos]].masked_fill_(~nok[:, None], 0.0)
+                new_defers.append((nbuf, nok))
+                n_defer = torch.clamp(n_left, max=K)
+            else:
+                new_defers.append((dbuf, dok))
+                n_defer = torch.zeros_like(n_left)
+            counts.append(torch.stack([ship_s.sum(), n_defer,
+                                       n_left - n_defer]))
+        buf = sends[0] if len(sends) == 1 else torch.cat(sends, dim=1)
+        got = self.mesh.all_to_all(buf)                        # [D, X]
+        outs, off = [], 0
+        for proto, cap, W in metas:
+            blk = got[:, off:off + cap * W].reshape(D * cap, W)
+            off += cap * W
+            outs.append(unpack_lane(blk, proto))
+        n = torch.stack(counts).sum(dim=0)
+        receipt = RouteReceipt(rows=n[0], deferred=n[1], dropped=n[2],
+                               peak=torch.zeros_like(n[0]))
+        return tuple(outs), tuple(new_defers), receipt

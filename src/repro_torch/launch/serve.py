@@ -32,9 +32,12 @@ import time
 import numpy as np
 
 
-def serve_stream(args):
-    """Stream the serve workload; prints the summary line and returns the
-    pipeline."""
+def serve_stream(args, mesh=None, route_cap=None):
+    """Stream the serve workload; prints the summary line (rank 0 of a
+    mesh) and returns the pipeline. mesh: this process's rank of a
+    `dist/mesh.py:StreamMesh` (`launch/mesh.py` builds one), or None for
+    one device; route_cap: the mesh's per-destination bucket rows (None:
+    the dense exchange)."""
     from repro_torch.core import windowing as win
     from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
     from repro_torch.graph.graphs import powerlaw_edges
@@ -47,9 +50,10 @@ def serve_stream(args):
              for v in range(n_nodes)}
     cfg = PipelineConfig(n_parts=8, node_cap=256, edge_cap=4096,
                          repl_cap=1024, feat_cap=2048, edge_tick_cap=512,
-                         max_nodes=n_nodes,
+                         max_nodes=n_nodes, route_cap=route_cap,
                          window=win.WindowConfig(kind=win.SESSION, interval=4))
-    pipe = D3Pipeline(GraphSAGE(dims), cfg, device=args.device)
+    pipe = D3Pipeline(GraphSAGE(dims), cfg, mesh=mesh,
+                      device=args.device if mesh is None else None)
     t0 = time.perf_counter()
     if args.driver == "super":
         # T micro-ticks per host sync (the serving default for throughput)
@@ -60,11 +64,13 @@ def serve_stream(args):
         pipe.run_stream(edges, feats, tick_edges=args.tick_edges)
         pipe.flush()
     dt = time.perf_counter() - t0
-    print(f"streamed {args.edges} edges in {dt:.2f}s "
-          f"[{args.driver} driver, {args.edges / dt:.0f} ev/s]; "
-          f"materialized {len(pipe.embeddings())} embeddings; "
-          f"{pipe.metrics.reduce_msgs} RMIs, "
-          f"{pipe.metrics.cross_part_msgs} cross-part msgs")
+    n_emb = len(pipe.embeddings())            # collective on a mesh
+    if mesh is None or mesh.rank == 0:
+        print(f"streamed {args.edges} edges in {dt:.2f}s "
+              f"[{args.driver} driver, {args.edges / dt:.0f} ev/s]; "
+              f"materialized {n_emb} embeddings; "
+              f"{pipe.metrics.reduce_msgs} RMIs, "
+              f"{pipe.metrics.cross_part_msgs} cross-part msgs", flush=True)
     return pipe
 
 

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels.embedding_bag import ops as eb_ops, ref as eb_ref
 from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.kernels.route_pack import ops as rp_ops, ref as rp_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +107,51 @@ def test_embedding_bag_raises_on_what_it_does_not_take(cuda):
         eb_ops.embedding_bag(table.float(), ids.cpu(), "sum")
     out = eb_ops.embedding_bag(table.float(), ids[:0], "mean")
     assert out.shape == (0, 8)
+
+
+# route_pack: the kernel's send buffer equals its plain version bit for
+# bit (int32 views), NaN payloads, Inf and -0.0 included
+@pytest.mark.parametrize("N,D,cap,W,live,hub", [
+    (0, 4, 3, 5, 1.0, False),        # nothing to send
+    (300, 4, 5, 69, 0.0, True),      # every row dropped
+    (400, 4, 8, 69, 1.0, False),     # every bucket overflows
+    (77, 2, 1, 5, 0.9, True),        # cap = 1
+    (64, 4, 64, 12, 1.0, False),     # dense: cap = N
+    (1000, 2, 64, 1, 0.7, True),
+    (1000, 4, 64, 607, 0.7, True),
+])
+def test_route_pack_matches_plain_bit_for_bit(cuda, N, D, cap, W, live, hub):
+    rng = np.random.default_rng(N + W)
+    rows = rng.normal(size=(N, W)).astype(np.float32)
+    flat = rows.view(np.int32).reshape(-1)
+    if flat.size:
+        spots = rng.choice(flat.size, size=min(6, flat.size), replace=False)
+        flat[spots] = np.array([0x7FC00000, 0x7F800001, 0x7F800000,
+                                0xFF800000, 0x80000000, 0xFFC01234],
+                               np.uint32).view(np.int32)[:len(spots)]
+    dst = np.where(rng.random(N) < 0.75, 0, rng.integers(0, D, N)) if hub \
+        else rng.integers(0, D, N)
+    ok = rng.random(N) < live
+    rows = torch.as_tensor(rows, device=cuda)
+    plan = rp_ops.route_plan(torch.as_tensor(dst, device=cuda),
+                             torch.as_tensor(ok, device=cuda), D, cap)
+    order, _, slot_s, _, starts = plan
+    rp_ops.reset_launches()
+    got = rp_ops.route_pack(rows, order, slot_s, starts, D, cap)
+    want = rp_ref.route_pack_ref(rows[order], slot_s, D * cap)
+    assert rp_ops.LAUNCHES["route_pack"] == 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_route_pack_raises_on_what_it_does_not_take(cuda):
+    rows = torch.zeros(4, 3, device=cuda)
+    dst = torch.zeros(4, dtype=torch.int64, device=cuda)
+    order, _, slot_s, _, starts = rp_ops.route_plan(
+        dst, torch.ones(4, dtype=torch.bool, device=cuda), 2, 2)
+    with pytest.raises(ValueError, match="float32"):
+        rp_ops.route_pack(rows.double(), order, slot_s, starts, 2, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        rp_ops.route_pack(rows.t().contiguous().t(), order, slot_s, starts,
+                          2, 2)
+    with pytest.raises(ValueError, match="plan for"):
+        rp_ops.route_pack(rows, order, slot_s, starts, 3, 2)

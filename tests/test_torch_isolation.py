@@ -43,7 +43,11 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.embedding_bag.ops, "
             "repro_torch.kernels.embedding_bag.ref, repro_torch.recsys, "
             "repro_torch.recsys.embedding_bag, repro_torch.recsys.two_tower, "
-            "repro_torch.configs.two_tower_retrieval; "
+            "repro_torch.configs.two_tower_retrieval, "
+            "repro_torch.dist.router, repro_torch.dist.wire, "
+            "repro_torch.dist.mesh, "
+            "repro_torch.launch.mesh, repro_torch.kernels.route_pack.ops, "
+            "repro_torch.kernels.route_pack.ref; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -77,6 +81,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         serve.main(["--arch", "two-tower-retrieval", "--reduced"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_arch("two-tower-retrieval").build_reduced()
+    # a mesh rank with no device named: CUDA, never the CPU unasked
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_stream_mesh
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_stream_mesh()
+        assert make_stream_mesh("cpu").device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_kernel_build_needs_no_nvcc_at_import():
@@ -87,3 +102,4 @@ def test_kernel_build_needs_no_nvcc_at_import():
     assert (cuda_lib.CSRC / "segment_reduce.cu").exists()
     assert (cuda_lib.CSRC / "flash_attention.cu").exists()
     assert (cuda_lib.CSRC / "embedding_bag.cu").exists()
+    assert (cuda_lib.CSRC / "route_pack.cu").exists()

@@ -1,0 +1,326 @@
+"""The port's sharded 1-D mesh path against the JAX package's, on the CPU.
+
+Four gloo ranks (`launch/mesh.py:spawn_stream_mesh`, CPU tensors, so the
+wrappers run their plain versions) stream test_route_plane.py's
+hub-skewed cases through `D3Pipeline(mesh=...)`; a subprocess runs the
+same cases through the JAX D3Pipeline on a forced 4-device CPU mesh
+(`JAX_PLATFORMS=cpu`, `--xla_force_host_platform_device_count=4
+--xla_backend_optimization_level=0`, as conftest.run_forced_devices
+does). Both start together; each has its own timeout.
+
+Cases: route_cap in {None (dense), 40 (the RMI lane's C // D), 2} x
+{per-tick, super-tick}, an ADAPTIVE-window case (the CountMinSketch
+delta is psum'd over the ranks), the starved ring (route_cap=1,
+route_defer_cap=0) and cap 2 on the port's "scatter" backends (JAX runs
+its "xla" backend throughout).
+
+Tolerances: every integer TickStats field of every tick/super-tick call
+and every StreamMetrics counter (wire_rows, wire_bytes, route_deferred
+and route_dropped included), the busy vector and the final aggregator
+counts exactly equal; embeddings within 1e-5 (absolute and relative) of
+JAX's; the sink within 1e-4 of the port's static oracle (core/oracle.py).
+"""
+import hashlib
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import windowing as win
+from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+from repro_torch.graph.sage import GraphSAGE
+from repro_torch.launch.mesh import spawn_stream_mesh
+
+REPO = Path(__file__).resolve().parents[1]
+N_NODES, D_IN, DIMS = 32, 8, (8, 12, 12)
+N_RANKS = 4
+TIMEOUT = 300
+
+# name: (hub_stream seed, driver, route_cap, route_defer_cap, window,
+#        edges streamed (None = all), flushed)
+CASES = {
+    "dense-tick": (0, "tick", None, None, win.STREAMING, None, True),
+    "dense-super": (0, "super", None, None, win.STREAMING, None, True),
+    "cap40-tick": (0, "tick", 40, None, win.STREAMING, None, True),
+    "cap40-super": (0, "super", 40, None, win.STREAMING, None, True),
+    "cap2-tick": (0, "tick", 2, None, win.STREAMING, None, True),
+    "cap2-super": (0, "super", 2, None, win.STREAMING, None, True),
+    "adaptive-cap40-super": (5, "super", 40, None, win.ADAPTIVE, None, True),
+    "starved-tick": (7, "tick", 1, 0, win.STREAMING, 48, False),
+    # the port's "scatter" backends (plain route_pack and delivery)
+    "cap2-super-scatter": (0, "super", 2, None, win.STREAMING, None, True),
+}
+METRICS = ("ticks", "emitted_total", "reduce_msgs", "broadcast_msgs",
+           "cross_part_msgs", "dropped", "wire_rows", "wire_bytes",
+           "route_deferred", "route_dropped")
+STAT_FIELDS = ("broadcast_msgs", "reduce_msgs", "cross_part_msgs", "emitted",
+               "dropped", "wire_rows", "route_deferred", "route_dropped")
+
+
+def hub_stream(seed=0, n_edges=120):
+    """test_route_plane.hub_stream, here without jax: most edges point at
+    hubs 0..2, so RMIs converge on one rank and overflow small buckets."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(1, N_NODES, n_edges)
+    dst = np.where(rng.random(n_edges) < 0.75,
+                   rng.integers(0, 3, n_edges),
+                   rng.integers(0, N_NODES, n_edges))
+    edges = np.stack([src, dst], 1)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    feats = {v: rng.normal(size=D_IN).astype(np.float32)
+             for v in range(N_NODES)}
+    return edges, feats
+
+
+def case_config(name):
+    """test_route_plane.build_pipe's config for one case."""
+    _, _, cap, defer, kind, _, _ = CASES[name]
+    return dict(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+                feat_cap=128, edge_tick_cap=32, max_nodes=N_NODES,
+                route_cap=cap, route_defer_cap=defer,
+                delivery_backend="scatter" if name.endswith("scatter")
+                else "kernel")
+
+
+def drive(pipe, name, edges, feats, record):
+    """Stream one case as test_route_plane.run_capped does, recording the
+    integer TickStats of every tick / super-tick call."""
+    _, driver, _, _, _, n_edges, flushed = CASES[name]
+    tick, sup = pipe.tick, pipe.run_super_tick
+
+    def rec(stats):
+        record.append([[int(getattr(s, f)) for f in STAT_FIELDS]
+                       + [int(v) for v in np.asarray(s.busy)]
+                       for s in stats])
+
+    def tick_rec(*a, **k):
+        out = tick(*a, **k)
+        rec(out)
+        return out
+
+    def sup_rec(*a, **k):
+        out = sup(*a, **k)
+        rec(out[0])
+        return out
+
+    pipe.tick, pipe.run_super_tick = tick_rec, sup_rec
+    if n_edges is not None:
+        edges = edges[:n_edges]
+    if driver == "tick":
+        pipe.run_stream(edges, feats, tick_edges=24)
+        if flushed:
+            pipe.flush(max_ticks=256)
+    else:
+        pipe.run_stream_super(edges, feats, tick_edges=24, super_ticks=4)
+        if flushed:
+            pipe.flush_super(max_ticks=256, T=4)
+    return pipe
+
+
+def summary(pipe, record):
+    m = pipe.metrics
+    return {"metrics": {k: int(getattr(m, k)) for k in METRICS},
+            "busy": np.asarray(m.busy_logical, np.int64),
+            "stats": record, "emb": pipe.embeddings()}
+
+
+# ------------------------------------------------------------ port side
+
+def _port_rank(mesh, params):
+    """One rank: every case, on CPU tensors. Returns per case the rank's
+    aggregator-count blocks, a digest of the host batches it built and
+    (all ranks alike) the summary."""
+    out = {}
+    for name, (seed, _, _, _, kind, _, _) in CASES.items():
+        edges, feats = hub_stream(seed)
+        model = GraphSAGE(DIMS)
+        model.load_state_dict(params)
+        pipe = D3Pipeline(model, PipelineConfig(
+            **case_config(name), window=win.WindowConfig(kind=kind)),
+            mesh=mesh)
+        digest = hashlib.sha256()
+        build = pipe._build_batches
+
+        def build_hashed(*a, **k):
+            batches = build(*a, **k)
+            for b in batches:
+                for f in b.__dataclass_fields__:
+                    digest.update(np.ascontiguousarray(
+                        np.asarray(getattr(b, f))).tobytes())
+            return batches
+
+        pipe._build_batches = build_hashed
+        record = []
+        drive(pipe, name, edges, feats, record)
+        res = summary(pipe, record)
+        res["agg_cnt"] = [ls.agg_cnt.numpy() for ls in pipe.states]
+        res["digest"] = digest.hexdigest()
+        res["ring_rows"] = [ls.rmi_defer.shape[0] for ls in pipe.states]
+        res["shards"] = [p.tolist() for p in pipe.parts_per_shard()]
+        res["part0"] = pipe.router.part0()
+        out[name] = res
+    return out
+
+
+# ------------------------------------------------------------- JAX side
+
+def jax_reference(path):
+    """Run every case through the JAX D3Pipeline on a 4-device mesh and
+    pickle the summaries (the forced-device subprocess's entry point)."""
+    import jax
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from repro.core import windowing as jwin
+    from repro.launch.mesh import make_stream_mesh
+    from test_route_plane import build_pipe
+    from test_route_plane import hub_stream as jax_hub_stream
+
+    mesh = make_stream_mesh(N_RANKS)
+    out = {}
+    for name, (seed, _, cap, defer, kind, _, _) in CASES.items():
+        if name.endswith("-scatter"):
+            continue                    # the same JAX run as without
+        edges, feats = jax_hub_stream(seed)
+        model, params, pipe = build_pipe(jwin.WindowConfig(kind=kind),
+                                         mesh=mesh, route_cap=cap,
+                                         route_defer_cap=defer)
+        record = []
+        drive(pipe, name, edges, feats, record)
+        res = summary(pipe, record)
+        res["agg_cnt"] = [np.asarray(ls.agg_cnt) for ls in pipe.states]
+        res["edges"] = edges
+        res["params"] = jax.tree.map(np.asarray, params)
+        out[name] = res
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(JAX summaries, port per-rank results), the two computed side by
+    side: the forced-4 JAX subprocess starts first, the gloo ranks run
+    while it compiles."""
+    import jax
+
+    from repro.graph.sage import GraphSAGE as JaxSAGE
+    from repro_torch.convert import params_from_numpy
+    out = tmp_path_factory.mktemp("jax_mesh") / "ref.pkl"
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={N_RANKS} "
+                         "--xla_backend_optimization_level=0 "
+                         "--xla_cpu_multi_thread_eigen=false")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__)), str(out)], env=env,
+        cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        params = params_from_numpy(jax.tree.map(
+            np.asarray, JaxSAGE(DIMS).init(jax.random.key(0))))
+        port = spawn_stream_mesh(N_RANKS, _port_rank, backend="gloo",
+                                 device="cpu", args=(params,),
+                                 timeout=TIMEOUT)
+        log, _ = proc.communicate(timeout=TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, log[-4000:]
+    with open(out, "rb") as f:
+        ref = pickle.load(f)
+    return ref, port, params
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_mesh_matches_jax_mesh(runs, name):
+    ref, port, params = runs
+    want = ref[name.removesuffix("-scatter")]
+    edges, feats = hub_stream(CASES[name][0])
+    np.testing.assert_array_equal(edges, want["edges"])
+    ranks = [p[name] for p in port]
+    for rank, r in enumerate(ranks):
+        assert r["shards"] == [[0], [1], [2], [3]] and r["part0"] == rank
+        assert r["metrics"] == want["metrics"]
+        assert r["stats"] == want["stats"]
+        np.testing.assert_array_equal(r["busy"], want["busy"])
+        # every rank builds the same host batches from the same stream
+        assert r["digest"] == ranks[0]["digest"]
+        assert set(r["emb"]) == set(want["emb"]) and r["emb"]
+        for vid, vec in want["emb"].items():
+            np.testing.assert_allclose(r["emb"][vid], vec, rtol=1e-5,
+                                       atol=1e-5)
+    for li in range(len(DIMS) - 1):
+        np.testing.assert_array_equal(
+            np.concatenate([r["agg_cnt"][li] for r in ranks]),
+            want["agg_cnt"][li])
+    m = want["metrics"]
+    if name.startswith("starved"):
+        assert m["route_dropped"] > 0 and m["route_deferred"] == 0
+        assert ranks[0]["ring_rows"] == [0, 0]
+        return
+    assert m["route_dropped"] == 0, "sized rings must never drop"
+    if name.startswith("cap2"):
+        assert m["route_deferred"] > 0, "a 2-row bucket must defer"
+    if name.startswith("dense"):
+        assert ranks[0]["ring_rows"] == [0, 0]
+    # the sink against the static oracle on the final snapshot
+    from repro_torch.core.oracle import build_snapshot, oracle_embeddings
+    model = GraphSAGE(DIMS)
+    model.load_state_dict(params)
+    g, _ = build_snapshot(edges, feats, D_IN, N_NODES, "cpu")
+    oracle = oracle_embeddings(model, g).numpy()
+    for vid, vec in ranks[0]["emb"].items():
+        np.testing.assert_allclose(vec, oracle[vid], rtol=1e-4, atol=1e-4)
+
+
+def test_capped_wire_is_smaller_than_dense(runs):
+    ref, port, _ = runs
+    dense = port[0]["dense-super"]["metrics"]["wire_bytes"]
+    assert port[0]["cap2-super"]["metrics"]["wire_bytes"] < \
+        port[0]["cap40-super"]["metrics"]["wire_bytes"] < dense
+
+
+def test_mesh_config_validation():
+    """Indivisible parts and bad route caps fail in validate(n_devices),
+    before any rank allocates; the capped query wire's undeferrable case
+    comes with the query plane (item 9), which still refuses."""
+    with pytest.raises(ValueError, match="not divisible"):
+        PipelineConfig(n_parts=6, feat_cap=6).validate(n_devices=4)
+    PipelineConfig(n_parts=8, feat_cap=8).validate(n_devices=4)
+    cfg = PipelineConfig(n_parts=4, feat_cap=4, route_cap=1,
+                         route_defer_cap=0, query_cap=8)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        cfg.validate(n_devices=4)
+    with pytest.raises(ValueError, match="route_cap=0 must be > 0"):
+        PipelineConfig(route_cap=0, feat_cap=8).validate()
+    with pytest.raises(ValueError, match="route_defer_cap=-1"):
+        PipelineConfig(route_defer_cap=-1, feat_cap=8).validate()
+    # ring rows: global, 0 where the bucket holds the whole lane
+    caps = PipelineConfig(n_parts=4, edge_cap=128, repl_cap=128,
+                          feat_cap=128, edge_tick_cap=32,
+                          route_cap=40).capacities(4)
+    assert (caps.bc_defer_rows, caps.rmi_defer_rows) == (4 * 128, 4 * 160)
+    assert PipelineConfig(n_parts=4, route_cap=200, feat_cap=8,
+                          edge_tick_cap=32, edge_cap=128).capacities(
+        4).rmi_defer_rows == 0
+    assert PipelineConfig(n_parts=4, route_cap=2, feat_cap=8).capacities(
+        1).rmi_defer_rows == 0
+
+
+def _failing_rank(mesh):
+    if mesh.rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    return mesh.rank
+
+
+def test_a_failing_rank_fails_the_mesh():
+    with pytest.raises(Exception, match="rank 1 fails on purpose"):
+        spawn_stream_mesh(2, _failing_rank, backend="gloo", device="cpu",
+                          timeout=60)
+
+
+if __name__ == "__main__":
+    jax_reference(sys.argv[1])

@@ -110,8 +110,34 @@ def test_serve_cli_pinned_counts(driver, rmis, cross, capsys):
     assert "materialized 185 embeddings" in line
 
 
+def _serve_rank(mesh, argv):
+    """One rank of the serve stream on a mesh: its metrics, read back."""
+    pipe = serve.serve_stream(serve.parse_args(argv), mesh)
+    out = {k: v for k, v in vars(pipe.metrics).items()
+           if isinstance(v, int)}
+    out["materialized"] = len(pipe.embeddings())
+    return out
+
+
+@pytest.mark.parametrize("driver,rmis,cross", [("tick", 3032, 2491),
+                                               ("super", 3049, 2507)])
+def test_serve_cli_mesh_pinned_counts(driver, rmis, cross):
+    """The serve CLI's stream sharded over 4 gloo ranks (dense exchange,
+    through serve_stream's mesh argument) keeps the pinned counts; every
+    rank reads the same global metrics."""
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    ranks = spawn_stream_mesh(
+        4, _serve_rank, backend="gloo", device="cpu", timeout=300,
+        args=(["--edges", "1500", "--driver", driver],))
+    for r in ranks:
+        assert (r["reduce_msgs"], r["cross_part_msgs"]) == (rmis, cross)
+        assert r["materialized"] == 185
+        assert r["route_deferred"] == r["route_dropped"] == 0
+        assert r["wire_rows"] > 0 and r == ranks[0]
+
+
 @pytest.mark.parametrize("field,value,item", [
-    ("n_stages", 2, 13), ("route_cap", 8, 13), ("delta_eps", 1e-3, 8),
+    ("n_stages", 2, 13), ("delta_eps", 1e-3, 8),
     ("query_cap", 4, 9), ("train_cap", 4, 10), ("telemetry", True, 11)])
 def test_unported_planes_raise(field, value, item):
     cfg = PipelineConfig(**CAPS, **{field: value})
@@ -119,9 +145,33 @@ def test_unported_planes_raise(field, value, item):
         D3Pipeline(GraphSAGE(DIMS), cfg, device="cpu")
 
 
+def test_route_cap_without_mesh_is_the_dense_path():
+    """route_cap only caps a mesh's wire: on one device no ring exists and
+    the run equals the uncapped one."""
+    edges, feats = _stream()
+    model = GraphSAGE(DIMS)
+    a = _drive(D3Pipeline(model, PipelineConfig(**CAPS), device="cpu"),
+               "tick", edges, feats)
+    b = _drive(D3Pipeline(model, PipelineConfig(**CAPS, route_cap=2,
+                                                route_defer_cap=3),
+                          device="cpu"), "tick", edges, feats)
+    assert b.states[0].rmi_defer.shape[0] == 0
+    for name in ("ticks", "reduce_msgs", "broadcast_msgs", "emitted_total",
+                 "wire_rows", "wire_bytes", "route_deferred"):
+        assert getattr(b.metrics, name) == getattr(a.metrics, name), name
+    assert a.metrics.wire_bytes == 0
+    for x, y in zip(a.states, b.states):
+        assert torch.equal(x.agg, y.agg) and torch.equal(x.agg_cnt, y.agg_cnt)
+
+
 def test_unported_pipeline_arguments_raise():
+    from repro_torch.launch.mesh import make_stream_mesh, spawn_stream_mesh
     cfg = PipelineConfig(**CAPS)
     with pytest.raises(NotImplementedError, match="item 13"):
+        make_stream_mesh(stage=2)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        spawn_stream_mesh(4, print, backend="gloo", device="cpu", stage=2)
+    with pytest.raises(TypeError, match="StreamMesh"):
         D3Pipeline(GraphSAGE(DIMS), cfg, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         D3Pipeline(GraphSAGE(DIMS), cfg, train=object(), device="cpu")
