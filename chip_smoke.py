@@ -217,6 +217,18 @@ def card_line():
     return out
 
 
+def kernel_names(mangled):
+    """Short names (flash_wgmma_kernel<128, 3>) of mangled kernel names,
+    through c++filt where the host has it, else the names as they are."""
+    import shutil
+    if not mangled or not shutil.which("c++filt"):
+        return list(mangled)
+    out = subprocess.run(["c++filt"], input="\n".join(mangled),
+                         capture_output=True, text=True, timeout=60).stdout
+    return [line.removeprefix("void ").removeprefix("(anonymous namespace)::")
+            .split("(")[0] for line in out.splitlines()]
+
+
 def build_kernels():
     from repro_torch.kernels import cuda_lib
     t0 = time.perf_counter()
@@ -226,10 +238,21 @@ def build_kernels():
           + ", ".join(p.name for p in paths.values()))
     for p in paths.values():
         log = p.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[build] {line.strip()}")
+        if not log.exists():
+            continue
+        entries, lines = [], []   # ptxas's report, line by line, by kernel
+        for line in log.read_text().splitlines():
+            if "Compiling entry function" in line and "'" in line:
+                entries.append(line.split("'")[1])
+            elif ("registers" in line or "spill" in line) and entries:
+                lines.append((len(entries) - 1, line.strip()))
+        names = kernel_names(entries)
+        for i, line in lines:
+            print(f"[build] {names[i]}: {line}")
+    from repro_torch.kernels.flash_attention import ops as fa
+    print(f"[build] flash_wgmma_kernel dynamic shared memory: "
+          + ", ".join(f"D={D} {fa.wgmma_smem_bytes(D)} bytes"
+                      for D in fa.WGMMA_HEAD_DIMS))
     return secs
 
 
@@ -1158,7 +1181,11 @@ def phase_lm_kernel(device, lm=LM):
         (1, 200, 8, 2, 128, 200),     # ragged S = T
         (1, 100, 4, 1, 32, 300),      # S < T, ragged
         (1, 300, 4, 4, 16, 100),      # S > T, ragged
-    ] + [(1, 129, 4, 1, D, 129) for D in fa.HEAD_DIMS]
+    ] + [(1, 129, 4, 1, D, 129) for D in fa.HEAD_DIMS] + [
+        (1, 127, 8, 2, 128, 127),     # ragged at the 128-row tile
+        (1, 129, 8, 2, 128, 383),     # S < T
+        (2, 383, 8, 8, 128, 129),     # S > T, B = 2
+    ]
     errs = {"bf16": 0.0, "f32": 0.0}
     excess = {"bf16": 0.0, "f32": 0.0}
     planted = {}
@@ -1168,6 +1195,7 @@ def phase_lm_kernel(device, lm=LM):
         errs[name], excess[name] = max(errs[name], err), max(excess[name], ex)
         return outs
 
+    fa.reset_launches()
     for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for B, S, H, Kh, D, T in cases:
             q, k, v = make_qkv(gen, dtype, B, S, H, Kh, D, T)
@@ -1182,9 +1210,18 @@ def phase_lm_kernel(device, lm=LM):
         planted[name] = fa_planted_faults(q, k, v, *run(name, q, k, v, True))
         del q, k, v, qkv
         free_cuda()
+    # every bf16 case at D 64 or 128 (the strided one and the prefill
+    # shape included) went to the wgmma kernel, every other one did not
+    n_wgmma = 2 * sum(D in fa.WGMMA_HEAD_DIMS for *_, D, _ in cases) + 2
+    if device.type == "cuda":
+        check(fa.LAUNCHES["flash_attention_wgmma"] == n_wgmma,
+              f"[lm-kernel] launches {fa.LAUNCHES}, expected {n_wgmma} of "
+              f"the wgmma kernel")
     print(f"[lm-kernel] flash_attention vs plain passed (causal and not, "
           f"G in {{1, 4}}, ragged, D in {fa.HEAD_DIMS}, strided, q/k/v "
-          f"{lm['prefill_qkv']}); max abs err {errs}; worst block "
+          f"{lm['prefill_qkv']}); launches {fa.LAUNCHES} (bf16 at D in "
+          f"{fa.WGMMA_HEAD_DIMS}: the wgmma kernel); max abs err {errs}; "
+          f"worst block "
           f"||kernel - f64|| / ({FA_RATIO} ||plain - f64|| + {FA_FLOOR} "
           f"||f64||) {excess} (limit 1); planted faults at the prefill "
           f"shape read {planted} (must be > 1)")
@@ -1307,9 +1344,10 @@ def phase_lm_full(device, lm=LM):
     check(logits.shape == (1, cfg.vocab) and bool(logits.isfinite().all()),
           "prefill logits misshapen or not finite")
     if cuda:
-        check(launches["flash_attention"] == cfg.n_layers,
-              f"the prefill launched the flash kernel {launches} times, "
-              f"expected {cfg.n_layers}")
+        check(launches["flash_attention"] == cfg.n_layers
+              and launches["flash_attention_wgmma"] == cfg.n_layers,
+              f"the prefill launched the flash kernels {launches} times, "
+              f"expected {cfg.n_layers}, all of the wgmma kernel")
     print(f"[lm-full] prefill S={S} batch 1: {secs:.3f}s = "
           f"{S / secs:.1f} tokens/s; launches {launches}; logits finite")
     if cuda:
@@ -1347,8 +1385,9 @@ def phase_lm_full(device, lm=LM):
 
 
 def phase_lm_time(device, launches, max_err, lm=LM):
-    """The kernel at the prefill shape beside its bound, its plain version
-    and the library's fused attention (timed only, never on the path)."""
+    """The kernel at the prefill shape beside its bound, the mma.sync
+    kernel it replaced, its plain version and the library's fused
+    attention (the last two timed only, never on the path), in turns."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1356,12 +1395,20 @@ def phase_lm_time(device, launches, max_err, lm=LM):
     gen = torch.Generator(device=device).manual_seed(SEED)
     q, k, v = make_qkv(gen, torch.bfloat16, *lm["prefill_qkv"])
     B, S, H, D = q.shape
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=True))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    runs = {"wgmma": [], "mma.sync": [], "sdpa": []}
+    for name in ("wgmma", "mma.sync", "sdpa", "sdpa", "mma.sync", "wgmma"):
+        fn = {"wgmma": lambda: fa.flash_attention(q, k, v, causal=True),
+              "mma.sync": lambda: fa._flash_attention_mma_sync(q, k, v, True),
+              "sdpa": sdpa}[name]
+        runs[name].append(time_ms(fn))
+    ms, prev_ms, lib_ms = (sum(r) / len(r) for r in runs.values())
+    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=True))
     # causal: S (S + 1) / 2 visible (query, key) pairs per head, two
     # matmuls of 2 D FLOPs each; q, k, v read once, o written once
     flops = 4 * D * H * B * (S * (S + 1) // 2)
@@ -1369,17 +1416,25 @@ def phase_lm_time(device, launches, max_err, lm=LM):
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_OPS_PER_S
     bound = max(t_bytes, t_ops) * 1e3
     by = "bytes" if t_bytes > t_ops else "operations"
+    rate = lambda t: f"{flops / t / 1e9:.1f} TFLOP/s"
     print(f"[lm-time] flash_attention bf16 q {tuple(q.shape)} k/v "
-          f"{tuple(k.shape)} causal: {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-          f"TFLOP/s); bound {bound:.3f} ms by {by} ({flops} FLOPs, "
-          f"{n_bytes} bytes); plain {plain_ms:.3f} ms; "
-          f"scaled_dot_product_attention (flash backend) {lib_ms:.3f} ms")
+          f"{tuple(k.shape)} causal, in turns (wgmma, mma.sync, sdpa, sdpa, "
+          f"mma.sync, wgmma): wgmma kernel {runs['wgmma']} ms, mean "
+          f"{ms:.3f} ms ({rate(ms)}, {bound / ms:.3f} of the bound); "
+          f"mma.sync kernel {runs['mma.sync']} ms, mean {prev_ms:.3f} ms "
+          f"({rate(prev_ms)}); scaled_dot_product_attention (flash "
+          f"backend) {runs['sdpa']} ms, mean {lib_ms:.3f} ms "
+          f"({rate(lib_ms)}); plain {plain_ms:.3f} ms; bound {bound:.3f} "
+          f"ms by {by} ({flops} FLOPs, {n_bytes} bytes)")
+    check(ms < prev_ms, f"the wgmma kernel ({ms:.3f} ms) is no faster "
+                        f"than the mma.sync kernel ({prev_ms:.3f} ms)")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
-            "launches": launches["flash_attention"], "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": lib_ms}
+            "launches": launches["flash_attention_wgmma"],
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "previous_ms": prev_ms}
 
 
 # ------------------------------------------------------------- RS phases

@@ -54,6 +54,87 @@ def test_flash_attention_matches_plain(cuda, dtype, causal, B, S, T, H, Kh,
                                want.float().cpu().numpy(), **TOL[dtype])
 
 
+# the wgmma kernel (bf16, D 64 and 128): sizes at and around its 128-row
+# query and key tiles, S < T and S > T, against the plain version
+WGMMA_ST = [(1, 1), (127, 127), (128, 128), (129, 129), (383, 383),
+            (127, 383), (383, 129), (1, 128), (129, 1)]
+
+
+def _bf16(rng, shape, cuda):
+    return torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,T", WGMMA_ST)
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_matches_plain(cuda, D, causal, G, S, T):
+    B, Kh = 2, 2
+    rng = np.random.default_rng(S * 1000 + T + D + G)
+    q = _bf16(rng, (B, S, G * Kh, D), cuda)
+    k, v = _bf16(rng, (B, T, Kh, D), cuda), _bf16(rng, (B, T, Kh, D), cuda)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES == {"flash_attention": 1, "flash_attention_wgmma": 1}
+    want = ref.attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_reads_strided_views_of_fused_qkv(cuda, D, causal):
+    """q, k, v as views of one [B, S, H + 2 Kh, D] tensor: tensor maps
+    with a head stride of D and a row stride of (H + 2 Kh) D."""
+    B, S, H, Kh = 2, 190, 8, 2
+    qkv = _bf16(np.random.default_rng(D), (B, S, H + 2 * Kh, D), cuda)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Kh], qkv[:, :, H + Kh:]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
+
+
+def test_flash_wgmma_reads_kv_broadcast_over_heads(cuda):
+    """k/v expanded over their heads (head stride 0): the tensor map
+    steps nowhere along that dim."""
+    rng = np.random.default_rng(11)
+    q = _bf16(rng, (2, 300, 8, 128), cuda)
+    k = _bf16(rng, (2, 300, 1, 128), cuda).expand(2, 300, 2, 128)
+    v = _bf16(rng, (2, 300, 1, 128), cuda).expand(2, 300, 2, 128)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("D,wgmma", [(128, 1), (64, 1), (32, 0), (16, 0)])
+def test_flash_launch_counts_name_the_kernel(cuda, D, wgmma):
+    q = torch.zeros(1, 64, 4, D, device=cuda, dtype=torch.bfloat16)
+    ops.reset_launches()
+    ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    assert ops.LAUNCHES == {"flash_attention": 1,
+                            "flash_attention_wgmma": wgmma}
+
+
+def test_flash_mma_sync_yardstick_matches_plain_and_counts_nothing(cuda):
+    rng = np.random.default_rng(7)
+    q = _bf16(rng, (1, 200, 8, 128), cuda)
+    k, v = _bf16(rng, (1, 200, 2, 128), cuda), _bf16(rng, (1, 200, 2, 128),
+                                                     cuda)
+    ops.reset_launches()
+    got = ops._flash_attention_mma_sync(q, k, v, causal=True)
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0}
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        ref.attention_ref(q, k, v, causal=True).float().cpu().numpy(),
+        **TOL[torch.bfloat16])
+
+
 def test_flash_attention_raises_on_what_it_does_not_take(cuda):
     q = torch.zeros(1, 8, 4, 48, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):

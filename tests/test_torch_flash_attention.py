@@ -117,7 +117,28 @@ def test_query_chunks_do_not_change_the_result():
 def test_cpu_wrapper_counts_no_launch():
     ops.reset_launches()
     _port(*_qkv(3, 1, 16, 16, 2, 1, 16))
-    assert ops.LAUNCHES == {"flash_attention": 0}
+    _port(*_qkv(3, 1, 16, 16, 2, 1, 128), dtype=torch.bfloat16)
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0}
+
+
+@pytest.mark.parametrize("dtype,D,wgmma", [
+    (torch.bfloat16, 128, True), (torch.bfloat16, 64, True),
+    (torch.bfloat16, 32, False), (torch.bfloat16, 16, False),
+    (torch.float32, 128, False), (torch.float32, 64, False),
+])
+def test_kernel_choice_by_dtype_and_head_dim(dtype, D, wgmma):
+    """bf16 at D 64 and 128 goes to the wgmma kernel; the rest to the
+    mma.sync (bf16) or CUDA-core (f32) kernel."""
+    assert ops.uses_wgmma(torch.zeros(1, 4, 2, D, dtype=dtype)) is wgmma
+
+
+def test_map_strides_step_only_dims_longer_than_one():
+    """A dimension of size 1 is never stepped, so its stride (whatever a
+    view left there) goes to the tensor map as a contiguous tensor's."""
+    q = torch.zeros(8 * 64 * 5).as_strided((1, 8, 1, 64), (7, 64 * 5, 3, 1))
+    assert ops._map_strides(q) == [8 * 64, 64 * 5, 64]
+    qkv = torch.zeros(2, 8, 12, 64)
+    assert ops._map_strides(qkv[:, :, 8:10]) == [8 * 12 * 64, 12 * 64, 64]
 
 
 @pytest.mark.parametrize("shapes", [
@@ -134,10 +155,12 @@ def test_wrapper_rejects_bad_shapes(shapes):
 
 
 @pytest.mark.parametrize("case", ["f16", "mixed", "head_dim", "last_stride",
-                                  "odd_stride"])
+                                  "odd_stride", "misaligned",
+                                  "misaligned_wgmma", "tma_stride"])
 def test_cuda_checks_reject_what_the_kernel_does_not_take(case):
     """The checks a CUDA call passes before launching (run here on CPU
-    tensors: they read only dtype, shape and strides)."""
+    tensors: they read only dtype, shape, strides and the start address;
+    "tma_stride" on a meta tensor, which has no storage to hold it)."""
     q = torch.zeros(1, 8, 4, 32, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
     v = k.clone()
@@ -151,9 +174,37 @@ def test_cuda_checks_reject_what_the_kernel_does_not_take(case):
         q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)[..., ::2]
     elif case == "odd_stride":
         q = torch.zeros(1, 8, 4, 33, dtype=torch.bfloat16)[..., :32]
+    elif case in ("misaligned", "misaligned_wgmma"):
+        # a start 2 bytes past a 16-byte boundary: neither cp.async nor a
+        # tensor map takes it
+        D = 32 if case == "misaligned" else 128
+        q, k, v = (torch.zeros(t.numel() // 32 * D + 8, dtype=torch.bfloat16)
+                   [1:1 + t.numel() // 32 * D].view(*t.shape[:3], D)
+                   for t in (q, k, v))
+    elif case == "tma_stride":
+        # batch stride of 2^40 bytes: a tensor map cannot encode it
+        meta = lambda shape, stride: torch.empty_strided(
+            shape, stride, dtype=torch.bfloat16, device="meta")
+        q = meta((2, 8, 4, 64), (1 << 39, 256, 64, 1))
+        k = v = meta((2, 8, 2, 64), (8 * 2 * 64, 128, 64, 1))
     with pytest.raises(ValueError):
         ops._check_cuda(q, k, v)
     ops._check_cuda(torch.zeros(1, 8, 4, 32, dtype=torch.bfloat16),
                     torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16),
                     torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16))
+
+
+def test_cuda_checks_take_what_a_tensor_map_encodes():
+    """The wgmma path's checks pass strided views of a fused qkv tensor,
+    k/v broadcast over their heads (stride 0), and a huge stride on a
+    batch of 1, which is never stepped."""
+    qkv = torch.zeros(2, 8, 12, 128, dtype=torch.bfloat16)
+    ops._check_cuda(qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:])
+    kv = torch.zeros(2, 8, 1, 128, dtype=torch.bfloat16).expand(2, 8, 2, 128)
+    ops._check_cuda(qkv[:, :, :8], kv, kv)
+    big = torch.empty_strided((1, 8, 4, 64), (1 << 39, 256, 64, 1),
+                              dtype=torch.bfloat16, device="meta")
+    kv = torch.empty_strided((1, 8, 2, 64), (1024, 128, 64, 1),
+                             dtype=torch.bfloat16, device="meta")
+    ops._check_cuda(big, kv, kv)
 
