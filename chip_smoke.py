@@ -9,9 +9,12 @@ Phases (any failure exits non-zero; no phase is caught):
   1. the card's name and power limit (nvidia-smi); build of every kernel
      in src/repro_torch/csrc/ with nvcc for sm_90a (seconds, ptxas report);
   2. each kernel against its plain PyTorch version on the card: edge cases
-     (last-writer-wins, all-padding, sentinel rows, a hub run, cnt <= 0)
-     and the main path's shapes, and the "kernel" delivery backend against
-     the "scatter" one;
+     (last-writer-wins, all-padding, sentinel rows, hub runs over many
+     shares, one and no output rows, cnt <= 0) and the main path's shapes;
+     kernel A in every form (add and set, with and without the base,
+     gathered and contiguous, and the contiguous form on the packed
+     payload), and the "kernel" delivery backend against the "scatter"
+     one;
   3. parity gate: the port's serve CLI at --edges 1500, dims (16,64,64),
      must print the JAX package's pinned counts (tick 3032/2491, super
      3049/2507) with equal materialized counts;
@@ -21,10 +24,14 @@ Phases (any failure exits non-zero; no phase is caught):
      run; the sink is checked against the float64 static oracle and
      against the same stream through the "scatter" backend;
   5. each kernel timed at main-path shapes beside its plain version, the
-     library call computing the same function and its memory bound; one
-     JSON `kernels` line;
+     library call computing the same function and its memory bound (kernel
+     A: the fused add delivery at the layer-0 RMI lane, its set form, and
+     the contiguous form on the packed payload, the yardstick of PRs
+     11-15; the delivery plane's add call, sort included, on both
+     backends and on the packed path); one JSON `kernels` line;
   6. device time by operator over one steady-state full-width super-tick
-     (torch.profiler), beside its wall and host staging time.
+     (torch.profiler), beside its wall and host staging time, and the
+     same device time by the call site that launched it.
 
 Then the sharded 1-D mesh path, four gloo ranks that share the card (one
 process each, started after the parent frees its memory; every kernel is
@@ -100,6 +107,7 @@ The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository around it, the script exits non-zero and prints no
 result.
 """
+import bisect
 import copy
 import gc
 import json
@@ -129,7 +137,8 @@ FULL = dict(n_nodes=40_000, n_edges=400_000, tick_edges=4096,
                       repl_cap=8192, feat_cap=8192, edge_tick_cap=4096))
 
 # kernel A vs its plain version: per row, |diff| <= KA_TOL * (1 + sum|x|)
-# over the run (f32 sums in another order); count and touch columns exact.
+# over the run (f32 sums in another order: shares, carries); counts,
+# dirty/touched flags and set-mode rows (copies) exact.
 # kernel B vs plain: |diff| <= KB_TOL * (1 + |ref|) (same IEEE division).
 # sink vs oracle and vs the scatter backend: |diff| <= SINK_TOL *
 # max(1, |ref|) (streamed f32 sums of telescoping deltas vs a static sum).
@@ -257,20 +266,88 @@ def build_kernels():
 
 
 # ------------------------------------------------------------- phase 2
-def kernel_a_check(ops, ref, payload, seg, row_ptr):
-    """Kernel A vs its plain version on one layout; returns max abs err."""
+def packed_layout(idx, vec, cnt, n_rows, mode="add"):
+    """The PR 11-15 layout of a delivery, kept as kernel A's yardstick
+    input: stable sort by destination and the packed [vec | cnt | touch]
+    payload [C, d + 2] of the live records (zeros elsewhere). Returns
+    (payload, seg [C] sorted ids, row_ptr [n_rows + 1]), the contiguous
+    form's inputs."""
+    import torch
+    from repro_torch.kernels.segment_reduce import ops
+    C, d = vec.shape
+    valid = (idx >= 0) & (idx < n_rows)
+    seg = torch.where(valid, idx, torch.full_like(idx, n_rows))
+    seg_s, order = torch.sort(seg, stable=True)
+    live = valid[order]
+    if mode == "set":
+        is_last = torch.ones_like(live)
+        is_last[:-1] = seg_s[1:] != seg_s[:-1]
+        live = live & is_last
+    payload = torch.empty((C, d + 2), dtype=torch.float32, device=vec.device)
+    payload[:, :d] = vec[order]
+    payload[:, d] = cnt[order]
+    payload[:, d + 1] = 1.0
+    payload.masked_fill_(~live[:, None], 0.0)
+    return payload, seg_s, ops.run_offsets(seg_s, n_rows)
+
+
+def kernel_a_sum_check(got, want, absum, what):
+    """An add-form output against its plain version: per element
+    |diff| <= KA_TOL * (1 + the run's sum of magnitudes)."""
+    err = (got - want).abs()
+    worst = float(err.max()) if err.numel() else 0.0
+    check(bool((err <= KA_TOL * (1 + absum)).all()),
+          f"{what} disagrees: max err {worst}")
+    return worst
+
+
+def kernel_a_yardstick_check(ops, ref, payload, seg, row_ptr):
+    """Kernel A's contiguous form on a packed payload vs its plain
+    version; returns max abs err."""
     import torch
     got = ops.segment_sum_rows(payload, seg, row_ptr)
     want = ref.segment_sum_rows_ref(payload, seg, row_ptr)
     absum = ref.segment_sum_rows_ref(payload.abs(), seg, row_ptr)
     sync(got)
     d = payload.shape[1] - 2
-    err = (got[:, :d] - want[:, :d]).abs()
-    check(bool((err <= KA_TOL * (1 + absum[:, :d])).all()),
-          f"segment_sum_rows disagrees: max err {float(err.max())}")
+    err = kernel_a_sum_check(got[:, :d], want[:, :d], absum[:, :d],
+                             "segment_sum_rows (contiguous)")
     check(torch.equal(got[:, d:], want[:, d:]),
           "segment_sum_rows count/touch columns differ")
-    return float(err.max()) if err.numel() else 0.0
+    return err
+
+
+def kernel_a_check(ops, ref, vec, cnt, order, row_ptr, base, base_cnt):
+    """Kernel A's fused forms vs the plain version on one layout: add and
+    set, with and without the base, gathered through order and contiguous
+    (the sorted rows); sums within KA_TOL, counts, flags and set rows
+    exact. Returns max abs err."""
+    import torch
+    worst = 0.0
+    contiguous = (vec[order], cnt[order], None)
+    for v, c, o in ((vec, cnt, order), contiguous):
+        for b, bc in ((base, base_cnt), (None, None)):
+            for mode in ("add", "set"):
+                what = (f"segment_deliver {mode} (order "
+                        f"{'yes' if o is not None else 'no'}, base "
+                        f"{'yes' if b is not None else 'no'})")
+                got = ops.deliver_rows(v, row_ptr, o, c, b, bc, mode)
+                want = ref.deliver_rows_ref(v, row_ptr, o, c, b, bc, mode)
+                sync(got[0])
+                check(torch.equal(got[1], want[1])
+                      and torch.equal(got[2], want[2]),
+                      f"{what}: counts or flags differ")
+                if mode == "set":
+                    check(torch.equal(got[0], want[0]),
+                          f"{what}: rows differ")
+                    continue
+                absum = ref.deliver_rows_ref(
+                    v.abs(), row_ptr, o, None,
+                    None if b is None else b.abs(), None, mode)[0]
+                worst = max(worst, kernel_a_sum_check(got[0], want[0],
+                                                      absum, what))
+                del got, want, absum
+    return worst
 
 
 def kernel_b_check(ops, ref, agg, cnt, rows):
@@ -308,12 +385,18 @@ def phase_kernels_vs_plain(device, full=FULL):
 
     def deliver_case(idx, vec, cnt, n_rows):
         idx, vec, cnt = on(idx), on(vec), on(cnt)
-        for mode in ("add", "set"):
-            e = kernel_a_check(ops, ref, *ops.deliver_layout(
-                idx, vec, cnt, n_rows, mode))
-            errs["segment_sum_rows"] = max(errs["segment_sum_rows"], e)
         dst = torch.randn(n_rows, vec.shape[1], generator=gen,
                           device=device)
+        base_cnt = torch.randint(0, 4, (n_rows,), generator=gen,
+                                 device=device).float()
+        order, row_ptr = ops.sort_runs(idx, n_rows)
+        e = kernel_a_check(ops, ref, vec, cnt, order, row_ptr, dst, base_cnt)
+        errs["segment_sum_rows"] = max(errs["segment_sum_rows"], e)
+        for mode in ("add", "set"):
+            e = kernel_a_yardstick_check(ops, ref, *packed_layout(
+                idx, vec, cnt, n_rows, mode))
+            errs["segment_sum_rows"] = max(errs["segment_sum_rows"], e)
+        del order, row_ptr
         got, gt = kd.deliver_set(dst, idx, vec)
         want, wt = sd.deliver_set(dst, idx, vec)
         check(torch.equal(got, want) and torch.equal(gt, wt),
@@ -325,10 +408,9 @@ def phase_kernels_vs_plain(device, full=FULL):
               "kernel deliver_add counts/dirty differ from scatter")
         # f32 sums in two orders: bounded by the run's sum of magnitudes
         absum = sd.deliver_add(dst.abs(), cnt0, idx, vec.abs(), cnt)[0]
-        err = (ga - wa).abs()
-        check(bool((err <= KA_TOL * (1 + absum)).all()),
-              f"kernel deliver_add sums differ from scatter: max err "
-              f"{float(err.max())} (C={idx.shape[0]}, rows={n_rows})")
+        kernel_a_sum_check(ga, wa, absum, f"kernel deliver_add vs scatter "
+                                          f"(C={idx.shape[0]}, "
+                                          f"rows={n_rows})")
 
     # last-writer-wins with duplicates, sentinel and negative rows
     deliver_case(torch.tensor([3, 5, 3, 3, 5, 8, 9, -1, 7]),
@@ -337,10 +419,17 @@ def phase_kernels_vs_plain(device, full=FULL):
     # all padding
     deliver_case(torch.full((300,), 99), torch.ones(300, 5),
                  torch.ones(300), 16)
-    # one hub run spanning many kernel tiles
+    # one hub run spanning many kernel shares, and one over ~1.6e3 shares
     deliver_case(torch.full((5000,), 11),
                  torch.randn(5000, 70, generator=gen, device=device),
                  torch.ones(5000), 40)
+    deliver_case(torch.full((105_000,), 3),
+                 torch.randn(105_000, 602, generator=gen, device=device),
+                 torch.ones(105_000), 9)
+    # one output row; no output rows
+    deliver_case(torch.tensor([0, 0, 1, -1, 0]), torch.randn(
+        5, 3, generator=gen, device=device), torch.ones(5), 1)
+    deliver_case(torch.tensor([0, 2]), torch.ones(2, 4), torch.ones(2), 0)
     # main-path shapes (layer 0 at full width): the round-B RMI lane
     # (edge_tick_cap + P * edge_cap records, power-law destinations) and
     # the broadcast lane (P * repl_cap records) into P * node_cap rows
@@ -545,42 +634,17 @@ def bound_ms(n_bytes, n_ops):
 
 def phase_timing(pipe, launches, errs):
     """Time both kernels on inputs of the main path at full width: the
+    forward stage's per-part picks read from the final layer-0 aggregator
+    table (first, before kernel A's timings churn the allocator), and the
     final topology's layer-0 RMI lane with every edge live (the heaviest
-    round-B delivery), and the forward stage's per-part picks read from
-    the final layer-0 aggregator table."""
+    round-B delivery)."""
     import torch
+    from repro_torch.core.delivery import KernelDelivery, ScatterDelivery
     from repro_torch.core.state import local_index
     from repro_torch.kernels.segment_reduce import ops, ref
     cfg, topo, ls, dev = pipe.cfg, pipe.topo, pipe.states[0], pipe.device
     P, N, d = ls.agg.shape
     gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    # kernel A: the RMI lane (edge_tick_cap fresh + P * edge_cap records)
-    idx, _ = local_index(topo.e_dst_mpart.reshape(-1),
-                         topo.e_dst_mslot.reshape(-1), 0, P, N,
-                         topo.e_valid.reshape(-1))
-    idx = torch.cat([torch.full((cfg.edge_tick_cap,), P * N, device=dev),
-                     idx])
-    C = idx.shape[0]
-    vec = torch.randn(C, d, device=dev, generator=gen)
-    payload, seg, row_ptr = ops.deliver_layout(
-        idx, vec, torch.ones(C, device=dev), P * N, "add")
-    del vec
-    errs["segment_sum_rows"] = max(errs["segment_sum_rows"],
-                                   kernel_a_check(ops, ref, payload, seg,
-                                                  row_ptr))
-    live = int(row_ptr[-1])
-    W = payload.shape[1]
-    a_ms = time_ms(lambda: ops.segment_sum_rows(payload, seg, row_ptr))
-    a_plain = time_ms(lambda: ref.segment_sum_rows_ref(payload, seg,
-                                                       row_ptr))
-    seg_l, rows_l = seg[:live], payload[:live]
-    a_lib = time_ms(lambda: torch.zeros(P * N, W, device=dev).index_add_(
-        0, seg_l, rows_l))
-    a_bound = bound_ms(live * W * 4 + live * 8 + (P * N + 1) * 8
-                       + P * N * W * 4, live * W)
-    print(f"[time] segment_sum_rows: E={C} live={live} W={W} rows={P * N}")
-    del payload, seg, row_ptr, seg_l, rows_l
 
     # kernel B: the first outbox_per_part evicting masters of every part
     k = cfg.capacities().outbox_per_part
@@ -595,7 +659,104 @@ def phase_timing(pipe, launches, errs):
     b_ms = time_ms(lambda: ops.mean_rows_gather(agg, cnt, rows))
     b_plain = time_ms(lambda: ref.mean_rows_gather_ref(agg, cnt, rows))
     b_bound = bound_ms(K * d * 4 + K * 4 + K * 8 + K * d * 4, K * d)
-    print(f"[time] mean_rows_gather: K={K} d={d} table rows={P * N}")
+    print(f"[time] mean_rows_gather: K={K} d={d} table rows={P * N}: "
+          f"{b_ms:.4f} ms; bound {b_bound:.4f} ms (bytes); plain "
+          f"{b_plain:.4f} ms")
+    del agg, cnt, rows, order, picked
+
+    # kernel A: the RMI lane (edge_tick_cap fresh + P * edge_cap records)
+    idx, _ = local_index(topo.e_dst_mpart.reshape(-1),
+                         topo.e_dst_mslot.reshape(-1), 0, P, N,
+                         topo.e_valid.reshape(-1))
+    n = P * N
+    idx = torch.cat([torch.full((cfg.edge_tick_cap,), n, device=dev), idx])
+    C = idx.shape[0]
+    vec = torch.randn(C, d, device=dev, generator=gen)
+    cnt = torch.ones(C, device=dev)
+
+    # the PR 11-15 yardstick: the contiguous form on the packed payload
+    payload, seg, row_ptr = packed_layout(idx, vec, cnt, n, "add")
+    errs["segment_sum_rows"] = max(
+        errs["segment_sum_rows"],
+        kernel_a_yardstick_check(ops, ref, payload, seg, row_ptr))
+    live = int(row_ptr[-1])
+    W = payload.shape[1]
+    y_ms = time_ms(lambda: ops.segment_sum_rows(payload, seg, row_ptr))
+    y_plain = time_ms(lambda: ref.segment_sum_rows_ref(payload, seg,
+                                                       row_ptr))
+    seg_l, rows_l = seg[:live], payload[:live]
+    y_lib = time_ms(lambda: torch.zeros(n, W, device=dev).index_add_(
+        0, seg_l, rows_l))
+    y_bound = bound_ms(live * W * 4 + live * 8 + (n + 1) * 8 + n * W * 4,
+                       live * W)
+    print(f"[time] segment_sum_rows, contiguous form on the packed payload "
+          f"(yardstick): E={C} live={live} W={W} rows={n}: {y_ms:.4f} ms; "
+          f"bound {y_bound:.4f} ms (bytes; {y_bound / y_ms:.3f} of it "
+          f"reached); plain {y_plain:.4f} ms; zeros + index_add_ "
+          f"{y_lib:.4f} ms")
+    del payload, seg, row_ptr, seg_l, rows_l
+
+    # the fused delivery at the same lane: the main path's add form (base
+    # read and the new table written in the same call)
+    order, row_ptr = ops.sort_runs(idx, n)
+    base = torch.randn(n, d, device=dev, generator=gen)
+    base_cnt = torch.randint(0, 4, (n,), device=dev, generator=gen).float()
+    args = (vec, row_ptr, order, cnt, base, base_cnt, "add")
+    got, want = ops.deliver_rows(*args), ref.deliver_rows_ref(*args)
+    sync(got[0])
+    check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+          "segment_deliver add at the RMI lane: counts or flags differ")
+    absum = ref.deliver_rows_ref(vec.abs(), row_ptr, order, None,
+                                 base.abs(), None, "add")[0]
+    errs["segment_sum_rows"] = max(
+        errs["segment_sum_rows"], kernel_a_sum_check(
+            got[0], want[0], absum, "segment_deliver add at the RMI lane"))
+    del got, want, absum
+    f_ms = time_ms(lambda: ops.deliver_rows(*args))
+    f_plain = time_ms(lambda: ref.deliver_rows_ref(*args))
+    seg_s = torch.where((idx >= 0) & (idx < n), idx,
+                        torch.full_like(idx, n))[order]
+    seg_l, rows_l = seg_s[:live], vec[order[:live]]
+    pad = torch.cat([base, base.new_zeros(1, d)])
+    f_lib = time_ms(lambda: pad.index_add_(0, seg_l, rows_l))
+    del pad, rows_l
+    # gathered live rows, their order entries and counts, row_ptr, base
+    # and base_cnt read; out, cnt_out and flag written
+    f_bytes = (live * (d * 4 + 8 + 4) + (n + 1) * 8 + 2 * n * (d * 4 + 4)
+               + n)
+    f_bound = bound_ms(f_bytes, live * d + n * d)
+    print(f"[time] segment_deliver add (fused delivery) at the same lane: "
+          f"{f_ms:.4f} ms; bound {f_bound:.4f} ms (bytes: {f_bytes}; "
+          f"{f_bound / f_ms:.3f} of it reached); plain {f_plain:.4f} ms; "
+          f"index_add_ of the live rows into a padded copy of the base "
+          f"{f_lib:.4f} ms")
+    # the set form on the same runs: each touched row's last record, the
+    # base row elsewhere
+    touched = int((row_ptr[1:] > row_ptr[:-1]).sum())
+    s_args = (vec, row_ptr, order, None, base, None, "set")
+    s_ms = time_ms(lambda: ops.deliver_rows(*s_args))
+    s_bytes = (touched * (d * 4 + 8) + (n + 1) * 8
+               + (n - touched) * d * 4 + n * d * 4 + n)
+    s_bound = bound_ms(s_bytes, 0)
+    print(f"[time] segment_deliver set at the same lane ({touched} touched "
+          f"rows): {s_ms:.4f} ms; bound {s_bound:.4f} ms "
+          f"({s_bound / s_ms:.3f})")
+    # the delivery plane's add call, sort included: the kernel backend,
+    # the PR 11-15 path (packed payload, contiguous form, epilogue) and
+    # the scatter backend
+    kd, sd = KernelDelivery(), ScatterDelivery()
+
+    def packed_add():
+        out = ops.segment_sum_rows(*packed_layout(idx, vec, cnt, n, "add"))
+        return base + out[:, :d], base_cnt + out[:, d], out[:, d + 1] > 0
+
+    p_new = time_ms(lambda: kd.deliver_add(base, base_cnt, idx, vec, cnt))
+    p_old = time_ms(packed_add)
+    p_sc = time_ms(lambda: sd.deliver_add(base, base_cnt, idx, vec, cnt))
+    print(f"[time] delivery plane, deliver_add at the same lane (sort "
+          f"included): kernel backend {p_new:.4f} ms; the PR 11-15 packed "
+          f"path {p_old:.4f} ms; scatter backend {p_sc:.4f} ms")
+    del vec, cnt, order, row_ptr, base, base_cnt, seg_s, seg_l, idx
 
     src = "src/repro_torch/csrc/segment_reduce.cu"
     tpu = "src/repro/kernels/segment_reduce/kernel.py"
@@ -603,9 +764,15 @@ def phase_timing(pipe, launches, errs):
         {"name": "segment_sum_rows", "route": "cuda", "source": src,
          "replaces": f"{tpu}:59",
          "launches": launches["segment_sum_rows"],
-         "max_abs_err": errs["segment_sum_rows"], "ms": a_ms,
-         "plain_ms": a_plain, "bound_ms": a_bound, "bound_by": "bytes",
-         "library_ms": a_lib},
+         "max_abs_err": errs["segment_sum_rows"], "ms": f_ms,
+         "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": "bytes",
+         "library_ms": f_lib,
+         "yardstick": {"form": "contiguous, packed payload", "ms": y_ms,
+                       "plain_ms": y_plain, "bound_ms": y_bound,
+                       "library_ms": y_lib},
+         "set": {"ms": s_ms, "bound_ms": s_bound},
+         "delivery_plane_ms": {"kernel": p_new, "packed": p_old,
+                               "scatter": p_sc}},
         {"name": "mean_rows_gather", "route": "cuda", "source": src,
          "replaces": f"{tpu}:95",
          "launches": launches["mean_rows_gather"],
@@ -615,10 +782,39 @@ def phase_timing(pipe, launches, errs):
 
 
 # ------------------------------------------------------------- phase 6
-def phase_profile(full, device, warm_super_ticks=6, top=12):
+def call_site(event):
+    """Where a profiler event was launched from: its innermost repro_torch
+    frame and, below that, the tick stage (core/tick.py) it ran in, as
+    'kernels/segment_reduce/ops.py(86): sort_runs < core/tick.py(241):
+    apply_rmis'. Walks up from the event (a kernel's launch) through its
+    enclosing events: the first one with a recorded stack gives the
+    frames; where stacks are recorded as Python-function events instead
+    (with_stack=True in newer PyTorch), those events' names do."""
+    frames, node = [], event
+    while node is not None:
+        stack = [f.split("repro_torch/", 1)[1]
+                 for f in (getattr(node, "stack", None) or [])
+                 if "repro_torch/" in f]
+        if stack:
+            frames += stack
+            break
+        if "repro_torch/" in node.name:
+            frames.append(node.name.split("repro_torch/", 1)[1])
+        node = node.cpu_parent
+    if not frames:
+        return None
+    stage = next((f for f in frames[1:] if f.startswith("core/tick.py")),
+                 frames[1] if len(frames) > 1 else None)
+    return frames[0] + (f" < {stage}" if stage else "")
+
+
+def phase_profile(full, device, warm_super_ticks=6, top=24, sites=20):
     """Device time by operator over ONE steady-state full-width
     super-tick (torch.profiler), after `warm_super_ticks` unprofiled ones
-    of the same stream: the per-operator breakdown of the tick program."""
+    of the same stream: the per-operator breakdown of the tick program,
+    then the same device time by the call site of the op that launched
+    it (profiler stacks; the hand-written kernels launch through ctypes,
+    outside any op, and are listed by name above)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
@@ -639,7 +835,11 @@ def phase_profile(full, device, warm_super_ticks=6, top=12):
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
     host0 = pipe.metrics.host_seconds
     sync(torch.zeros((), device=device))
-    with profile(activities=acts) as prof:
+    # verbose: the Python stacks land on the events (not every PyTorch
+    # version records them otherwise)
+    verbose = torch._C._profiler._ExperimentalConfig(verbose=True)
+    with profile(activities=acts, with_stack=True,
+                 experimental_config=verbose) as prof:
         t0 = time.perf_counter()
         pipe.run_super_tick(e_chunks[lo:lo + T], f_chunks[lo:lo + T], T=T)
         sync(torch.zeros((), device=device))
@@ -663,6 +863,39 @@ def phase_profile(full, device, warm_super_ticks=6, top=12):
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"[profile] {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  "
               f"{e.key[:90]}")
+    by_site, n_site, n_kernels = Counter(), Counter(), 0
+    all_events = list(prof.events())
+    # events with a repro_torch stack, by thread and start: a launch whose
+    # own chain names no site takes the innermost one enclosing it in time
+    stacked = {}
+    for x in all_events:
+        if call_site(x) is not None:
+            stacked.setdefault(x.thread, []).append(x)
+    for xs in stacked.values():
+        xs.sort(key=lambda x: x.time_range.start)
+
+    def enclosing_site(e):
+        xs = stacked.get(e.thread, [])
+        starts = [x.time_range.start for x in xs]
+        i = bisect.bisect_right(starts, e.time_range.start)
+        for x in reversed(xs[max(0, i - 64):i]):
+            if x.time_range.end >= e.time_range.end:
+                return call_site(x)
+        return None
+
+    for e in all_events:
+        kernels = [k for k in getattr(e, "kernels", [])
+                   if k.name != "Command Buffer Full"]
+        n_kernels += len(kernels)
+        site = (call_site(e) or enclosing_site(e)) if kernels else None
+        if site:
+            by_site[site] += sum(k.duration for k in kernels) / 1e3
+            n_site[site] += len(kernels)
+    print(f"[profile] by call site: {sum(by_site.values()):.3f} ms of the "
+          f"device busy time attributed ({n_kernels} launches linked to "
+          f"an event)")
+    for site, ms in by_site.most_common(sites):
+        print(f"[profile] {ms:9.3f} ms  {n_site[site]:6d} x  {site[:110]}")
 
 
 # ------------------------------------------------------------- mesh phases

@@ -92,8 +92,11 @@ def lm_step(model, shape_name: str):
 
         return prefill_step
 
-    def decode_step(tokens, cache_k, cache_v, cache_len):
-        cache = {"k": cache_k, "v": cache_v, "len": cache_len}
+    def decode_step(tokens, cache_k, cache_v, cache_len, pos):
+        """`pos` is the host count of tokens the cache holds (cache_len's
+        value, known to the caller's loop), so a full cache is refused
+        without reading cache_len back from the device."""
+        cache = {"k": cache_k, "v": cache_v, "len": cache_len, "pos": pos}
         logits, new = model.decode_step(cache, tokens)
         return logits, new["k"], new["v"], new["len"]
 

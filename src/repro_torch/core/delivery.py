@@ -12,10 +12,11 @@ state effects of the tick's hot path:
 Two registered backends:
 
   "kernel"  — the default, counterpart of `PallasDelivery`: every delivery
-              is one stable sort plus one `ops.segment_deliver` pass
-              (CUDA kernel A on the card), and the read goes through
-              `ops.mean_rows` (kernel B, gather fused), so the full mean
-              table is never materialized.
+              is one stable sort plus one `ops.deliver_rows` call (CUDA
+              kernel A on the card), which gathers the records, reads the
+              table and writes the new one in one pass; the read goes
+              through `ops.mean_rows` (kernel B, gather fused), so the full
+              mean table is never materialized.
   "scatter" — counterpart of `XlaDelivery`: plain torch scatters into
               tables padded with the drop-sentinel row. Used as the
               reference by the tests and `chip_smoke.py`.
@@ -87,21 +88,22 @@ class ScatterDelivery:
 
 @dataclass(frozen=True)
 class KernelDelivery:
-    """Kernel backend: sorted segment-reduce deliveries (kernel A) and the
-    fused gather + mean read (kernel B)."""
+    """Kernel backend: sorted gather-form deliveries (kernel A, the table
+    read and written in the same pass) and the fused gather + mean read
+    (kernel B)."""
 
     name = "kernel"
 
     def deliver_set(self, dst, idx, vals):
-        vec_out, _, touched = ops.segment_deliver(
-            idx, vals, vals.new_zeros(idx.shape[0]), dst.shape[0],
-            mode="set")
-        return torch.where(touched[:, None], vec_out, dst), touched
+        order, row_ptr = ops.sort_runs(idx, dst.shape[0])
+        out, _, touched = ops.deliver_rows(vals, row_ptr, order, base=dst,
+                                           mode="set")
+        return out, touched
 
     def deliver_add(self, agg, cnt, idx, vec, dcnt):
-        d_vec, d_cnt, dirty = ops.segment_deliver(idx, vec, dcnt,
-                                                  agg.shape[0], mode="add")
-        return agg + d_vec, cnt + d_cnt, dirty
+        order, row_ptr = ops.sort_runs(idx, agg.shape[0])
+        return ops.deliver_rows(vec, row_ptr, order, dcnt, base=agg,
+                                base_cnt=cnt, mode="add")
 
     def agg_read_rows(self, agg, cnt, rows):
         return ops.mean_rows(agg, cnt, rows)

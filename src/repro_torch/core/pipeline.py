@@ -126,9 +126,13 @@ class PipelineConfig:
 
     def validate(self, n_devices: int = 1) -> None:
         """Fail fast with a clear message; n_devices is the mesh size (1
-        for the LocalRouter)."""
-        self._raise_unported(
-            ((self.n_stages != 1, "n_stages > 1 (pipeline stages)", 13),))
+        for the LocalRouter). Bad values raise ValueError, as the JAX
+        package's validate does; valid values of a plane that is not
+        ported yet raise NotImplementedError after them."""
+        if self.n_stages < 1:
+            raise ValueError(
+                f"PipelineConfig.n_stages={self.n_stages} must be >= 1 "
+                "(1 = the layer-sequential 1-D program)")
         caps = {"n_parts": self.n_parts, "node_cap": self.node_cap,
                 "edge_cap": self.edge_cap, "repl_cap": self.repl_cap,
                 "feat_cap": self.feat_cap,
@@ -137,6 +141,17 @@ class PipelineConfig:
         for name, v in caps.items():
             if v <= 0:
                 raise ValueError(f"PipelineConfig.{name}={v} must be > 0")
+        if self.query_cap < 0:
+            raise ValueError(f"PipelineConfig.query_cap={self.query_cap} "
+                             "must be >= 0 (0 disables the query plane)")
+        if self.train_cap < 0:
+            raise ValueError(
+                f"PipelineConfig.train_cap={self.train_cap} must be >= 0 "
+                "(0 disables the training plane)")
+        if not (self.delta_eps >= 0.0):   # rejects negatives AND NaN
+            raise ValueError(
+                f"PipelineConfig.delta_eps={self.delta_eps} must be a "
+                "finite value >= 0 (0 = exact/ungated propagation)")
         if self.route_cap is not None and self.route_cap <= 0:
             raise ValueError(
                 f"PipelineConfig.route_cap={self.route_cap} must be > 0 "
@@ -163,6 +178,7 @@ class PipelineConfig:
                 "the ranks, so pick n_parts as a multiple of the device "
                 "count (each rank owns n_parts // n_devices parts)")
         self._raise_unported((
+            (self.n_stages != 1, "n_stages > 1 (pipeline stages)", 13),
             (self.delta_eps != 0.0, "delta_eps > 0 (delta gating)", 8),
             (self.query_cap != 0, "query_cap > 0 (query plane)", 9),
             (self.train_cap != 0, "train_cap > 0 (training plane)", 10),

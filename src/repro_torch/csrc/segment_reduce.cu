@@ -9,33 +9,59 @@
 // cudaGetLastError() of its launches.
 //
 // ---------------------------------------------------------------------
-// Kernel A: segment_sum_rows
+// Kernel A: segment_deliver (wrappers: ops.deliver_rows, segment_sum_rows)
 //   Replaces the Pallas kernel repro/kernels/segment_reduce/kernel.py:
 //   segment_sum_kernel (body _kernel), which sums destination-sorted rows
-//   into output tiles with a one-hot MXU matmul and carries each tile
-//   across sequential grid steps. That carry has no counterpart here:
-//   blocks run in parallel and in no order. The layout (stable sort by
-//   destination, segment ids seg and run offsets row_ptr) is computed by
-//   the caller in PyTorch; the kernel is a segmented reduction over fixed
-//   tiles of kTileRows sorted rows, in two launches:
-//     pass 1: one warp per (tile, 32-column chunk) walks its tile in
-//             sorted order, summing each run in f32. A run that lies
-//             inside the tile is written to out; the (at most two) runs
-//             that cross the tile's edges leave their partial in
-//             carry[tile][0] (the tile's first run) or carry[tile][1]
-//             (its last run).
-//     pass 2: one warp per (destination row, column chunk) writes zeros
-//             for an empty run and, for a run spanning several tiles,
-//             sums its partials in tile order.
-//   Every row is written exactly once, with no atomics: the result is
-//   deterministic and independent of scheduling, which the canonical
-//   delivery order (core/tick.py:canon_msg_batch) relies on. Fixed tiles
-//   bound each warp's serial work, so a hub destination whose run holds
-//   ~1e5 rows is spread over ~1e3 warps instead of one.
-//   Bound: memory. Reads every live row once (E_live * W * 4 bytes),
-//   seg (E_live * 8) and row_ptr, writes n_rows * W * 4 bytes; one add
-//   per element read, far below the f32 rate. The 32 lanes of a warp
-//   read 32 consecutive floats of a row: one coalesced 128-byte load.
+//   of an XLA-packed [vec | cnt | touch] payload into output tiles with a
+//   one-hot MXU matmul, carrying each tile across sequential grid steps.
+//   Here the same function is one gather-form pass over destination-sorted
+//   runs, row_ptr [n + 1] (run r holds records row_ptr[r] .. row_ptr[r+1]):
+//     add: out[r]  = base[r] + sum_j vec[order[j]]     (j in run r)
+//          cnt_out[r] = base_cnt[r] + sum_j cnt[order[j]]
+//     set: out[r]  = vec[order[row_ptr[r+1] - 1]] if the run is non-empty,
+//          else base[r] (a copy of the run's last record, no sum)
+//     flag[r] = the run is non-empty (dirty / touched)
+//   order = null reads record j from vec row j; base = null reads zeros.
+//   Every record in a run is live: the caller's stable sort puts dropped
+//   records at the sentinel id n_rows, past every run, so no payload,
+//   mask or fill pass exists.
+//
+//   Partition (add): merge-based segmented reduction. The merge path of
+//   the n output rows and the live records is cut into shares of `share`
+//   items; plan [2, n_shares + 1] (computed in PyTorch with one
+//   searchsorted, kernels/segment_reduce/ops.py:delivery_plan) holds, at
+//   each cut, the rows ended and the records consumed before it. One warp
+//   takes one share: it sums its records in record order (f32) and writes
+//   every row whose end lies in the share, base added, empty rows included,
+//   so each output row is written once and no pass walks the table again.
+//   A run cut by share boundaries leaves one partial per share in a carry
+//   slot; the share holding the run's end writes its own partial to out.
+//   The fixup launch visits the cut runs only (a run's first cut): the
+//   CTA's 16 warps each sum a contiguous slice of the run's carries, the
+//   slices are added in partition order, then the head partial, then the
+//   base. No atomics anywhere: the result is deterministic and independent
+//   of scheduling, which the canonical delivery order
+//   (core/tick.py:canon_msg_batch) relies on, and a hub run of ~1e5
+//   records spreads over ~1.6e3 warps.
+//   Partition (set): a warp takes `share` consecutive rows; nothing is
+//   summed, so nothing is cut and there is no fixup.
+//
+//   Bound: memory. Reads the live records' rows once (gathered), order,
+//   counts, row_ptr and base; writes every output row once. One add per
+//   element read, far below the f32 rate. What the design does about it:
+//   lanes span columns with vector loads (float2 at d = 602, whose
+//   2,408-byte rows are 8- but not 16-byte aligned; float4 where the row
+//   stride allows, as at d = 64), so a warp moves a whole row (2.4 KB at
+//   d = 602) per step instead of one 128-byte chunk, and unrolled,
+//   independent loads keep U rows a warp in flight where rows are narrow
+//   (U * K * VEC <= 32 floats a lane). ~20 resident warps an SM then hold
+//   ~48 KB in flight, over the ~16-20 KB Little's law asks for
+//   (3.35 TB/s x ~0.7 us / 132 SMs). Indices (order, row_ptr) come in
+//   windows of 32, one coalesced load a lane, broadcast by shuffles.
+//   Registers, not shared memory, hold the rows: each byte is read once,
+//   so a shared-memory ring (cp.async) would add a round trip and no
+//   reuse; cp.async.bulk and TMA need 16-byte-aligned rows, which d = 602
+//   does not give.
 //
 // Kernel B: mean_rows_gather
 //   Replaces repro/kernels/segment_reduce/kernel.py:mean_rows_kernel
@@ -54,7 +80,9 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
-constexpr int64_t kTileRows = 128;
+constexpr int kFixWarps = 16;
+constexpr int kFixThreads = kFixWarps * 32;
+constexpr unsigned kAll = 0xffffffffu;
 
 unsigned int grid_for(int64_t n_warps) {
   const int64_t blocks = (n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
@@ -70,68 +98,396 @@ __device__ __forceinline__ int64_t warps_total() {
   return (int64_t)gridDim.x * kWarpsPerBlock;
 }
 
-__global__ void segment_sum_tiles_kernel(const float* __restrict__ rows,
-                                         const int64_t* __restrict__ seg,
-                                         const int64_t* __restrict__ row_ptr,
-                                         float* __restrict__ out,
-                                         float* __restrict__ carry,
-                                         int64_t n_rows, int64_t width,
-                                         int64_t n_tiles) {
-  const int64_t n_cc = (width + 31) / 32;
-  const int64_t e_live = row_ptr[n_rows];
-  const int lane = threadIdx.x & 31;
-  for (int64_t item = warp_id(); item < n_tiles * n_cc;
-       item += warps_total()) {
-    const int64_t t = item / n_cc;
-    const int64_t c = (item % n_cc) * 32 + lane;
-    const int64_t t0 = t * kTileRows;
-    if (t0 >= e_live || c >= width) continue;
-    const int64_t t1 = min(t0 + kTileRows, e_live);
-    const int64_t first = seg[t0];
-    int64_t cur = first;
-    float acc = 0.0f;
-    for (int64_t j = t0; j <= t1; ++j) {
-      const int64_t s = j < t1 ? seg[j] : -1;
-      if (s != cur) {
-        // flush run `cur`: inside the tile -> out, else -> carry slot
-        const int64_t lo = row_ptr[cur], hi = row_ptr[cur + 1];
-        if (lo >= t0 && hi <= t1)
-          out[cur * width + c] = acc;
-        else
-          carry[(t * 2 + (cur == first ? 0 : 1)) * width + c] = acc;
-        acc = 0.0f;
-        cur = s;
+__device__ __forceinline__ int64_t ld_i64(const int64_t* p) {
+  return (int64_t)__ldg(reinterpret_cast<const long long*>(p));
+}
+
+__device__ __forceinline__ int64_t bcast(int64_t v, int src) {
+  return (int64_t)__shfl_sync(kAll, (long long)v, src);
+}
+
+__host__ __device__ constexpr int clamp_u(int u) {
+  return u < 1 ? 1 : (u > 8 ? 8 : u);
+}
+
+template <int VEC> struct Vec;
+template <> struct Vec<1> { using T = float; };
+template <> struct Vec<2> { using T = float2; };
+template <> struct Vec<4> { using T = float4; };
+
+__device__ __forceinline__ void unpack(float t, float* f) { f[0] = t; }
+__device__ __forceinline__ void unpack(float2 t, float* f) {
+  f[0] = t.x; f[1] = t.y;
+}
+__device__ __forceinline__ void unpack(float4 t, float* f) {
+  f[0] = t.x; f[1] = t.y; f[2] = t.z; f[3] = t.w;
+}
+__device__ __forceinline__ void pack(const float* f, float* t) { *t = f[0]; }
+__device__ __forceinline__ void pack(const float* f, float2* t) {
+  *t = make_float2(f[0], f[1]);
+}
+__device__ __forceinline__ void pack(const float* f, float4* t) {
+  *t = make_float4(f[0], f[1], f[2], f[3]);
+}
+
+// A lane's part of one row: K vectors of VEC floats at columns
+// (k * 32 + lane) * VEC, k < K. d is a multiple of VEC (the wrapper picks
+// VEC so), so a vector is either wholly inside the row or wholly past it.
+template <int VEC, int K>
+struct Frag {
+  float v[K * VEC];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < K * VEC; ++i) v[i] = 0.0f;
+  }
+  __device__ __forceinline__ void load(const float* row, int lane,
+                                       int64_t d) {
+    using T = typename Vec<VEC>::T;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t c = ((int64_t)k * 32 + lane) * VEC;
+      if (c < d) {
+        unpack(__ldg(reinterpret_cast<const T*>(row + c)), v + k * VEC);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) v[k * VEC + e] = 0.0f;
       }
-      if (j < t1) acc += rows[j * width + c];
+    }
+  }
+  __device__ __forceinline__ void store(float* row, int lane,
+                                        int64_t d) const {
+    using T = typename Vec<VEC>::T;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t c = ((int64_t)k * 32 + lane) * VEC;
+      if (c < d) pack(v + k * VEC, reinterpret_cast<T*>(row + c));
+    }
+  }
+  __device__ __forceinline__ void add(const Frag& o) {
+#pragma unroll
+    for (int i = 0; i < K * VEC; ++i) v[i] += o.v[i];
+  }
+};
+
+// 32 consecutive int64 values p[base .. base + 31], one a lane. get(i) for
+// non-decreasing i >= base broadcasts p[i], reloading the window (one
+// coalesced load) when i passes its end. Warp-uniform use only.
+struct Window {
+  const int64_t* p;
+  int64_t base, limit, val;
+  int lane;
+  __device__ __forceinline__ Window(const int64_t* p_, int64_t b,
+                                    int64_t lim, int l)
+      : p(p_), base(b), limit(lim), val(0), lane(l) {
+    fill();
+  }
+  __device__ __forceinline__ void fill() {
+    val = (p != nullptr && base + lane < limit) ? ld_i64(p + base + lane) : 0;
+  }
+  __device__ __forceinline__ int64_t get(int64_t i) {
+    if (i - base >= 32) {
+      base = i;
+      fill();
+    }
+    return bcast(val, (int)(i - base));
+  }
+};
+
+struct DeliverArgs {
+  const float* vec;
+  int64_t vec_ld;
+  const int64_t* order;          // null: record j is vec row j
+  const float* cnt;              // null: no counts
+  int64_t cnt_st;
+  const int64_t* row_ptr;        // [n_rows + 1]
+  const int64_t* plan;           // [2, n_shares + 1] (add only)
+  const float* base;             // null: zeros
+  int64_t base_ld;
+  const float* base_cnt;         // null: zeros
+  int64_t base_cnt_st;
+  float* out;
+  int64_t out_ld;
+  float* cnt_out;                // null: no counts
+  uint8_t* flag;                 // null: no flags
+  float* carry;                  // [n_shares, carry_ld] (add only)
+  float* carry_cnt;              // [n_shares]
+  int64_t carry_ld;
+  int64_t n_rows, d, n_shares, share;
+};
+
+// One share of the merge path, add mode.
+template <int VEC, int K, int U>
+__device__ __forceinline__ void add_share(const DeliverArgs& a, int64_t s,
+                                          int lane) {
+  using F = Frag<VEC, K>;
+  const int64_t s1 = a.n_shares + 1;
+  const int64_t i0 = ld_i64(a.plan + s), i1 = ld_i64(a.plan + s + 1);
+  const int64_t j0 = ld_i64(a.plan + s1 + s);
+  const int64_t j1 = ld_i64(a.plan + s1 + s + 1);
+  if (i0 == i1 && j0 == j1) return;               // past the path's end
+  Window rp(a.row_ptr, i0, a.n_rows + 1, lane);
+  Window ix(a.order, j0, j1, lane);
+  int64_t r = i0, j = j0;
+  int64_t start = rp.get(r);                      // row_ptr[r]
+  // row i0's first records lie in earlier shares: write only its partial
+  const bool head_cut = j0 > start;
+  F acc, bb;
+  acc.zero();
+  bb.zero();
+  float cacc = 0.0f;
+  if (r < i1 && a.base != nullptr && !head_cut)
+    bb.load(a.base + r * a.base_ld, lane, a.d);
+  for (;;) {
+    const int64_t end = r < i1 ? rp.get(r + 1) : j1;
+    for (; j + U <= end; j += U) {
+      F buf[U];
+      float c[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t src = a.order != nullptr ? ix.get(j + u) : j + u;
+        buf[u].load(a.vec + src * a.vec_ld, lane, a.d);
+        c[u] = a.cnt != nullptr ? __ldg(a.cnt + src * a.cnt_st) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        acc.add(buf[u]);
+        cacc += c[u];
+      }
+    }
+    for (; j < end; ++j) {
+      const int64_t src = a.order != nullptr ? ix.get(j) : j;
+      F one;
+      one.load(a.vec + src * a.vec_ld, lane, a.d);
+      acc.add(one);
+      if (a.cnt != nullptr) cacc += __ldg(a.cnt + src * a.cnt_st);
+    }
+    if (r >= i1) break;
+    // row r ends in this share
+    const bool cut = r == i0 && head_cut;
+    if (!cut && a.base != nullptr) {
+#pragma unroll
+      for (int i = 0; i < K * VEC; ++i) acc.v[i] = bb.v[i] + acc.v[i];
+    }
+    acc.store(a.out + r * a.out_ld, lane, a.d);
+    if (lane == 0) {
+      if (a.cnt_out != nullptr)
+        a.cnt_out[r] = (cut || a.base_cnt == nullptr)
+                           ? cacc : a.base_cnt[r * a.base_cnt_st] + cacc;
+      if (a.flag != nullptr) a.flag[r] = end > start ? 1 : 0;
+    }
+    acc.zero();
+    cacc = 0.0f;
+    start = end;
+    ++r;
+    if (r < i1 && a.base != nullptr)
+      bb.load(a.base + r * a.base_ld, lane, a.d);
+  }
+  // records of row i1 consumed here: its partial goes to this share's slot
+  if (i1 < a.n_rows && j1 > start) {
+    acc.store(a.carry + s * a.carry_ld, lane, a.d);
+    if (lane == 0 && a.carry_cnt != nullptr) a.carry_cnt[s] = cacc;
+  }
+}
+
+// `share` consecutive rows, set mode: copy each non-empty run's last
+// record, else the base row.
+template <int VEC, int K, int U>
+__device__ __forceinline__ void set_share(const DeliverArgs& a, int64_t s,
+                                          int lane) {
+  using F = Frag<VEC, K>;
+  const int64_t r0 = s * a.share;
+  const int64_t r1 = r0 + a.share < a.n_rows ? r0 + a.share : a.n_rows;
+  if (r0 >= r1) return;
+  Window rp(a.row_ptr, r0, a.n_rows + 1, lane);
+  int64_t lo = rp.get(r0);
+  for (int64_t r = r0; r < r1; r += U) {
+    int64_t src[U];
+    bool hit[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {          // indices first, all in flight
+      src[u] = -1;
+      hit[u] = false;
+      if (r + u < r1) {
+        const int64_t hi = rp.get(r + u + 1);
+        hit[u] = hi > lo;
+        if (hit[u]) src[u] = a.order != nullptr ? ld_i64(a.order + hi - 1)
+                                                : hi - 1;
+        lo = hi;
+      }
+    }
+    F buf[U];
+    float c[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {          // then the rows
+      c[u] = 0.0f;
+      if (hit[u]) {
+        buf[u].load(a.vec + src[u] * a.vec_ld, lane, a.d);
+        if (a.cnt != nullptr) c[u] = __ldg(a.cnt + src[u] * a.cnt_st);
+      } else if (r + u < r1 && a.base != nullptr) {
+        buf[u].load(a.base + (r + u) * a.base_ld, lane, a.d);
+        if (a.base_cnt != nullptr)
+          c[u] = __ldg(a.base_cnt + (r + u) * a.base_cnt_st);
+      } else {
+        buf[u].zero();
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r + u < r1) {
+        buf[u].store(a.out + (r + u) * a.out_ld, lane, a.d);
+        if (lane == 0) {
+          if (a.cnt_out != nullptr) a.cnt_out[r + u] = c[u];
+          if (a.flag != nullptr) a.flag[r + u] = hit[u] ? 1 : 0;
+        }
+      }
     }
   }
 }
 
-__global__ void segment_sum_fixup_kernel(const int64_t* __restrict__ seg,
-                                         const int64_t* __restrict__ row_ptr,
-                                         const float* __restrict__ carry,
-                                         float* __restrict__ out,
-                                         int64_t n_rows, int64_t width) {
-  const int64_t n_cc = (width + 31) / 32;
+template <int VEC, int K, bool SET>
+__global__ void __launch_bounds__(kThreads)
+    segment_deliver_kernel(const DeliverArgs a) {
+  constexpr int U = SET ? clamp_u(48 / (K * VEC)) : clamp_u(32 / (K * VEC));
   const int lane = threadIdx.x & 31;
-  for (int64_t item = warp_id(); item < n_rows * n_cc;
-       item += warps_total()) {
-    const int64_t r = item / n_cc;
-    const int64_t c = (item % n_cc) * 32 + lane;
-    if (c >= width) continue;
-    const int64_t lo = row_ptr[r], hi = row_ptr[r + 1];
-    if (hi == lo) {
-      out[r * width + c] = 0.0f;          // empty run
-      continue;
+  for (int64_t s = warp_id(); s < a.n_shares; s += warps_total()) {
+    if constexpr (SET)
+      set_share<VEC, K, U>(a, s, lane);
+    else
+      add_share<VEC, K, U>(a, s, lane);
+  }
+}
+
+// The cut runs of an add-mode delivery. A CTA checks 32 boundaries at once
+// (one a lane of warp 0), then finishes each run whose FIRST cut is among
+// them, in boundary order.
+template <int VEC, int K>
+__global__ void __launch_bounds__(kFixThreads)
+    segment_deliver_fixup_kernel(const DeliverArgs a) {
+  using F = Frag<VEC, K>;
+  constexpr int KV = K * VEC;
+  constexpr int U = clamp_u(64 / KV);
+  extern __shared__ float part[];        // [kFixWarps][KV][32] partials
+  float* part_cnt = part + kFixWarps * KV * 32;
+  __shared__ unsigned first_cuts;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t s1 = a.n_shares + 1;
+  const int64_t n_bounds = a.n_shares - 1;        // boundaries 1 .. S-1
+  for (int64_t b0 = (int64_t)blockIdx.x * 32; b0 < n_bounds;
+       b0 += (int64_t)gridDim.x * 32) {
+    if (w == 0) {
+      const int64_t s = 1 + b0 + lane;
+      bool first = false;
+      if (s < a.n_shares) {
+        const int64_t r = ld_i64(a.plan + s);
+        if (r < a.n_rows) {
+          const int64_t lo = ld_i64(a.row_ptr + r);
+          // boundary s cuts run r, and no earlier boundary does
+          first = ld_i64(a.plan + s1 + s) > lo && s == (lo + r) / a.share + 1;
+        }
+      }
+      const unsigned m = __ballot_sync(kAll, first);
+      if (lane == 0) first_cuts = m;
     }
-    const int64_t ta = lo / kTileRows, tb = (hi - 1) / kTileRows;
-    if (ta == tb) continue;               // single tile: written by pass 1
-    float acc = 0.0f;
-    for (int64_t t = ta; t <= tb; ++t) {
-      const int slot = seg[t * kTileRows] == r ? 0 : 1;
-      acc += carry[(t * 2 + slot) * width + c];
+    __syncthreads();
+    const unsigned cuts = first_cuts;
+    __syncthreads();
+    for (unsigned left = cuts; left != 0; left &= left - 1) {
+      const int64_t s = 1 + b0 + (__ffs(left) - 1);
+      const int64_t r = ld_i64(a.plan + s);
+      const int64_t sa = s - 1;                   // share of the first record
+      const int64_t sb = (ld_i64(a.row_ptr + r + 1) + r) / a.share;
+      const int64_t m = sb - sa;                  // carries sa .. sb - 1
+      const int64_t c0 = sa + m * w / kFixWarps;
+      const int64_t c1 = sa + m * (w + 1) / kFixWarps;
+      F acc;
+      acc.zero();
+      float cacc = 0.0f;
+      for (int64_t c = c0; c < c1; c += U) {
+        F buf[U];
+        float cc[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          cc[u] = 0.0f;
+          if (c + u < c1) {
+            buf[u].load(a.carry + (c + u) * a.carry_ld, lane, a.d);
+            if (a.carry_cnt != nullptr) cc[u] = a.carry_cnt[c + u];
+          } else {
+            buf[u].zero();
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          acc.add(buf[u]);
+          cacc += cc[u];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KV; ++i) part[(w * KV + i) * 32 + lane] = acc.v[i];
+      if (lane == 0) part_cnt[w] = cacc;
+      __syncthreads();
+      if (w == 0) {
+        F tot, x;
+#pragma unroll
+        for (int i = 0; i < KV; ++i) tot.v[i] = part[i * 32 + lane];
+        float tc = part_cnt[0];
+        for (int ww = 1; ww < kFixWarps; ++ww) {
+#pragma unroll
+          for (int i = 0; i < KV; ++i) tot.v[i] += part[(ww * KV + i) * 32 + lane];
+          tc += part_cnt[ww];
+        }
+        x.load(a.out + r * a.out_ld, lane, a.d);  // the head partial
+        tot.add(x);
+        if (a.base != nullptr) {
+          x.load(a.base + r * a.base_ld, lane, a.d);
+#pragma unroll
+          for (int i = 0; i < KV; ++i) tot.v[i] = x.v[i] + tot.v[i];
+        }
+        tot.store(a.out + r * a.out_ld, lane, a.d);
+        if (lane == 0 && a.cnt_out != nullptr) {
+          tc += a.cnt_out[r];
+          a.cnt_out[r] = a.base_cnt != nullptr
+                             ? a.base_cnt[r * a.base_cnt_st] + tc : tc;
+        }
+      }
+      __syncthreads();
     }
-    out[r * width + c] = acc;
+  }
+}
+
+template <int VEC, int K>
+int launch_deliver(const DeliverArgs& a, int set_mode, cudaStream_t st) {
+  if (a.n_shares <= 0) return 0;
+  if (set_mode) {
+    segment_deliver_kernel<VEC, K, true>
+        <<<grid_for(a.n_shares), kThreads, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  segment_deliver_kernel<VEC, K, false>
+      <<<grid_for(a.n_shares), kThreads, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_shares < 2) return (int)err;
+  const size_t smem = sizeof(float) * (size_t)kFixWarps * (K * VEC * 32 + 1);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(segment_deliver_fixup_kernel<VEC, K>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t groups = (a.n_shares - 1 + 31) / 32;
+  const unsigned grid = (unsigned)(groups < 65535 ? groups : 65535);
+  segment_deliver_fixup_kernel<VEC, K><<<grid, kFixThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+int dispatch_k(const DeliverArgs& a, int set_mode, int k, cudaStream_t st) {
+  switch (k) {
+    case 1: return launch_deliver<VEC, 1>(a, set_mode, st);
+    case 2: return launch_deliver<VEC, 2>(a, set_mode, st);
+    case 6: return launch_deliver<VEC, 6>(a, set_mode, st);
+    case 10: return launch_deliver<VEC, 10>(a, set_mode, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -154,24 +510,45 @@ __global__ void mean_rows_gather_kernel(const float* __restrict__ agg,
 
 }  // namespace
 
-extern "C" int d3_segment_sum_rows(const void* rows, const void* seg,
-                                   const void* row_ptr, void* out,
-                                   void* carry, int64_t n_rows,
-                                   int64_t width, int64_t n_tiles,
-                                   void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int64_t n_cc = (width + 31) / 32;
-  if (n_tiles > 0) {
-    segment_sum_tiles_kernel<<<grid_for(n_tiles * n_cc), kThreads, 0, s>>>(
-        (const float*)rows, (const int64_t*)seg, (const int64_t*)row_ptr,
-        (float*)out, (float*)carry, n_rows, width, n_tiles);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+extern "C" int d3_segment_deliver(
+    const void* vec, int64_t vec_ld, const void* order, const void* cnt,
+    int64_t cnt_st, const void* row_ptr, const void* plan, const void* base,
+    int64_t base_ld, const void* base_cnt, int64_t base_cnt_st, void* out,
+    int64_t out_ld, void* cnt_out, void* flag, void* carry, void* carry_cnt,
+    int64_t carry_ld, int64_t n_rows, int64_t d, int64_t n_shares,
+    int64_t share, int64_t set_mode, int64_t vec_width, int64_t k,
+    void* stream) {
+  DeliverArgs a;
+  a.vec = (const float*)vec;
+  a.vec_ld = vec_ld;
+  a.order = (const int64_t*)order;
+  a.cnt = (const float*)cnt;
+  a.cnt_st = cnt_st;
+  a.row_ptr = (const int64_t*)row_ptr;
+  a.plan = (const int64_t*)plan;
+  a.base = (const float*)base;
+  a.base_ld = base_ld;
+  a.base_cnt = (const float*)base_cnt;
+  a.base_cnt_st = base_cnt_st;
+  a.out = (float*)out;
+  a.out_ld = out_ld;
+  a.cnt_out = (float*)cnt_out;
+  a.flag = (uint8_t*)flag;
+  a.carry = (float*)carry;
+  a.carry_cnt = (float*)carry_cnt;
+  a.carry_ld = carry_ld;
+  a.n_rows = n_rows;
+  a.d = d;
+  a.n_shares = n_shares;
+  a.share = share;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int set = set_mode != 0;
+  switch (vec_width) {
+    case 1: return dispatch_k<1>(a, set, (int)k, st);
+    case 2: return dispatch_k<2>(a, set, (int)k, st);
+    case 4: return dispatch_k<4>(a, set, (int)k, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  segment_sum_fixup_kernel<<<grid_for(n_rows * n_cc), kThreads, 0, s>>>(
-      (const int64_t*)seg, (const int64_t*)row_ptr, (const float*)carry,
-      (float*)out, n_rows, width);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int d3_mean_rows_gather(const void* agg, const void* cnt,
@@ -183,5 +560,3 @@ extern "C" int d3_mean_rows_gather(const void* agg, const void* cnt,
       (float*)out, k, d);
   return (int)cudaGetLastError();
 }
-
-extern "C" int64_t d3_segment_sum_tile_rows() { return kTileRows; }

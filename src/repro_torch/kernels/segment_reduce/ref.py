@@ -1,13 +1,53 @@
 """Plain PyTorch versions of the segment-reduce kernels.
 
-The wrappers in `ops.py` run these for CPU tensors; `chip_smoke.py` holds
-the CUDA kernels against them on the card.
+The wrappers in `ops.py` run these for CPU tensors; the card tests and
+`chip_smoke.py` hold the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.aggregators import mean_read
+
+
+def deliver_rows_ref(vec, row_ptr, order=None, cnt=None, base=None,
+                     base_cnt=None, mode="add"):
+    """ops.deliver_rows in plain PyTorch: record j of run r (j in
+    [row_ptr[r], row_ptr[r + 1])) is vec row order[j] (order None: row j).
+    add: f32 index_add_ of each run's records into zeros, then the base
+    added; set: each non-empty run's last record, else the base row.
+    Returns (out [n, d], cnt_out [n] or None, flag [n] bool)."""
+    n, d = row_ptr.numel() - 1, vec.shape[1]
+    dev = vec.device
+    lens = row_ptr[1:] - row_ptr[:-1]
+    flag = lens > 0
+    if mode == "add":
+        rec = torch.arange(int(row_ptr[0]), int(row_ptr[-1]), device=dev)
+        src = rec if order is None else order[rec]
+        seg = torch.repeat_interleave(torch.arange(n, device=dev), lens)
+        out = torch.zeros((n, d), dtype=torch.float32,
+                          device=dev).index_add_(0, seg, vec[src])
+        if base is not None:
+            out = base + out
+        cnt_out = None
+        if cnt is not None:
+            cnt_out = torch.zeros(n, dtype=torch.float32,
+                                  device=dev).index_add_(0, seg, cnt[src])
+            if base_cnt is not None:
+                cnt_out = base_cnt + cnt_out
+        return out, cnt_out, flag
+    hit = torch.nonzero(flag).squeeze(1)
+    last = row_ptr[hit + 1] - 1
+    src = last if order is None else order[last]
+    out = torch.zeros((n, d), dtype=torch.float32, device=dev) \
+        if base is None else base.clone()
+    out[hit] = vec[src]
+    cnt_out = None
+    if cnt is not None:
+        cnt_out = torch.zeros(n, dtype=torch.float32, device=dev) \
+            if base_cnt is None else base_cnt.clone()
+        cnt_out[hit] = cnt[src]
+    return out, cnt_out, flag
 
 
 def segment_sum_rows_ref(rows, seg, row_ptr):

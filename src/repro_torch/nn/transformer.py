@@ -121,7 +121,9 @@ class TransformerLM(nn.Module):
     # ---- decode ----
     def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
         """JAX's cache layout: k/v [n_groups, blocks per group, B, T, Kh,
-        D] and the per-row length."""
+        D] and the per-row length; "pos" is the same length as a host
+        integer (every row advances one a step), which lets `decode_step`
+        refuse a write past the end without reading "len" back."""
         c = self.cfg
         shape = (c.n_groups, len(c.pattern), batch, max_len, c.n_kv,
                  c.head_dim)
@@ -129,13 +131,33 @@ class TransformerLM(nn.Module):
         return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=dtype, device=self.device),
                 "len": torch.zeros(batch, dtype=torch.int64,
-                                   device=self.device)}
+                                   device=self.device),
+                "pos": 0}
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens):
         """tokens [B,1] -> (logits [B,1,vocab] f32, cache). The new k/v are
         written into cache["k"]/cache["v"] in place; "len" is a new
-        tensor."""
+        tensor.
+
+        A full cache raises ValueError before anything is written: the
+        check reads the host position cache["pos"], never "len", so it
+        costs no host sync; a cache without "pos" is refused, since its
+        position is unknown. The JAX model instead overwrites the last
+        row (its dynamic_update_slice clamps the start index) and attends
+        over a wrong cache."""
+        pos, max_len = cache.get("pos"), cache["k"].shape[3]
+        if pos is None:
+            raise ValueError(
+                "decode_step: the cache has no host position \"pos\", so a "
+                f"write past max_len={max_len} cannot be refused; build it "
+                "with init_cache(batch, max_len) or set \"pos\" to the "
+                "number of tokens it holds")
+        if pos >= max_len:
+            raise ValueError(
+                f"decode_step: the cache is full ({pos} tokens written, "
+                f"max_len={max_len}); build it with init_cache(batch, "
+                "max_len) for at least as many tokens as will be decoded")
         x = self.embed(tokens.to(self.device)).to(self.cfg.torch_dtype)
         n_b = len(self.cfg.pattern)
         for i, blk in enumerate(self.blocks):
@@ -145,4 +167,5 @@ class TransformerLM(nn.Module):
         x = self.final_norm(x)
         logits = (x @ self.lm_head.to(x.dtype)).float()
         return logits, {"k": cache["k"], "v": cache["v"],
-                        "len": cache["len"] + 1}
+                        "len": cache["len"] + 1,
+                        "pos": pos + 1}

@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels.embedding_bag import ops as eb_ops, ref as eb_ref
 from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.kernels.route_pack import ops as rp_ops, ref as rp_ref
+from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -23,6 +24,11 @@ pytestmark = pytest.mark.cuda
 # sums in another order
 TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
        torch.float32: dict(rtol=1e-4, atol=2e-5)}
+# segment kernel A vs its plain version (f32 index_add_): per element
+# |diff| <= KA_TOL * (1 + the run's sum of magnitudes), the sums taken in
+# another order (shares, carries); counts (small integers), flags and
+# set-mode rows (copies) exactly equal
+KA_TOL = 1e-5
 
 
 @pytest.fixture
@@ -236,3 +242,122 @@ def test_route_pack_raises_on_what_it_does_not_take(cuda):
                           2, 2)
     with pytest.raises(ValueError, match="plan for"):
         rp_ops.route_pack(rows, order, slot_s, starts, 3, 2)
+
+
+# segment kernel A (gather-form delivery) against its plain version
+def _sorted_runs(cuda, n, C, d, hub, drop, seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, max(n, 1), C)
+    if hub is not None:
+        idx[rng.random(C) < 0.7] = hub
+    gone = rng.random(C) < drop
+    idx[gone] = rng.choice([-1, n, n + 5], int(gone.sum()))
+    vec = torch.as_tensor(rng.normal(size=(C, d)).astype(np.float32),
+                          device=cuda)
+    cnt = torch.as_tensor(rng.integers(-1, 3, C).astype(np.float32),
+                          device=cuda)
+    base = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                           device=cuda)
+    base_cnt = torch.as_tensor(rng.integers(0, 4, n).astype(np.float32),
+                               device=cuda)
+    order, row_ptr = sr_ops.sort_runs(torch.as_tensor(idx, device=cuda), n)
+    return vec, cnt, base, base_cnt, order, row_ptr
+
+
+def _assert_deliver_matches_plain(args, kw, mode):
+    vec, cnt, base, base_cnt, order, row_ptr = args
+    sr_ops.reset_launches()
+    got = sr_ops.deliver_rows(vec, row_ptr, mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert sr_ops.LAUNCHES["segment_sum_rows"] == (row_ptr.numel() > 1)
+    want = sr_ref.deliver_rows_ref(vec, row_ptr, mode=mode, **kw)
+    assert torch.equal(got[2], want[2])
+    if kw.get("cnt") is not None:
+        assert torch.equal(got[1], want[1])
+    else:
+        assert got[1] is None
+    if mode == "set":
+        assert torch.equal(got[0], want[0])
+        return
+    absum = sr_ref.deliver_rows_ref(
+        vec.abs(), row_ptr, mode=mode, order=kw.get("order"),
+        base=None if kw.get("base") is None else kw["base"].abs())[0]
+    err = (got[0] - want[0]).abs()
+    assert bool((err <= KA_TOL * (1 + absum)).all()), float(err.max())
+    again = sr_ops.deliver_rows(vec, row_ptr, mode=mode, **kw)
+    assert torch.equal(again[0], got[0])          # no atomics
+
+
+@pytest.mark.parametrize("mode", ["add", "set"])
+@pytest.mark.parametrize("with_base", [True, False])
+@pytest.mark.parametrize("with_order", [True, False])
+@pytest.mark.parametrize("n,C,d,hub,drop", [
+    (40, 300, 1, None, 0.3),
+    (40, 300, 3, 5, 0.3),
+    (500, 4000, 64, 0, 0.4),
+    (200, 3000, 602, 7, 0.3),
+    (50, 20000, 70, 3, 0.0),       # a hub run over many CTAs
+    (30, 300, 5, None, 1.0),       # all padding
+    (0, 10, 4, None, 0.0),         # n_rows = 0
+    (1, 50, 3, None, 0.2),         # n_rows = 1
+])
+def test_deliver_rows_matches_plain(cuda, mode, with_base, with_order, n, C,
+                                    d, hub, drop):
+    vec, cnt, base, base_cnt, order, row_ptr = _sorted_runs(
+        cuda, n, C, d, hub, drop, n * 31 + C + d)
+    if not with_order:                 # the contiguous form: sorted rows
+        vec, cnt, order = vec[order], cnt[order], None
+    kw = dict(order=order, cnt=cnt)
+    if with_base:
+        kw.update(base=base, base_cnt=base_cnt)
+    _assert_deliver_matches_plain((vec, cnt, base, base_cnt, order,
+                                   row_ptr), kw, mode)
+
+
+@pytest.mark.parametrize("mode", ["add", "set"])
+def test_deliver_rows_reads_strided_wire_columns_and_wide_rows(cuda, mode):
+    """vec and cnt as column views of a packed wire buffer (row stride W,
+    rows 4-byte aligned only), and d = 1601 (several column tiles)."""
+    for n, C, d, W in ((300, 5000, 602, 607), (60, 900, 1601, 1601)):
+        vec, cnt, base, base_cnt, order, row_ptr = _sorted_runs(
+            cuda, n, C, d, 3, 0.3, d)
+        wire = torch.zeros(C, W + 2, device=cuda)
+        wire[:, 1:d + 1], wire[:, d + 1] = vec, cnt
+        vec, cnt = wire[:, 1:d + 1], wire[:, d + 1]
+        _assert_deliver_matches_plain(
+            (vec, cnt, base, base_cnt, order, row_ptr),
+            dict(order=order, cnt=cnt, base=base, base_cnt=base_cnt), mode)
+
+
+def test_segment_sum_rows_matches_plain(cuda):
+    vec, _, _, _, order, row_ptr = _sorted_runs(cuda, 300, 6000, 604, 2,
+                                                0.5, 1)
+    rows = vec[order]
+    seg = torch.repeat_interleave(
+        torch.arange(300, device=cuda), row_ptr.diff(),
+        output_size=int(row_ptr[-1]))
+    seg = torch.cat([seg, torch.full((6000 - seg.numel(),), 300,
+                                     device=cuda)])
+    got = sr_ops.segment_sum_rows(rows, seg, row_ptr)
+    want = sr_ref.segment_sum_rows_ref(rows, seg, row_ptr)
+    absum = sr_ref.segment_sum_rows_ref(rows.abs(), seg, row_ptr)
+    assert bool(((got - want).abs() <= KA_TOL * (1 + absum)).all())
+
+
+def test_deliver_rows_raises_on_what_it_does_not_take(cuda):
+    vec = torch.zeros(6, 3, device=cuda)
+    row_ptr = torch.tensor([0, 2, 6], device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        sr_ops.deliver_rows(vec.double(), row_ptr)
+    with pytest.raises(ValueError, match="on cpu"):
+        sr_ops.deliver_rows(vec, row_ptr.cpu())
+    with pytest.raises(ValueError, match="contiguous rows"):
+        sr_ops.deliver_rows(torch.zeros(3, 6, device=cuda).t(), row_ptr)
+    with pytest.raises(ValueError, match="contiguous"):
+        sr_ops.deliver_rows(vec, row_ptr, order=torch.zeros(
+            12, dtype=torch.int64, device=cuda)[::2])
+    with pytest.raises(ValueError, match="base is"):
+        sr_ops.deliver_rows(vec, row_ptr, base=torch.zeros(3, 3,
+                                                           device=cuda))
+    with pytest.raises(ValueError, match="int64"):
+        sr_ops.deliver_rows(vec, row_ptr.int())

@@ -191,8 +191,8 @@ def test_greedy_decode_matches_jax(port_lm, jax_greedy):
     step = get_arch(ARCH).step(port_lm, "decode_32k")
     k, v, length = cache["k"], cache["v"], cache["len"]
     toks, logits = [], []
-    for _ in range(N_DECODE):
-        lg, k, v, length = step(tok, k, v, length)
+    for pos in range(N_DECODE):
+        lg, k, v, length = step(tok, k, v, length, pos)
         tok = torch.argmax(lg[:, -1:], dim=-1)
         toks.append(tok.numpy())
         logits.append(lg.numpy())
@@ -214,6 +214,70 @@ def test_decode_matches_forward(port_lm, tokens):
         outs.append(lg[:, 0])
     np.testing.assert_allclose(torch.stack(outs, 1).numpy(), full.numpy(),
                                rtol=2e-4, atol=2e-4)
+
+
+def test_decode_past_the_cache_end_raises_naming_max_len(port_lm):
+    """A full cache is refused on the host position before any write: the
+    cache's k/v are left as they were."""
+    T = 3
+    cache = port_lm.init_cache(B_DECODE, T)
+    tok = _t(np.zeros((B_DECODE, 1), np.int64))
+    for _ in range(T):
+        _, cache = port_lm.decode_step(cache, tok)
+    assert cache["pos"] == T and cache["len"].tolist() == [T] * B_DECODE
+    k, v = cache["k"].clone(), cache["v"].clone()
+    with pytest.raises(ValueError, match=f"max_len={T}"):
+        port_lm.decode_step(cache, tok)
+    assert torch.equal(cache["k"], k) and torch.equal(cache["v"], v)
+
+
+def test_functional_decode_step_refuses_a_full_or_unknown_cache(port_lm):
+    """lm_step's decode takes the host position beside the cache tensors:
+    at pos == max_len it raises naming max_len before any write, and the
+    model's decode_step refuses a cache dict that carries no position."""
+    from repro_torch.configs.base import lm_step
+    T = 3
+    step = lm_step(port_lm, "decode_32k")
+    cache = port_lm.init_cache(B_DECODE, T)
+    tok = _t(np.zeros((B_DECODE, 1), np.int64))
+    k, v, length = cache["k"], cache["v"], cache["len"]
+    for pos in range(T):
+        logits, k, v, length = step(tok, k, v, length, pos)
+    assert logits.shape == (B_DECODE, 1, REDUCED.vocab)
+    assert length.tolist() == [T] * B_DECODE
+    k0, v0 = k.clone(), v.clone()
+    with pytest.raises(ValueError, match=f"max_len={T}"):
+        step(tok, k, v, length, T)
+    assert torch.equal(k, k0) and torch.equal(v, v0)
+    with pytest.raises(ValueError, match=f"max_len={T}"):
+        port_lm.decode_step({"k": k, "v": v, "len": length}, tok)
+    assert torch.equal(k, k0) and torch.equal(v, v0)
+
+
+def test_jax_decode_past_the_cache_end_overwrites_the_last_row(jax_lm):
+    """Reference fault R8, pinned: at cache_len == max_len the JAX decode
+    raises nothing and writes the new k/v into row T - 1 (its
+    dynamic_update_slice clamps the start index); the port refuses the
+    same step (above)."""
+    model, params = jax_lm
+    T = 3
+    decode = jax.jit(model.decode_step)
+    cache = model.init_cache(B_DECODE, T)
+    rng = np.random.default_rng(2)
+    for _ in range(T):
+        tok = jnp.asarray(rng.integers(0, REDUCED.vocab, (B_DECODE, 1)),
+                          jnp.int32)
+        _, cache = decode(params, cache, tok)
+    before = np.asarray(cache["k"])
+    tok = jnp.asarray(rng.integers(0, REDUCED.vocab, (B_DECODE, 1)),
+                      jnp.int32)
+    lg, cache = decode(params, cache, tok)
+    after = np.asarray(cache["k"])
+    assert np.asarray(cache["len"]).tolist() == [T + 1] * B_DECODE
+    assert np.isfinite(np.asarray(lg)).all()
+    np.testing.assert_array_equal(after[:, :, :, :T - 1],
+                                  before[:, :, :, :T - 1])
+    assert (after[:, :, :, T - 1] != before[:, :, :, T - 1]).any()
 
 
 # ------------------------------------------------------------- configs

@@ -145,6 +145,21 @@ def test_unported_planes_raise(field, value, item):
         D3Pipeline(GraphSAGE(DIMS), cfg, device="cpu")
 
 
+@pytest.mark.parametrize("field,value", [
+    ("n_stages", 0), ("delta_eps", -1e-3), ("delta_eps", float("nan")),
+    ("query_cap", -1), ("train_cap", -1)])
+def test_bad_values_raise_value_error_as_jax_does(field, value):
+    """A bad value is a ValueError in both packages, checked before the
+    port asks whether the plane is ported."""
+    with pytest.raises(ValueError, match=f"{field}="):
+        JaxConfig(**CAPS, **{field: value}).validate()
+    with pytest.raises(ValueError, match=f"{field}="):
+        PipelineConfig(**CAPS, **{field: value}).validate()
+    with pytest.raises(ValueError, match=f"{field}="):
+        D3Pipeline(GraphSAGE(DIMS), PipelineConfig(**CAPS, **{field: value}),
+                   device="cpu")
+
+
 def test_route_cap_without_mesh_is_the_dense_path():
     """route_cap only caps a mesh's wire: on one device no ring exists and
     the run equals the uncapped one."""
