@@ -28,7 +28,11 @@ Phases (any failure exits non-zero; no phase is caught):
      A: the fused add delivery at the layer-0 RMI lane, its set form, and
      the contiguous form on the packed payload, the yardstick of PRs
      11-15; the delivery plane's add call, sort included, on both
-     backends and on the packed path); one JSON `kernels` line;
+     backends and on the packed path; kernel B at both layers' picks, d =
+     602 and d = 64); for the small kernels, whether the timing window
+     holds device time only (the wrapper's host time against the flush
+     write before it, the kernel's duration under torch.profiler beside
+     the window's); one JSON `kernels` line;
   6. device time by operator over one steady-state full-width super-tick
      (torch.profiler), beside its wall and host staging time, and the
      same device time by the call site that launched it.
@@ -37,12 +41,17 @@ Then the sharded 1-D mesh path, four gloo ranks that share the card (one
 process each, started after the parent frees its memory; every kernel is
 built before any rank starts):
 
-  [mesh-kernel] the route_pack kernel against its plain version, bit for
-     bit (int32 views): N = 0, every row dropped, every bucket
-     overflowing, cap = 1, D in {2, 4} x W in {1, 5, 69, 607}, NaN / Inf /
-     -0.0 rows, hub-skewed destinations, integer columns through the
-     packed wire, and the full-width layer-0 RMI lane (W = 607, 299,008
-     rows: a 32,768-row ring and 266,240 fresh);
+  [mesh-kernel] the route_pack kernel's two entries against their plain
+     versions, bit for bit (int32 views). The placement alone: N = 0,
+     every row dropped, every bucket overflowing, cap = 1, D in {2, 4} x
+     W in {1, 5, 69, 607}, NaN / Inf / -0.0 rows, hub-skewed
+     destinations, integer columns through the packed wire, and the
+     full-width layer-0 RMI lane (W = 607, 299,008 rows: a 32,768-row
+     ring and 266,240 fresh). The fused lane step (route_lane: ring rows,
+     then the lane's fields read in place; send buffer and new ring)
+     against route_lane_ref: ring only, no ring, every bucket overflowing
+     past the ring, cap = 1, dense, W in {1, 5, 69, 607} and a FeatBatch
+     x D in {2, 4}, and the same full-width lane as a MsgBatch;
   [mesh-parity] the serve CLI's --edges 1500 stream (dims 16,64,64) at
      route_cap 2176 (C // D) and 16, each on the card and on the CPU over
      the same gloo group: integer TickStats of every super-tick, busy and
@@ -50,14 +59,20 @@ built before any rank starts):
      MESH_TOL;
   [mesh-full] GraphSAGE (602, 64, 64) with FULL's caps (16 parts a rank),
      route_cap 4096, route_defer_cap 32,768, 100,000 power-law edges,
-     super-tick driver: no row dropped, route_pack launched 4 times a tick
-     on every rank, the sink within SINK_TOL of the float64 oracle and of a
-     single-rank run whose aggregator counts it equals; edges/s, wire
-     counters, collectives (host syncs) per super-tick, time blocked in
-     all_to_all and peak memory per rank;
+     super-tick driver: no row dropped, route_lane launched 4 times a tick
+     on every rank (and the placement alone never), the sink within
+     SINK_TOL of the float64 oracle and of a single-rank run whose
+     aggregator counts it equals; edges/s, wire counters, collectives
+     (host syncs) per super-tick, time blocked in all_to_all and peak
+     memory per rank; then rank 0's device time inside route_lanes by
+     call site over one steady super-tick of a second run
+     (torch.profiler);
   [mesh-time] route_pack at [mesh-full]'s layer-0 RMI shape and at the
      dense shape beside its bound, its plain version and zeros +
-     index_copy_ of pre-gathered rows (timed only, as a yardstick).
+     index_copy_ of pre-gathered rows (timed only, as a yardstick); the
+     fused lane step at the full-width layer-0 RMI lane beside its bound,
+     its plain chain and the parent's card chain (pack_lane + cat + the
+     route_pack kernel + the ring gather), with the bytes of each.
 
 Then the LM serve path (mistral-nemo-12b), after the phases above free
 their memory:
@@ -109,6 +124,7 @@ result.
 """
 import bisect
 import copy
+from dataclasses import dataclass
 import gc
 import json
 import subprocess
@@ -609,7 +625,11 @@ def phase_full_width(full, device, check_launches=True):
 # ------------------------------------------------------------- phase 5
 def time_ms(fn, iters=10, flush_bytes=256 << 20):
     """Mean device time of fn with CUDA events, one launch per event pair,
-    L2 flushed (by a write larger than the 50 MB L2) before each."""
+    L2 flushed (by a write larger than the 50 MB L2) before each. The
+    events are made before the flush, so the host work left between the
+    flush's launch and fn's is the start event's record and fn itself;
+    it must end before the flush does (event_window_check), or the
+    window holds host time too."""
     import torch
     scratch = torch.empty(flush_bytes // 4, dtype=torch.float32,
                           device="cuda")
@@ -617,15 +637,68 @@ def time_ms(fn, iters=10, flush_bytes=256 << 20):
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
-        scratch.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        scratch.zero_()
         a.record()
         fn()
         b.record()
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def event_window_check(tag, what, kernel, fn, ms, iters=10,
+                       flush_bytes=256 << 20):
+    """Does time_ms's window hold device time only? Its start event is
+    recorded behind the flush write, so the window holds host work too
+    unless what time_ms does on the host from the flush's launch to fn's
+    kernel launch (the start event's record, then fn) ends before the
+    flush does: that host time (no sync) against the flush's device time,
+    each averaged over `iters`. And the kernel's own device duration
+    under torch.profiler (the same flushes around it), averaged over its
+    launches, beside `ms`. Prints both; returns {profiler_ms, host_ms,
+    flush_ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    scratch = torch.empty(flush_bytes // 4, dtype=torch.float32,
+                          device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    host = flush = 0.0
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        scratch.zero_()
+        t0 = time.perf_counter()
+        b.record()          # ends the flush; time_ms's start event
+        fn()
+        host += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        flush += a.elapsed_time(b)
+    host_ms, flush_ms = host * 1e3 / iters, flush / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            scratch.zero_()
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    hits = [e for e in prof.key_averages()
+            if kernel in e.key and dev_us(e) > 0]
+    n = sum(e.count for e in hits)
+    prof_ms = sum(dev_us(e) for e in hits) / 1e3 / n if n else None
+    print(f"[{tag}] {what}: event window {ms:.4f} ms; the kernel's own "
+          f"device time under torch.profiler "
+          + (f"{prof_ms:.4f} ms a launch ({n} launches of {kernel})"
+             if n else f"not measured (no {kernel} events)")
+          + f"; host time from the flush's launch to fn's return "
+          f"{host_ms:.4f} ms, "
+          f"{'inside' if host_ms < flush_ms else 'NOT inside'} the "
+          f"{flush_ms:.4f} ms flush write")
+    return {"profiler_ms": prof_ms, "host_ms": host_ms, "flush_ms": flush_ms}
 
 
 def bound_ms(n_bytes, n_ops):
@@ -646,23 +719,42 @@ def phase_timing(pipe, launches, errs):
     P, N, d = ls.agg.shape
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    # kernel B: the first outbox_per_part evicting masters of every part
+    # kernel B: the first outbox_per_part evicting masters of every part,
+    # read from layer 0's table (d = 602) and layer 1's (d = 64)
     k = cfg.capacities().outbox_per_part
     order = torch.where(topo.is_master, torch.arange(N, device=dev), N)
     picked = torch.clamp(torch.topk(order, k, dim=1, largest=False).values,
                          max=N - 1)
     rows = (torch.arange(P, device=dev)[:, None] * N + picked).reshape(-1)
-    agg, cnt = ls.agg.reshape(P * N, d), ls.agg_cnt.reshape(P * N)
-    errs["mean_rows_gather"] = max(errs["mean_rows_gather"],
-                                   kernel_b_check(ops, ref, agg, cnt, rows))
     K = rows.shape[0]
-    b_ms = time_ms(lambda: ops.mean_rows_gather(agg, cnt, rows))
-    b_plain = time_ms(lambda: ref.mean_rows_gather_ref(agg, cnt, rows))
-    b_bound = bound_ms(K * d * 4 + K * 4 + K * 8 + K * d * 4, K * d)
-    print(f"[time] mean_rows_gather: K={K} d={d} table rows={P * N}: "
-          f"{b_ms:.4f} ms; bound {b_bound:.4f} ms (bytes); plain "
-          f"{b_plain:.4f} ms")
-    del agg, cnt, rows, order, picked
+    b_times = {}
+    for layer in (0, 1):
+        st = pipe.states[layer]
+        db = st.agg.shape[2]
+        agg, cnt = st.agg.reshape(P * N, db), st.agg_cnt.reshape(P * N)
+        errs["mean_rows_gather"] = max(errs["mean_rows_gather"],
+                                       kernel_b_check(ops, ref, agg, cnt,
+                                                      rows))
+        fn = lambda: ops.mean_rows_gather(agg, cnt, rows)
+        b_ms = time_ms(fn)
+        b_plain = time_ms(lambda: ref.mean_rows_gather_ref(agg, cnt, rows))
+        # indices and counts read, the rows with cnt > 0 read, out written
+        live = int((cnt[rows] > 0).sum())
+        b_bytes = K * 8 + K * 4 + live * db * 4 + K * db * 4
+        b_bound = bound_ms(b_bytes, live * db)
+        all_rows = bound_ms(K * 8 + K * 4 + 2 * K * db * 4, K * db)
+        print(f"[time] mean_rows_gather, layer {layer}: K={K} d={db} table "
+              f"rows={P * N} ({live} picks with cnt > 0): {b_ms:.4f} ms; "
+              f"bound {b_bound:.4f} ms (bytes: {b_bytes}; "
+              f"{b_bound / b_ms:.3f} of it reached; {all_rows:.4f} ms with "
+              f"every picked row read, cnt <= 0 or not); plain "
+              f"{b_plain:.4f} ms")
+        win = event_window_check("time", f"mean_rows_gather, layer {layer}",
+                                 "mean_rows_gather_kernel", fn, b_ms)
+        b_times[layer] = dict(d=db, ms=b_ms, plain_ms=b_plain,
+                              bound_ms=b_bound, **win)
+        del agg, cnt
+    del rows, order, picked
 
     # kernel A: the RMI lane (edge_tick_cap fresh + P * edge_cap records)
     idx, _ = local_index(topo.e_dst_mpart.reshape(-1),
@@ -776,9 +868,10 @@ def phase_timing(pipe, launches, errs):
         {"name": "mean_rows_gather", "route": "cuda", "source": src,
          "replaces": f"{tpu}:95",
          "launches": launches["mean_rows_gather"],
-         "max_abs_err": errs["mean_rows_gather"], "ms": b_ms,
-         "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": "bytes",
-         "library_ms": None}]}
+         "max_abs_err": errs["mean_rows_gather"], "ms": b_times[0]["ms"],
+         "plain_ms": b_times[0]["plain_ms"],
+         "bound_ms": b_times[0]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "layer0": b_times[0], "layer1": b_times[1]}]}
 
 
 # ------------------------------------------------------------- phase 6
@@ -806,6 +899,42 @@ def call_site(event):
     stage = next((f for f in frames[1:] if f.startswith("core/tick.py")),
                  frames[1] if len(frames) > 1 else None)
     return frames[0] + (f" < {stage}" if stage else "")
+
+
+def device_ms_by_site(prof):
+    """(device ms by call site, launches by call site, launches linked to
+    an event) of a torch.profiler run with stacks: each kernel's time goes
+    to the call site (`call_site`) of the event that launched it or, where
+    its own chain names none (ctypes launches), of the innermost event
+    with a stack that encloses it in time on the same thread."""
+    by_site, n_site, n_kernels = Counter(), Counter(), 0
+    all_events = list(prof.events())
+    # events with a repro_torch stack, by thread and start
+    stacked = {}
+    for x in all_events:
+        if call_site(x) is not None:
+            stacked.setdefault(x.thread, []).append(x)
+    for xs in stacked.values():
+        xs.sort(key=lambda x: x.time_range.start)
+
+    def enclosing_site(e):
+        xs = stacked.get(e.thread, [])
+        starts = [x.time_range.start for x in xs]
+        i = bisect.bisect_right(starts, e.time_range.start)
+        for x in reversed(xs[max(0, i - 64):i]):
+            if x.time_range.end >= e.time_range.end:
+                return call_site(x)
+        return None
+
+    for e in all_events:
+        kernels = [k for k in getattr(e, "kernels", [])
+                   if k.name != "Command Buffer Full"]
+        n_kernels += len(kernels)
+        site = (call_site(e) or enclosing_site(e)) if kernels else None
+        if site:
+            by_site[site] += sum(k.duration for k in kernels) / 1e3
+            n_site[site] += len(kernels)
+    return by_site, n_site, n_kernels
 
 
 def phase_profile(full, device, warm_super_ticks=6, top=24, sites=20):
@@ -863,34 +992,7 @@ def phase_profile(full, device, warm_super_ticks=6, top=24, sites=20):
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"[profile] {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  "
               f"{e.key[:90]}")
-    by_site, n_site, n_kernels = Counter(), Counter(), 0
-    all_events = list(prof.events())
-    # events with a repro_torch stack, by thread and start: a launch whose
-    # own chain names no site takes the innermost one enclosing it in time
-    stacked = {}
-    for x in all_events:
-        if call_site(x) is not None:
-            stacked.setdefault(x.thread, []).append(x)
-    for xs in stacked.values():
-        xs.sort(key=lambda x: x.time_range.start)
-
-    def enclosing_site(e):
-        xs = stacked.get(e.thread, [])
-        starts = [x.time_range.start for x in xs]
-        i = bisect.bisect_right(starts, e.time_range.start)
-        for x in reversed(xs[max(0, i - 64):i]):
-            if x.time_range.end >= e.time_range.end:
-                return call_site(x)
-        return None
-
-    for e in all_events:
-        kernels = [k for k in getattr(e, "kernels", [])
-                   if k.name != "Command Buffer Full"]
-        n_kernels += len(kernels)
-        site = (call_site(e) or enclosing_site(e)) if kernels else None
-        if site:
-            by_site[site] += sum(k.duration for k in kernels) / 1e3
-            n_site[site] += len(kernels)
+    by_site, n_site, n_kernels = device_ms_by_site(prof)
     print(f"[profile] by call site: {sum(by_site.values()):.3f} ms of the "
           f"device busy time attributed ({n_kernels} launches linked to "
           f"an event)")
@@ -899,6 +1001,20 @@ def phase_profile(full, device, warm_super_ticks=6, top=24, sites=20):
 
 
 # ------------------------------------------------------------- mesh phases
+def plant_specials(gen, x):
+    """Plant NaN payloads, +-Inf and -0.0 at 12 random words of f32 x."""
+    import torch
+    if x.numel():
+        bits = x.view(torch.int32).reshape(-1)
+        spots = torch.randint(0, x.numel(), (12,), generator=gen,
+                              device=x.device)
+        specials = torch.tensor([0x7FC00000, 0x7F800001, -4194304 + 0x1234,
+                                 0x7F800000, -8388608, -2 ** 31],
+                                dtype=torch.int32, device=x.device)
+        bits[spots] = specials.repeat(2)
+    return x
+
+
 def mesh_inputs(gen, N, D, cap, W, live, hub):
     """Packed rows [N, W] f32 with NaN payloads, +-Inf and -0.0 planted,
     destinations over D ranks (hub: power-law, rank 0 the hub's owner),
@@ -906,18 +1022,105 @@ def mesh_inputs(gen, N, D, cap, W, live, hub):
     import torch
     from repro_torch.kernels.route_pack import ops
     dev = gen.device
-    rows = torch.randn(N, W, generator=gen, device=dev)
-    if N * W:
-        bits = rows.view(torch.int32).reshape(-1)
-        spots = torch.randint(0, N * W, (12,), generator=gen, device=dev)
-        specials = torch.tensor([0x7FC00000, 0x7F800001, -4194304 + 0x1234,
-                                 0x7F800000, -8388608, -2 ** 31],
-                                dtype=torch.int32, device=dev)
-        bits[spots] = specials.repeat(2)
+    rows = plant_specials(gen, torch.randn(N, W, generator=gen, device=dev))
     dst = (powerlaw_rows(gen, D, N) if hub else
            torch.randint(0, D, (N,), generator=gen, device=dev))
     ok = torch.rand(N, generator=gen, device=dev) < live
     return rows, ops.route_plan(dst, ok, D, cap)
+
+
+@dataclass(frozen=True)
+class PartLane:
+    """A one-column lane (W = 1) for route_lane's edge cases."""
+    part: object
+
+
+def mesh_lane(gen, kind, C, d, K, D, cap, live, hub, n_parts=64):
+    """A lane as the router hands it to route_lane: a batch of C records
+    ("msg": MsgBatch of width d + 5, "feat": FeatBatch of width d + 3,
+    "part": PartLane) with NaN / Inf / -0.0 planted in its float columns,
+    slots up to 2**40 (they round on the wire), parts over n_parts (hub:
+    60% on part 0) and 2% out of range, `live` of the records valid; a
+    K-row ring of packed rows with `live` of them occupied; the plan over
+    ring then lane, as MeshRouter.route_lanes makes it."""
+    import torch
+    from repro_torch.core.events import FeatBatch, MsgBatch
+    from repro_torch.dist import wire
+    from repro_torch.kernels.route_pack import ops
+    dev = gen.device
+    rand = lambda n: torch.rand(n, generator=gen, device=dev)
+    part = torch.randint(0, n_parts, (C,), generator=gen, device=dev)
+    if hub:
+        part = torch.where(rand(C) < 0.6, 0, part)
+    part = torch.where(rand(C) < 0.02, n_parts, part)
+    valid = rand(C) < live
+    slot = torch.randint(0, 2 ** 40, (C,), generator=gen, device=dev)
+    f32 = lambda *shape: plant_specials(gen, torch.randn(
+        *shape, generator=gen, device=dev))
+    if kind == "part":
+        lane, valid = PartLane(part=part), torch.ones_like(valid)
+    elif kind == "feat":
+        lane = FeatBatch(part=part, slot=slot, feat=f32(C, d), valid=valid)
+    else:
+        lane = MsgBatch(part=part, slot=slot, vec=f32(C, d), cnt=f32(C),
+                        src_part=torch.randint(0, n_parts, (C,),
+                                               generator=gen, device=dev),
+                        valid=valid)
+    ring = f32(K, wire.lane_width(lane))
+    ring[:, wire.field_col(lane, "part")] = torch.randint(
+        0, n_parts, (K,), generator=gen, device=dev).float()
+    occ = rand(K) < live
+    ok = torch.cat([occ, valid & (part >= 0) & (part < n_parts)])
+    parts = torch.cat([ring[:, wire.field_col(lane, "part")].long(), part])
+    dst = torch.where(ok, torch.div(parts, n_parts // D,
+                                    rounding_mode="floor"), D)
+    return ring, lane, ops.route_plan(dst, ok, D, cap)
+
+
+def parent_lane_chain(ring, lane, plan, D, cap):
+    """The router's lane step on the card before the fused kernel:
+    pack_lane, cat, the route_pack kernel, then the ring's cumsum /
+    searchsorted gather and masked_fill_."""
+    import torch
+    from repro_torch.dist import wire
+    from repro_torch.kernels.route_pack import ops
+    order, _, slot_s, left_s, starts = plan
+    K = ring.shape[0]
+    packed = wire.pack_lane(lane)
+    allp = torch.cat([ring, packed]) if K else packed
+    send = ops.route_pack(allp, order, slot_s, starts, D, cap)
+    if not K:
+        return send, ring
+    cum = torch.cumsum(left_s, 0)
+    j = torch.arange(K, device=ring.device)
+    pos = torch.clamp(torch.searchsorted(cum, j + 1), max=cum.shape[0] - 1)
+    return send, allp[order[pos]].masked_fill_((j >= cum[-1])[:, None], 0.0)
+
+
+def mesh_lane_check(ring, lane, plan, D, cap):
+    """route_lane's kernel against route_lane_ref on one lane, bit for bit
+    (int32 views), send buffer and new ring. Returns (rows shipped, rows
+    kept in the ring, max |kernel - plain| over entries finite in
+    both)."""
+    import torch
+    from repro_torch.kernels.route_pack import ops, ref
+    got = ops.route_lane(ring, lane, plan, D, cap)
+    want = ref.route_lane_ref(ring, lane, plan, D, cap)
+    sync(got[0])
+    err = 0.0
+    for what, g, w in zip(("send buffer", "new ring"), got, want):
+        check(g.shape == w.shape, f"route_lane {what}: {tuple(g.shape)}, "
+                                  f"its plain version {tuple(w.shape)}")
+        n_diff = int((g.view(torch.int32) != w.view(torch.int32)).sum())
+        fin = torch.isfinite(g) & torch.isfinite(w)
+        if bool(fin.any()):
+            err = max(err, float((g - w).abs()[fin].max()))
+        check(n_diff == 0,
+              f"route_lane's {what} differs from its plain version in "
+              f"{n_diff} 32-bit words (C={lane.part.shape[0]}, K="
+              f"{ring.shape[0]}, W={ring.shape[1]}, D={D}, cap={cap})")
+    n_left = int(plan[3].sum())
+    return int(plan[1].sum()), min(n_left, ring.shape[0]), err
 
 
 def mesh_pack_check(rows, plan, D, cap):
@@ -1003,6 +1206,39 @@ def phase_mesh_kernel(device, full=FULL, m=MESH):
           f"(N={N}, W={W}, D={D}, cap={m['route_cap']}, {n_ship} rows "
           f"shipped); max |kernel - plain| over finite entries {worst}")
     del rows, plan
+    # the fused lane step against its plain chain: ring then lane fields
+    lane_cases = [  # kind, d, C, K, D, cap, live, hub
+        ("msg", 3, 0, 12, 2, 3, 0.9, True),     # ring rows only
+        ("msg", 3, 300, 0, 4, 5, 0.8, True),    # no ring
+        ("msg", 64, 400, 8, 4, 2, 1.0, False),  # every bucket overflows
+        ("msg", 0, 77, 5, 2, 1, 0.9, True),     # cap = 1
+        ("msg", 64, 120, 30, 4, 150, 0.9, True)]  # dense
+    lane_cases += [(kind, d, 1000, 64, D, 64, 0.7, True)
+                   for kind, d in (("part", 0), ("msg", 0), ("msg", 64),
+                                   ("msg", 602), ("feat", 5))
+                   for D in (2, 4)]
+    n_lane = 0
+    for kind, d, Cc, K, D, cap, live, hub in lane_cases:
+        worst = max(worst, mesh_lane_check(*mesh_lane(
+            gen, kind, Cc, d, K, D, cap, live, hub), D, cap)[2])
+        n_lane += 1
+    D, d = m["ranks"], full["dims"][0]
+    ring, lane, plan = mesh_lane(gen, "msg", C, d, m["route_defer_cap"], D,
+                                 m["route_cap"], m["live"], True)
+    n_ship, n_keep, err = mesh_lane_check(ring, lane, plan, D,
+                                          m["route_cap"])
+    worst = max(worst, err)
+    n_lane += 1
+    print(f"[mesh-kernel] route_lane (fused lane step) vs route_lane_ref: "
+          f"bit-exact (int32 views), send buffer and new ring, in {n_lane} "
+          f"checks: ring rows only, no ring, every bucket overflowing past "
+          f"the ring, cap = 1, dense, W in (1, 5, 69, 607) and a FeatBatch "
+          f"(W = 8) x D in (2, 4), NaN/Inf/-0.0 planted, slots up to 2**40, "
+          f"parts out of range, and the layer-0 RMI lane at full width "
+          f"(C={C}, K={m['route_defer_cap']}, W={W}, D={D}, "
+          f"cap={m['route_cap']}: {n_ship} rows shipped, {n_keep} kept in "
+          f"the ring); max |kernel - plain| over finite entries {worst}")
+    del ring, lane, plan
     free_cuda()
     return worst
 
@@ -1133,13 +1369,62 @@ def _mesh_full_rank(mesh, full, m):
     launches = {**rp.LAUNCHES, **sr.LAUNCHES}
     calls = {k: list(v) for k, v in mesh.calls.items()}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    emb = pipe.embeddings()
-    return {"secs": secs, "launches": launches, "calls": calls,
-            "peak": peak, "host_seconds": pipe.metrics.host_seconds,
-            "metrics": {k: v for k, v in vars(pipe.metrics).items()
-                        if isinstance(v, int)},
-            "emb": emb if mesh.rank == 0 else None,
-            "agg_cnt": [ls.agg_cnt.cpu().numpy() for ls in pipe.states]}
+    emb = pipe.embeddings()            # a collective: every rank calls it
+    out = {"secs": secs, "launches": launches, "calls": calls,
+           "peak": peak, "host_seconds": pipe.metrics.host_seconds,
+           "metrics": {k: v for k, v in vars(pipe.metrics).items()
+                       if isinstance(v, int)},
+           "emb": emb if mesh.rank == 0 else None,
+           "agg_cnt": [ls.agg_cnt.cpu().numpy() for ls in pipe.states]}
+    del pipe
+    out["route_sites"] = _route_lanes_profile(mesh, cfg, full, edges, feats)
+    return out
+
+
+ROUTE_FRAMES = ("dist/router.py", "dist/wire.py", "dist/mesh.py",
+                "kernels/route_pack/")
+
+
+def _route_lanes_profile(mesh, cfg, full, edges, feats, warm=2):
+    """Rank 0's device time inside route_lanes by call site over one
+    steady super-tick: a fresh pipeline streams the same edges, `warm`
+    super-ticks unprofiled, then one under torch.profiler with stacks on
+    rank 0 (the other ranks run it unprofiled, in step). Returns
+    {call site: (device ms, launches)} for the sites whose innermost
+    frame lies in the routing plane (none off the card), or None off
+    rank 0."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.pipeline import D3Pipeline
+    from repro_torch.graph.sage import GraphSAGE
+    pipe = D3Pipeline(GraphSAGE(full["dims"], seed=SEED), cfg, mesh=mesh)
+    T = full["super_ticks"]
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, full["tick_edges"])
+    for lo in range(0, warm * T, T):
+        pipe.run_super_tick(e_chunks[lo:lo + T], f_chunks[lo:lo + T], T=T)
+    lo = warm * T
+    if mesh.rank != 0:
+        pipe.run_super_tick(e_chunks[lo:lo + T], f_chunks[lo:lo + T], T=T)
+        return None
+    cuda = mesh.device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    sync(torch.zeros((), device=mesh.device))
+    verbose = torch._C._profiler._ExperimentalConfig(verbose=True)
+    with profile(activities=acts, with_stack=True,
+                 experimental_config=verbose) as prof:
+        pipe.run_super_tick(e_chunks[lo:lo + T], f_chunks[lo:lo + T], T=T)
+        sync(torch.zeros((), device=mesh.device))
+    by_site, n_site, _ = device_ms_by_site(prof)
+    # the fused kernel's launches in device order: each tick routes layer
+    # 0's broadcast lane, its RMI lane, then layer 1's two
+    kern = sorted((e for e in prof.events()
+                   if "CUDA" in str(e.device_type)
+                   and "route_lane_kernel" in e.name),
+                  key=lambda e: e.time_range.start)
+    return {"sites": {site: (ms, n_site[site])
+                      for site, ms in by_site.items()
+                      if site.split(" < ")[0].startswith(ROUTE_FRAMES)},
+            "kernel_ms": [e.time_range.elapsed_us() / 1e3 for e in kern]}
 
 
 def phase_mesh_full(device, full=FULL, m=MESH):
@@ -1183,11 +1468,41 @@ def phase_mesh_full(device, full=FULL, m=MESH):
               f"{res['launches']}; peak memory {res['peak']} bytes "
               f"({res['peak'] / 2**30:.2f} GiB)")
         if device.type == "cuda":
-            check(res["launches"]["route_pack"] == 2 * L * mt["ticks"],
-                  f"rank {r} launched route_pack {res['launches']} times, "
-                  f"expected {2 * L} a tick x {mt['ticks']} ticks")
-            check(all(v > 0 for v in res["launches"].values()),
+            # the lanes go through the fused entry, never through the
+            # placement alone (the earlier pack + cat + route_pack chain)
+            check(res["launches"]["route_lane"] == 2 * L * mt["ticks"]
+                  and res["launches"]["route_pack"] == 0,
+                  f"rank {r} launches {res['launches']}: expected "
+                  f"route_lane {2 * L} a tick x {mt['ticks']} ticks and no "
+                  f"route_pack")
+            check(all(res["launches"][k] > 0 for k in (
+                "route_lane", "segment_sum_rows", "mean_rows_gather")),
                   f"rank {r}: a kernel never launched: {res['launches']}")
+    prof0 = ranks[0]["route_sites"]
+    sites, kern = prof0["sites"], prof0["kernel_ms"]
+    if device.type == "cuda" and not (sites or kern):
+        print("[mesh-full] rank 0's device time inside route_lanes: not "
+              "measured (no device events in the profile)")
+    if sites or kern:
+        print(f"[mesh-full] rank 0, one steady super-tick of {T} ticks "
+              f"under torch.profiler (a second run of the stream: 2 warm "
+              f"super-ticks, the third profiled): device ms inside "
+              f"route_lanes, {sum(ms for ms, _ in sites.values()):.3f} ms "
+              f"by the call site of the op that launched it, and the fused "
+              f"kernel's own {sum(kern):.3f} ms in {len(kern)} launches")
+        for site, (ms, n) in sorted(sites.items(), key=lambda kv: -kv[1][0]):
+            print(f"[mesh-full] {ms:9.3f} ms  {n:6d} x  {site[:110]}")
+        # by call site: round A's broadcast lane (core/tick.py:343) and
+        # round B's RMI lane (:351), layer by layer, 4 launches a tick
+        if len(kern) == 2 * L * T:
+            names = [f"layer {li} {lane}" for li in range(L) for lane in (
+                "broadcast lane (round A, core/tick.py:343)",
+                "RMI lane (round B, core/tick.py:351)")]
+            for i, name in enumerate(names):
+                ks = kern[i::2 * L]
+                print(f"[mesh-full] route_lane kernel at the {name}: "
+                      f"{sum(ks):.3f} ms in {len(ks)} launches, "
+                      f"{sum(ks) / len(ks):.4f} ms each")
     check(mt["route_dropped"] == 0, f"{mt['route_dropped']} rows dropped: "
                                     "the defer rings are too small")
     emb = ranks[0]["emb"]
@@ -1225,7 +1540,13 @@ def phase_mesh_full(device, full=FULL, m=MESH):
           f" = {m['n_edges'] / s_secs:.1f} edges/s; aggregator counts equal "
           f"to the mesh's; materialized {len(emb)}")
     free_cuda()
-    return sum(r["launches"]["route_pack"] for r in ranks)
+    return sum(r["launches"]["route_lane"] for r in ranks)
+
+
+def lane_row_bytes(lane):
+    """Bytes of one record of a lane's fields, as they lie in memory."""
+    from repro_torch.dist import wire
+    return sum(w * t.element_size() for _, t, _, w in wire.lane_fields(lane))
 
 
 def phase_mesh_time(device, launches, max_err, full=FULL, m=MESH):
@@ -1233,8 +1554,12 @@ def phase_mesh_time(device, launches, max_err, full=FULL, m=MESH):
     (route_cap None: cap = C, every row live), beside its bound, its plain
     version and the library yardstick: index_copy_ of pre-gathered rows
     into a zeroed buffer (two calls, not one; the gather is not timed).
-    max_err: [mesh-kernel]'s max |kernel - plain|; the checks at these two
-    shapes fold into it."""
+    Then the fused lane step (route_lane) on the full-width layer-0 RMI
+    lane beside its bound, its plain chain and the parent's card chain
+    (pack_lane + cat + the route_pack kernel + the ring gather), each
+    with its bytes. launches: [mesh-full]'s route_lane launches, the
+    kernel's launches on the main path. max_err: [mesh-kernel]'s max
+    |kernel - plain|; the checks at these shapes fold into it."""
     import torch
     from repro_torch.kernels.route_pack import ops, ref
     c = full["caps"]
@@ -1251,8 +1576,8 @@ def phase_mesh_time(device, launches, max_err, full=FULL, m=MESH):
         n_ship, err = mesh_pack_check(rows, plan, D, cap)
         max_err = max(max_err, err)
         rows_s = rows[order]
-        ms = time_ms(lambda: ops.route_pack(rows, order, slot_s, starts, D,
-                                            cap))
+        fn = lambda: ops.route_pack(rows, order, slot_s, starts, D, cap)
+        ms = time_ms(fn)
         plain = time_ms(lambda: ref.route_pack_ref(rows[order], slot_s,
                                                    D * cap))
         lib = time_ms(lambda: torch.zeros(D * cap + 1, W, device=device)
@@ -1261,21 +1586,87 @@ def phase_mesh_time(device, launches, max_err, full=FULL, m=MESH):
         # the send buffer written once; no arithmetic
         n_bytes = n_ship * W * 4 + n_ship * 8 + (D + 1) * 8 + D * cap * W * 4
         bound = bound_ms(n_bytes, 0)
-        out[name] = (ms, plain, bound, lib)
         print(f"[mesh-time] route_pack {name}: N={N} W={W} D={D} cap={cap} "
               f"shipped {n_ship}: {ms:.4f} ms ({n_bytes / ms / 1e6:.1f} "
-              f"GB/s); bound {bound:.4f} ms by bytes ({n_bytes} bytes); plain "
-              f"{plain:.4f} ms; zeros + index_copy_ of pre-gathered rows "
-              f"{lib:.4f} ms")
-        del rows, plan, rows_s, order, ship_s, slot_s, starts
+              f"GB/s); bound {bound:.4f} ms by bytes ({n_bytes} bytes; "
+              f"{bound / ms:.3f} of it reached); plain {plain:.4f} ms; zeros "
+              f"+ index_copy_ of pre-gathered rows {lib:.4f} ms")
+        win = event_window_check("mesh-time", f"route_pack {name}",
+                                 "route_lane_kernel", fn, ms)
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                         library_ms=lib, **win)
+        del rows, plan, rows_s, order, ship_s, slot_s, starts, fn
         free_cuda()
-    ms, plain, bound, lib = out["capped"]
+
+    # the fused lane step at the layer-0 RMI lane: the ring's K rows, then
+    # the lane's C records read in place
+    K, cap = m["route_defer_cap"], m["route_cap"]
+    ring, lane, plan = mesh_lane(gen, "msg", C, full["dims"][0], K, D, cap,
+                                 m["live"], True)
+    n_ship, n_keep, err = mesh_lane_check(ring, lane, plan, D, cap)
+    max_err = max(max_err, err)
+    got, want = ops.route_lane(ring, lane, plan, D, cap), \
+        parent_lane_chain(ring, lane, plan, D, cap)
+    for g, w in zip(got, want):
+        check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+              "route_lane differs from the parent's card chain")
+    del got, want
+    order, ship_s, _, left_s, _ = plan
+    kept = left_s & (torch.cumsum(left_s, 0) <= K)
+    src = order[ship_s | kept]
+    from_ring = int((src < K).sum())
+    rb = lane_row_bytes(lane)
+    # the shipped and kept rows' source bytes (ring rows W words, lane
+    # rows their fields), their order entries and starts read; the send
+    # buffer and the ring written once
+    f_bytes = (from_ring * W * 4 + (src.numel() - from_ring) * rb
+               + src.numel() * 8 + (D + 1) * 8 + (D * cap + K) * W * 4)
+    f_bound = bound_ms(f_bytes, 0)
+    N = K + C
+    # what the parent's chain moves as written: pack_lane reads the lane
+    # and writes [C, W]; cat reads and writes [K + C, W]; the route_pack
+    # kernel its own bytes; the ring's cumsum, searchsorted and index
+    # gathers, the row gather and masked_fill_ (read and write) of [K, W]
+    p_bytes = (C * rb + C * W * 4 + 2 * N * W * 4
+               + n_ship * W * 4 + n_ship * 8 + (D + 1) * 8 + D * cap * W * 4
+               + N + N * 8 + 4 * K * 8 + 4 * K * W * 4)
+    p_bound = bound_ms(p_bytes, 0)
+    fn = lambda: ops.route_lane(ring, lane, plan, D, cap)
+    f_ms = time_ms(fn)
+    f_plain = time_ms(lambda: ref.route_lane_ref(ring, lane, plan, D, cap))
+    p_ms = time_ms(lambda: parent_lane_chain(ring, lane, plan, D, cap))
+    f_ms2 = time_ms(fn)
+    print(f"[mesh-time] route_lane (fused lane step) at the layer-0 RMI "
+          f"lane: C={C} K={K} W={W} D={D} cap={cap}, {n_ship} rows shipped "
+          f"and {n_keep} kept in the ring ({from_ring} of these from the "
+          f"old ring): "
+          f"{f_ms:.4f} / {f_ms2:.4f} ms (before / after the parent chain); "
+          f"bound {f_bound:.4f} ms by bytes ({f_bytes} bytes; "
+          f"{f_bound / f_ms:.3f} of it reached); plain chain on the card "
+          f"{f_plain:.4f} ms; the parent's card chain (pack_lane + cat + "
+          f"route_pack kernel + ring gather) {p_ms:.4f} ms, which moves "
+          f"{p_bytes} bytes: {p_bound:.4f} ms at the memory rate")
+    win = event_window_check("mesh-time", "route_lane", "route_lane_kernel",
+                             fn, f_ms)
+    del ring, lane, plan, order, ship_s, left_s, kept, src, fn
+    free_cuda()
+    capped = out["capped"]
     return {"name": "route_pack", "route": "cuda",
             "source": "src/repro_torch/csrc/route_pack.cu",
             "replaces": "src/repro/kernels/route_pack/ops.py:70",
-            "launches": launches, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": lib}
+            "launches": launches,
+            "launches_by_entry": {"route_lane": launches, "route_pack": 0},
+            "max_abs_err": max_err, "ms": capped["ms"],
+            "plain_ms": capped["plain_ms"], "bound_ms": capped["bound_ms"],
+            "bound_by": "bytes", "library_ms": capped["library_ms"],
+            "capped_window": {k: capped[k] for k in (
+                "profiler_ms", "host_ms", "flush_ms")},
+            "dense": out["dense"],
+            "fused_lane": {"ms": f_ms, "ms_again": f_ms2,
+                           "plain_ms": f_plain, "bound_ms": f_bound,
+                           "bound_by": "bytes", "library_ms": None,
+                           "parent_chain_ms": p_ms,
+                           "parent_chain_bytes_ms": p_bound, **win}}
 
 
 # ------------------------------------------------------------- LM phases

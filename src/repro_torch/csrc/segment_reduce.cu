@@ -63,15 +63,23 @@
 //   reuse; cp.async.bulk and TMA need 16-byte-aligned rows, which d = 602
 //   does not give.
 //
-// Kernel B: mean_rows_gather
+// Kernel B: mean_rows_gather (wrapper: ops.mean_rows_gather)
 //   Replaces repro/kernels/segment_reduce/kernel.py:mean_rows_kernel
 //   (body _mean_rows_kernel) together with the agg[rows] / cnt[rows]
 //   gather PallasDelivery.agg_read_rows does before it:
 //     out[k] = cnt[r] > 0 ? agg[r] / max(cnt[r], 1) : 0,  r = rows[k].
-//   Exact IEEE division (__fdiv_rn), not __fdividef.
-//   Bound: memory. Reads K picked rows of d floats plus K counts and
-//   indices, writes K * d floats. One warp per picked row, lanes over
-//   columns, so the gathered row is read coalesced.
+//   Exact IEEE division (__fdiv_rn), not __fdividef, so it equals
+//   core/aggregators.py:mean_read.
+//   Bound: memory. Reads K indices and counts and the picked rows with
+//   cnt > 0 (d floats each), writes K * d floats. What the design does
+//   about it: a warp takes `tile` picks (the K picks spread over the
+//   warps the card holds, at most 32), their indices and counts in one
+//   coalesced load each, broadcast by shuffles; a row moves as K float2
+//   (d = 602, rows 8-byte aligned) or float4 (d % 4 == 0 and aligned)
+//   vectors a lane held in registers, and the next pick's row is loaded
+//   before the current one is stored. Narrow rows share a warp: at
+//   d = 64 (16 float4) a warp moves two picks a step. Rows wider than
+//   32 * VEC * 10 floats run in column tiles.
 // ---------------------------------------------------------------------
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -491,20 +499,103 @@ int dispatch_k(const DeliverArgs& a, int set_mode, int k, cudaStream_t st) {
   }
 }
 
-__global__ void mean_rows_gather_kernel(const float* __restrict__ agg,
-                                        const float* __restrict__ cnt,
-                                        const int64_t* __restrict__ rows,
-                                        float* __restrict__ out, int64_t k,
-                                        int64_t d) {
+struct MeanArgs {
+  const float* agg;    // [R, ld] row-major
+  const float* cnt;    // [R]
+  const int64_t* rows;
+  float* out;          // [k, ld] row-major
+  int64_t ld;
+  int64_t k, d;        // picks; columns of this column tile
+  int lpr_shift;       // a row spans 1 << lpr_shift lanes (K > 1: 5)
+  int tile;            // picks a warp takes at once, <= 32
+};
+
+// A warp takes `tile` consecutive picks: their indices and counts in one
+// coalesced load each (one a lane), then 32 >> lpr_shift picks a step,
+// each a lane group's Frag, the next step's rows loaded before this
+// step's stores. Rows with cnt <= 0 are not read.
+template <int VEC, int K>
+__global__ void __launch_bounds__(kThreads)
+    mean_rows_gather_kernel(const MeanArgs a) {
+  using F = Frag<VEC, K>;
   const int lane = threadIdx.x & 31;
-  for (int64_t i = warp_id(); i < k; i += warps_total()) {
-    const int64_t r = rows[i];
-    const float c = cnt[r];
-    const float denom = fmaxf(c, 1.0f);
-    const float* src = agg + r * d;
-    float* dst = out + i * d;
-    for (int64_t col = lane; col < d; col += 32)
-      dst[col] = c > 0.0f ? __fdiv_rn(src[col], denom) : 0.0f;
+  const int sub = lane >> a.lpr_shift;               // the step's pick
+  const int sl = lane & ((1 << a.lpr_shift) - 1);    // lane within the row
+  const int per = 32 >> a.lpr_shift;                 // picks a step
+  for (int64_t t = warp_id(); t * a.tile < a.k; t += warps_total()) {
+    const int64_t i0 = t * a.tile;
+    const int n = a.k - i0 < a.tile ? (int)(a.k - i0) : a.tile;
+    int64_t r = 0;
+    float c = 0.0f;
+    if (lane < n) {
+      r = ld_i64(a.rows + i0 + lane);
+      c = __ldg(a.cnt + r);
+    }
+    F cur, nxt;
+    {
+      const int64_t rp = bcast(r, sub);
+      const float cp = __shfl_sync(kAll, c, sub);
+      if (sub < n && cp > 0.0f) cur.load(a.agg + rp * a.ld, sl, a.d);
+    }
+    for (int p0 = 0; p0 < n; p0 += per) {
+      const int p = p0 + sub, pn = p + per;
+      const int64_t rn = bcast(r, pn & 31);
+      const float cn = __shfl_sync(kAll, c, pn & 31);
+      if (pn < n && cn > 0.0f) nxt.load(a.agg + rn * a.ld, sl, a.d);
+      const float cp = __shfl_sync(kAll, c, p & 31);
+      if (p < n) {
+        const float den = fmaxf(cp, 1.0f);
+#pragma unroll
+        for (int i = 0; i < K * VEC; ++i)
+          cur.v[i] = cp > 0.0f ? __fdiv_rn(cur.v[i], den) : 0.0f;
+        cur.store(a.out + (i0 + p) * a.ld, sl, a.d);
+      }
+      cur = nxt;
+    }
+  }
+}
+
+// Warps the card holds at once for one instantiation (cached: one kind
+// of card a process).
+template <int VEC, int K>
+int64_t mean_resident_warps() {
+  static int64_t warps = 0;
+  if (warps == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mean_rows_gather_kernel<VEC, K>, kThreads, 0);
+    warps = (int64_t)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1) *
+            kWarpsPerBlock;
+  }
+  return warps;
+}
+
+// The grid holds at most the resident warps; the tile spreads the picks
+// over them (K = 8192 picks on 132 SMs: two a warp).
+template <int VEC, int K>
+int launch_mean(MeanArgs a, cudaStream_t st) {
+  const int64_t warps = mean_resident_warps<VEC, K>();
+  int64_t tile = (a.k + warps - 1) / warps;
+  tile = tile < 1 ? 1 : (tile > 32 ? 32 : tile);
+  a.tile = (int)tile;
+  const int64_t need = ((a.k + tile - 1) / tile + kWarpsPerBlock - 1) /
+                       kWarpsPerBlock;
+  const int64_t most = warps / kWarpsPerBlock;
+  mean_rows_gather_kernel<VEC, K>
+      <<<(unsigned)(need < most ? need : most), kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+int dispatch_mean(const MeanArgs& a, int k, cudaStream_t st) {
+  switch (k) {
+    case 1: return launch_mean<VEC, 1>(a, st);
+    case 2: return launch_mean<VEC, 2>(a, st);
+    case 6: return launch_mean<VEC, 6>(a, st);
+    case 10: return launch_mean<VEC, 10>(a, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -552,11 +643,28 @@ extern "C" int d3_segment_deliver(
 }
 
 extern "C" int d3_mean_rows_gather(const void* agg, const void* cnt,
-                                   const void* rows, void* out, int64_t k,
-                                   int64_t d, void* stream) {
-  mean_rows_gather_kernel<<<grid_for(k), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      (const float*)agg, (const float*)cnt, (const int64_t*)rows,
-      (float*)out, k, d);
-  return (int)cudaGetLastError();
+                                   const void* rows, void* out, int64_t ld,
+                                   int64_t k, int64_t d, int64_t vec_width,
+                                   int64_t kc, int64_t lpr_shift,
+                                   void* stream) {
+  if (k <= 0 || d <= 0) return 0;
+  if (lpr_shift < 0 || lpr_shift > 5 || (kc > 1 && lpr_shift != 5))
+    return (int)cudaErrorInvalidValue;
+  MeanArgs a;
+  a.agg = (const float*)agg;
+  a.cnt = (const float*)cnt;
+  a.rows = (const int64_t*)rows;
+  a.out = (float*)out;
+  a.ld = ld;
+  a.k = k;
+  a.d = d;
+  a.lpr_shift = (int)lpr_shift;
+  a.tile = 1;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (vec_width) {
+    case 1: return dispatch_mean<1>(a, (int)kc, st);
+    case 2: return dispatch_mean<2>(a, (int)kc, st);
+    case 4: return dispatch_mean<4>(a, (int)kc, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -7,8 +7,10 @@ add_receipts, LocalRouter and the 1-D MeshRouter):
   MeshRouter  : parts are block-sharded over the ranks of a 1-D
                 `dist/mesh.py:StreamMesh`; each `route_lanes` call
                 compacts the records of all its lanes by destination rank
-                (`kernels/route_pack`) and exchanges them with ONE packed
-                all_to_all (`dist/wire.py`).
+                and exchanges them with ONE packed all_to_all
+                (`dist/wire.py`). A lane's step after the plan (pack,
+                place, ring refill) is one `kernels/route_pack` route_lane
+                call that reads the lane's fields in place.
 
 Capped exchange: a lane's per-destination send bucket holds
 `lane_cap(C)` rows (route_cap, default None = the lane's capacity C, the
@@ -32,9 +34,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist.wire import field_col, pack_lane, unpack_lane
+from repro_torch.dist.wire import field_col, lane_width, unpack_lane
 from repro_torch.kernels.route_pack import ops as route_ops
-from repro_torch.kernels.route_pack.ref import route_pack_ref
+from repro_torch.kernels.route_pack.ref import route_lane_ref
 
 
 @dataclass(frozen=True)
@@ -92,9 +94,10 @@ class MeshRouter:
 
     route_cap   : per-destination send-bucket rows (None = each lane's
                   full capacity, the dense never-overflow exchange).
-    pack_backend: "kernel" (the CUDA route_pack on the card) or "scatter"
-                  (its plain version); follows PipelineConfig's
-                  delivery_backend.
+    pack_backend: "kernel" (the fused CUDA route_lane on the card) or
+                  "scatter" (its plain chain, ref.route_lane_ref: pack,
+                  concatenate, place, gather the ring); follows
+                  PipelineConfig's delivery_backend.
     """
     n_parts: int
     mesh: object
@@ -122,12 +125,6 @@ class MeshRouter:
             return capacity
         return max(1, min(self.route_cap, capacity))
 
-    def _pack(self, allp, order, slot_s, starts, cap):
-        D = self.n_devices
-        if self.pack_backend == "kernel":
-            return route_ops.route_pack(allp, order, slot_s, starts, D, cap)
-        return route_pack_ref(allp[order], slot_s, D * cap)
-
     def route_lanes(self, lanes, defers):
         """Deliver several record lanes with ONE all_to_all.
 
@@ -145,37 +142,34 @@ class MeshRouter:
         if D == 1:
             return tuple(lanes), tuple(defers), zero_receipt(dev)
         Pl = self.n_local_parts
+        lane_step = (route_ops.route_lane if self.pack_backend == "kernel"
+                     else route_lane_ref)
         sends, metas, new_defers, counts = [], [], [], []
         for lane, (dbuf, dok) in zip(lanes, defers):
-            packed = pack_lane(lane)                           # [C, W]
-            C, W = packed.shape
+            C, W = lane.part.shape[0], lane_width(lane)
             K = dbuf.shape[0]
             cap = self.lane_cap(C)
             # carried rows re-enter first; their occupancy flag is the
             # live mask (they only ever hold valid records)
-            allp = torch.cat([dbuf, packed]) if K else packed
             fresh_ok = (lane.valid & (lane.part >= 0)
                         & (lane.part < self.n_parts))
-            ok = torch.cat([dok, fresh_ok]) if K else fresh_ok
-            parts = allp[:, field_col(lane, "part")].to(torch.int64)
+            parts = lane.part
+            if K:
+                ok = torch.cat([dok, fresh_ok])
+                parts = torch.cat([dbuf[:, field_col(lane, "part")]
+                                   .to(torch.int64), parts])
+            else:
+                ok = fresh_ok
             dst = torch.where(ok, torch.div(parts, Pl, rounding_mode="floor"),
                               D)
-            order, ship_s, slot_s, left_s, starts = route_ops.route_plan(
-                dst, ok, D, cap)
-            sends.append(self._pack(allp, order, slot_s, starts, cap)
-                         .reshape(D, cap * W))
+            plan = route_ops.route_plan(dst, ok, D, cap)
+            send, nbuf = lane_step(dbuf, lane, plan, D, cap)
+            sends.append(send.reshape(D, cap * W))
             metas.append((lane, cap, W))
+            ship_s, left_s = plan[1], plan[3]
             n_left = left_s.sum()
             if K:
-                # ring slot j <- the (j+1)-th overflowing row in sorted
-                # (FIFO) order; a gather of K rows, not of all N
-                cum = torch.cumsum(left_s, 0)
-                j = torch.arange(K, device=dev)
-                pos = torch.clamp(torch.searchsorted(cum, j + 1),
-                                  max=cum.shape[0] - 1)
-                nok = j < n_left
-                nbuf = allp[order[pos]].masked_fill_(~nok[:, None], 0.0)
-                new_defers.append((nbuf, nok))
+                new_defers.append((nbuf, torch.arange(K, device=dev) < n_left))
                 n_defer = torch.clamp(n_left, max=K)
             else:
                 new_defers.append((dbuf, dok))

@@ -14,12 +14,14 @@ an invalid record.
 from __future__ import annotations
 
 from dataclasses import fields
+from functools import lru_cache
 
 import torch
 
 
-def _leaves(batch):
-    return [getattr(batch, f.name) for f in fields(batch)]
+@lru_cache(maxsize=None)
+def _field_names(cls):
+    return tuple(f.name for f in fields(cls))
 
 
 def _width(leaf) -> int:
@@ -31,54 +33,59 @@ def _width(leaf) -> int:
     return leaf.shape[1]
 
 
+def lane_fields(batch):
+    """The layout of a batch's packed row: [(name, tensor, first column,
+    width)] in field order. pack_lane, field_col and the fused route_lane
+    kernel's field descriptors (kernels/route_pack/ops.py) all read it."""
+    out, off = [], 0
+    for name in _field_names(type(batch)):
+        leaf = getattr(batch, name)
+        w = _width(leaf)
+        out.append((name, leaf, off, w))
+        off += w
+    return out
+
+
 def lane_width(batch) -> int:
     """Total packed row width W of a part-addressed batch."""
-    return sum(_width(l) for l in _leaves(batch))
+    return sum(w for _, _, _, w in lane_fields(batch))
 
 
 def field_col(batch, name: str) -> int:
     """First packed column of field `name`."""
-    off = 0
-    for f in fields(batch):
-        if f.name == name:
-            return off
-        off += _width(getattr(batch, f.name))
+    for fname, _, col, _ in lane_fields(batch):
+        if fname == name:
+            return col
     raise KeyError(f"{type(batch).__name__} has no field {name!r}")
 
 
 def pack_lane(batch) -> torch.Tensor:
     """Batch (capacity C) -> packed [C, W] float32 wire rows."""
-    leaves = _leaves(batch)
-    C = leaves[0].shape[0]
+    layout = lane_fields(batch)
+    C = layout[0][1].shape[0]
     out = torch.empty((C, lane_width(batch)), dtype=torch.float32,
-                      device=leaves[0].device)
-    off = 0
-    for leaf in leaves:
-        w = _width(leaf)
-        out[:, off:off + w] = leaf.reshape(C, w)    # value cast to f32
-        off += w
+                      device=layout[0][1].device)
+    for _, leaf, col, w in layout:
+        out[:, col:col + w] = leaf.reshape(C, w)    # value cast to f32
     return out
 
 
 def unpack_lane(buf: torch.Tensor, proto):
     """Packed [R, W] rows -> a batch like `proto` with capacity R (proto
     contributes only field dtypes and widths)."""
-    out, off = {}, 0
-    for f in fields(proto):
-        leaf = getattr(proto, f.name)
-        w = _width(leaf)
-        col = buf[:, off:off + w]
-        off += w
+    out = {}
+    for name, leaf, c, w in lane_fields(proto):
+        col = buf[:, c:c + w]
         if leaf.ndim == 1:
             col = col[:, 0]
         if leaf.dtype == torch.bool:
             col = col > 0.5
         else:
             col = col.to(leaf.dtype)      # exact: ints ride as exact floats
-        out[f.name] = col
-    if off != buf.shape[1]:
-        raise ValueError(f"wire width mismatch: proto wants {off}, buffer "
-                         f"has {buf.shape[1]}")
+        out[name] = col
+    if lane_width(proto) != buf.shape[1]:
+        raise ValueError(f"wire width mismatch: proto wants "
+                         f"{lane_width(proto)}, buffer has {buf.shape[1]}")
     return type(proto)(**out)
 
 

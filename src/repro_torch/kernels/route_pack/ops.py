@@ -5,17 +5,24 @@ Counterpart of `repro/kernels/route_pack/ops.py`:
   route_plan : ONE stable sort by destination device, a searchsorted for
                each destination's first sorted position, rank = position
                - run start. Plain PyTorch, as the JAX plan stays XLA.
-  route_pack : the send buffer [n_dev * cap, W]: each destination's first
-               `cap` live rows, in sorted order, zeros elsewhere. For CUDA
-               tensors it launches `csrc/route_pack.cu` (replaces the
-               Pallas backend, which ran kernels/segment_reduce's one-hot
-               segment sum) or raises; for CPU tensors it runs the plain
-               version `ref.route_pack_ref` (the JAX "xla" backend).
+  route_pack : the send buffer [n_dev * cap, W] of packed rows [N, W]:
+               each destination's first `cap` live rows, in sorted order,
+               zeros elsewhere.
+  route_lane : the router's whole lane step after the plan (fused): the
+               send buffer of the defer ring's rows followed by the lane's
+               rows, packed as `dist/wire.py` packs them, and the new ring
+               (the rows that overflowed their bucket, in FIFO order).
 
-Both are bit-exact copies of the shipped rows (NaN, Inf and -0.0
+For CUDA tensors both launch `csrc/route_pack.cu` (replaces the Pallas
+backend, which ran kernels/segment_reduce's one-hot segment sum; the
+fused entry also the router's pack, concatenation and ring gather) or
+raise; for CPU tensors they run the plain versions in `ref.py` (the JAX
+"xla" backend, and the router's chain around it).
+
+All are bit-exact copies of the shipped rows (NaN, Inf and -0.0
 included); the Pallas backend is exact only for finite rows. `LAUNCHES`
-counts kernel launches (`reset_launches()` zeroes it) so a run can show
-that its path went through the kernel.
+counts kernel launches per entry (`reset_launches()` zeroes it) so a run
+can show that its path went through the kernel.
 """
 from __future__ import annotations
 
@@ -23,13 +30,21 @@ import ctypes
 
 import torch
 
+from repro_torch.dist import wire
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.route_pack import ref
 
-LAUNCHES = {"route_pack": 0}
+LAUNCHES = {"route_pack": 0, "route_lane": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
-_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _P]
+_SIGNATURES = {
+    "d3_route_pack": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "d3_route_lane": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P]}
+# the kernel's field dtype codes, and its limits (csrc/route_pack.cu)
+_DTYPES = {torch.float32: 0, torch.int64: 1, torch.bool: 2}
+MAX_DEV, MAX_FIELDS = 1024, 8
+_DESC = ctypes.c_int64 * (4 * MAX_FIELDS)
+_LIB: dict = {}
 
 
 def reset_launches() -> None:
@@ -38,9 +53,14 @@ def reset_launches() -> None:
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_lib.load("route_pack")
-    lib.d3_route_pack.argtypes = _SIGNATURE
-    lib.d3_route_pack.restype = ctypes.c_int
+    lib = _LIB.get("lib")
+    if lib is None:
+        lib = cuda_lib.load("route_pack")
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB["lib"] = lib
     return lib
 
 
@@ -85,6 +105,29 @@ def _check(t, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_plan(order, starts, n_rows: int, n_dev: int, cap: int,
+                device) -> None:
+    _check(order, "order", torch.int64, 1, device)
+    _check(starts, "starts", torch.int64, 1, device)
+    if order.shape[0] != n_rows or starts.shape[0] != n_dev + 1:
+        raise ValueError(f"plan for {order.shape[0]} rows and "
+                         f"{starts.shape[0] - 1} destinations, got "
+                         f"{n_rows} rows and n_dev={n_dev}")
+    if cap < 1 or n_dev < 1:
+        raise ValueError(f"cap={cap} and n_dev={n_dev} must be >= 1")
+    if n_rows >= 2 ** 31:
+        raise ValueError(f"{n_rows} source rows: the kernel indexes them "
+                         "in 32 bits")
+    if n_dev > MAX_DEV:
+        raise ValueError(f"n_dev={n_dev}: the kernel takes at most "
+                         f"{MAX_DEV} destinations")
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
 def route_pack(rows, order, slot_s, starts, n_dev: int, cap: int):
     """Send buffer [n_dev * cap, W] of packed rows [N, W] f32 under the
     plan (order, slot_s, starts) of `route_plan(dst, ok, n_dev, cap)`:
@@ -96,22 +139,83 @@ def route_pack(rows, order, slot_s, starts, n_dev: int, cap: int):
         return ref.route_pack_ref(rows[order], slot_s, n_slots)
     dev = rows.device
     _check(rows, "rows", torch.float32, 2, dev)
-    _check(order, "order", torch.int64, 1, dev)
-    _check(starts, "starts", torch.int64, 1, dev)
-    if order.shape[0] != rows.shape[0] or starts.shape[0] != n_dev + 1:
-        raise ValueError(f"plan for {order.shape[0]} rows and "
-                         f"{starts.shape[0] - 1} destinations, got "
-                         f"{rows.shape[0]} rows and n_dev={n_dev}")
-    if cap < 1:
-        raise ValueError(f"cap={cap} must be >= 1")
+    _check_plan(order, starts, rows.shape[0], n_dev, cap, dev)
     width = rows.shape[1]
     out = torch.empty((n_slots, width), dtype=torch.float32, device=dev)
-    if n_slots > 0 and width > 0:
-        rc = _lib().d3_route_pack(
+    if width > 0:
+        _raise_on(_lib().d3_route_pack(
             rows.data_ptr(), order.data_ptr(), starts.data_ptr(),
             out.data_ptr(), n_dev, cap, width,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"route_pack launch failed: cudaError {rc}")
+            torch.cuda.current_stream(dev).cuda_stream), "route_pack")
         LAUNCHES["route_pack"] += 1
     return out
+
+
+def _field_descriptors(layout, C: int, device):
+    """The kernel's view of a lane's fields (`wire.lane_fields`), read in
+    place: a flat list of {pointer, row stride, first column, dtype code}
+    per field of nonzero width, by column."""
+    desc = []
+    for name, t, col, w in layout:
+        if w == 0:
+            continue
+        if t.device != device:
+            raise ValueError(f"field {name} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype not in _DTYPES:
+            raise ValueError(f"field {name} is {t.dtype}; the wire takes "
+                             f"{', '.join(map(str, _DTYPES))}")
+        if t.shape[0] != C:
+            raise ValueError(f"field {name} has {t.shape[0]} rows, the "
+                             f"lane {C}")
+        if t.ndim == 2 and w > 1 and C > 0 and t.stride(1) != 1:
+            raise ValueError(f"field {name} must have contiguous rows "
+                             "(stride(1) == 1)")
+        desc += [t.data_ptr(), t.stride(0), col, _DTYPES[t.dtype]]
+    if len(desc) > 4 * MAX_FIELDS:
+        raise ValueError(f"{len(desc) // 4} fields: the kernel takes at "
+                         f"most {MAX_FIELDS}")
+    return desc
+
+
+def route_lane(ring, lane, plan, n_dev: int, cap: int):
+    """The router's lane step after the plan, fused.
+
+    ring [K, W] f32: the defer ring's packed rows; lane: a part-addressed
+    batch of capacity C (`dist/wire.py` layout, width W); plan =
+    route_plan(dst, ok, n_dev, cap) over the K + C source rows, source
+    row i being ring row i for i < K and lane row i - K packed as
+    `wire.pack_lane` packs it (value-cast to f32).
+
+    Returns (send [n_dev * cap, W]: slot d * cap + r holds source row
+    order[starts[d] + r] for r < the destination's live count, zeros
+    elsewhere; new ring [K, W]: slot j holds the (j + 1)-th row that
+    overflowed its bucket in sorted (FIFO) order, zeros from the overflow
+    count on). The kernel reads the lane's fields in place, so no packed
+    lane and no [K + C, W] buffer is written; the CPU path is the plain
+    chain `ref.route_lane_ref`."""
+    if ring.device.type == "cpu":
+        return ref.route_lane_ref(ring, lane, plan, n_dev, cap)
+    order, starts = plan[0], plan[4]
+    dev = ring.device
+    _check(ring, "ring", torch.float32, 2, dev)
+    K, W = ring.shape
+    C = lane.part.shape[0]
+    layout = wire.lane_fields(lane)
+    width = sum(w for _, _, _, w in layout)
+    if W != width:
+        raise ValueError(f"ring rows are {W} wide, the lane's wire rows "
+                         f"{width}")
+    _check_plan(order, starts, K + C, n_dev, cap, dev)
+    desc = _field_descriptors(layout, C, dev)
+    send = torch.empty((n_dev * cap, W), dtype=torch.float32, device=dev)
+    new_ring = torch.empty((K, W), dtype=torch.float32, device=dev)
+    if W > 0:
+        table = _DESC(*desc)
+        _raise_on(_lib().d3_route_lane(
+            ring.data_ptr(), K, ctypes.addressof(table), len(desc) // 4,
+            order.data_ptr(), starts.data_ptr(), send.data_ptr(),
+            new_ring.data_ptr(), n_dev, cap, W,
+            torch.cuda.current_stream(dev).cuda_stream), "route_lane")
+        LAUNCHES["route_lane"] += 1
+    return send, new_ring

@@ -30,12 +30,12 @@ LAUNCHES = {"segment_sum_rows": 0, "mean_rows_gather": 0}
 # merge-path items (output rows + live records) one warp takes in add
 # mode; output rows one warp takes in set mode
 SHARE = 64
-# the kernel's column chunks a lane (instantiated in segment_reduce.cu):
-# the main path's widths take 1 (d = 64 at float4), 2 (64 at VEC 1 on a
-# strided wire), 10 (602 at float2; 602 at VEC 1 in two column tiles);
-# 6 is the yardstick's (604 at float4). Any other width runs in column
-# tiles of at most 32 * vec * max(K_CHOICES), each with the smallest K
-# that covers it
+# the kernels' column chunks a lane (kernels A and B, instantiated in
+# segment_reduce.cu): the main path's widths take 1 (d = 64 at float4),
+# 2 (64 at VEC 1 on a strided wire), 10 (602 at float2; 602 at VEC 1 in
+# two column tiles); 6 is the yardstick's (604 at float4). Any other
+# width runs in column tiles of at most 32 * vec * max(K_CHOICES), each
+# with the smallest K that covers it
 K_CHOICES = (1, 2, 6, 10)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
@@ -43,7 +43,8 @@ _SIGNATURES = {
     "d3_segment_deliver": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P,
                            _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P],
-    "d3_mean_rows_gather": [_P, _P, _P, _P, _I, _I, _P]}
+    "d3_mean_rows_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]}
+_LIB: dict = {}
 
 
 def reset_launches() -> None:
@@ -52,11 +53,14 @@ def reset_launches() -> None:
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_lib.load("segment_reduce")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    lib = _LIB.get("lib")
+    if lib is None:
+        lib = cuda_lib.load("segment_reduce")
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB["lib"] = lib
     return lib
 
 
@@ -258,7 +262,11 @@ def segment_sum_rows(rows, seg, row_ptr):
 def mean_rows_gather(agg, cnt, rows):
     """Kernel B: out[k] = agg[rows[k]] / max(cnt[rows[k]], 1), zero where
     cnt[rows[k]] <= 0. agg [R, d] float32, cnt [R] float32, rows [K]
-    int64 in [0, R)."""
+    int64 in [0, R), all contiguous.
+
+    The widest float vector (4, 2, 1) every row of agg and out is aligned
+    to picks the kernel's form, as in deliver_rows; rows wider than
+    32 * vec * max(K_CHOICES) floats run in column tiles."""
     if agg.device.type == "cpu":
         return ref.mean_rows_gather_ref(agg, cnt, rows)
     dev = agg.device
@@ -269,12 +277,20 @@ def mean_rows_gather(agg, cnt, rows):
         raise ValueError(f"cnt has {cnt.shape[0]} rows, agg {agg.shape[0]}")
     k, d = rows.shape[0], agg.shape[1]
     out = torch.empty((k, d), dtype=torch.float32, device=dev)
-    if k > 0 and d > 0:
-        rc = _lib().d3_mean_rows_gather(
-            agg.data_ptr(), cnt.data_ptr(), rows.data_ptr(), out.data_ptr(),
-            k, d, torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(rc, "mean_rows_gather")
-        LAUNCHES["mean_rows_gather"] += 1
+    if k == 0 or d == 0:
+        return out
+    v = _vec_width(d, [(agg, d), (out, d)])
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for c0, c1, kc in _column_tiles(d, v):
+        # lanes a row: 32 for K > 1, else the fewest (a power of two)
+        # that cover the tile's vectors, so narrow rows share a warp
+        shift = 5 if kc > 1 else min(5, ((c1 - c0) // v - 1).bit_length())
+        _raise_on(lib.d3_mean_rows_gather(
+            agg.data_ptr() + 4 * c0, cnt.data_ptr(), rows.data_ptr(),
+            out.data_ptr() + 4 * c0, d, k, c1 - c0, v, kc, shift, stream),
+            "mean_rows_gather")
+    LAUNCHES["mean_rows_gather"] += 1
     return out
 
 

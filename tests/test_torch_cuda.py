@@ -9,10 +9,14 @@ package, so it runs on a GPU machine without them:
 chip_smoke.py holds the same kernels to their plain versions at the
 models' shapes; these are the small cases.
 """
+from dataclasses import dataclass, fields
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.events import FeatBatch, MsgBatch
+from repro_torch.dist import wire
 from repro_torch.kernels.embedding_bag import ops as eb_ops, ref as eb_ref
 from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.kernels.route_pack import ops as rp_ops, ref as rp_ref
@@ -242,6 +246,195 @@ def test_route_pack_raises_on_what_it_does_not_take(cuda):
                           2, 2)
     with pytest.raises(ValueError, match="plan for"):
         rp_ops.route_pack(rows, order, slot_s, starts, 3, 2)
+
+
+# route_lane: the fused lane step (ring rows, then the lane's fields read
+# in place) against its plain chain, bit for bit (int32 views)
+@dataclass(frozen=True)
+class PartLane:
+    """A one-column lane (W = 1)."""
+    part: torch.Tensor
+
+
+_SPECIALS = np.array([0x7FC00000, 0x7F800001, 0x7F800000, 0xFF800000,
+                      0x80000000, 0xFFC01234], np.uint32).view(np.int32)
+
+
+def _special(rng, shape):
+    x = rng.normal(size=shape).astype(np.float32)
+    flat = x.reshape(-1).view(np.int32)
+    if flat.size:
+        spots = rng.choice(flat.size, size=min(6, flat.size), replace=False)
+        flat[spots] = _SPECIALS[:len(spots)]
+    return torch.as_tensor(x)
+
+
+def _lane(rng, kind, C, d, n_parts):
+    part = torch.as_tensor(np.where(rng.random(C) < 0.6, 0,
+                                    rng.integers(-1, n_parts + 1, C)))
+    if kind == "part":
+        return PartLane(part=part)
+    # slots >= 2**24 round on the wire, the same way in kernel and chain
+    slot = torch.as_tensor(rng.integers(0, 2 ** 40, C))
+    valid = torch.as_tensor(rng.random(C) < 0.8)
+    if kind == "feat":
+        return FeatBatch(part=part, slot=slot, feat=_special(rng, (C, d)),
+                         valid=valid)
+    return MsgBatch(part=part, slot=slot, vec=_special(rng, (C, d)),
+                    cnt=_special(rng, (C,)),
+                    src_part=torch.as_tensor(rng.integers(0, n_parts, C)),
+                    valid=valid)
+
+
+def _lane_case(cuda, kind, C, d, K, D, cap, seed, n_parts=8):
+    """(ring [K, W], lane, plan) on the card, the plan made as the router
+    makes it (ring parts, then the lane's; live = valid and in range)."""
+    rng = np.random.default_rng(seed)
+    lane = _lane(rng, kind, C, d, n_parts)
+    lane = type(lane)(**{f.name: getattr(lane, f.name).to(cuda)
+                         for f in fields(lane)})
+    W = wire.lane_width(lane)
+    ring = _special(rng, (K, W)).to(cuda)
+    ring[:, 0] = torch.as_tensor(rng.integers(0, n_parts, K),
+                                 dtype=torch.float32, device=cuda)
+    occ = torch.as_tensor(rng.random(K) < 0.7, device=cuda)
+    live = (lane.part >= 0) & (lane.part < n_parts)
+    if kind != "part":
+        live &= lane.valid
+    ok = torch.cat([occ, live])
+    parts = torch.cat([ring[:, 0].to(torch.int64), lane.part])
+    dst = torch.where(ok, torch.div(parts, n_parts // D,
+                                    rounding_mode="floor"), D)
+    return ring, lane, rp_ops.route_plan(dst, ok, D, cap)
+
+
+@pytest.mark.parametrize("kind,d", [("part", 0), ("msg", 0), ("msg", 64),
+                                    ("msg", 602), ("feat", 5)],
+                         ids=["W1", "W5", "W69", "W607", "feat-W8"])
+@pytest.mark.parametrize("C,K,D,cap", [
+    (300, 0, 4, 16),         # no ring
+    (300, 40, 4, 16),        # ring in front
+    (400, 8, 4, 2),          # every bucket overflows, past the ring
+    (77, 5, 2, 1),           # cap = 1
+    (120, 30, 4, 150),       # dense: nothing overflows
+    (0, 12, 2, 3),           # ring rows only
+])
+def test_route_lane_matches_plain_bit_for_bit(cuda, kind, d, C, K, D, cap):
+    ring, lane, plan = _lane_case(cuda, kind, C, d, K, D, cap,
+                                  C + 7 * K + d + cap)
+    rp_ops.reset_launches()
+    send, nbuf = rp_ops.route_lane(ring, lane, plan, D, cap)
+    torch.cuda.synchronize()
+    assert rp_ops.LAUNCHES == {"route_pack": 0, "route_lane": 1}
+    want_send, want_ring = rp_ref.route_lane_ref(ring, lane, plan, D, cap)
+    assert send.shape == want_send.shape and nbuf.shape == ring.shape
+    assert torch.equal(send.view(torch.int32), want_send.view(torch.int32))
+    assert torch.equal(nbuf.view(torch.int32), want_ring.view(torch.int32))
+
+
+def test_route_lane_reads_strided_fields_in_place(cuda):
+    """Fields as column views of wider tensors (row stride > width)."""
+    ring, lane, plan = _lane_case(cuda, "msg", 500, 64, 20, 4, 8, 3)
+    wide = torch.zeros(500, 70, device=cuda)
+    wide[:, 3:67] = lane.vec
+    cols = torch.zeros(500, 2, dtype=torch.int64, device=cuda)
+    cols[:, 1] = lane.slot
+    lane = MsgBatch(part=lane.part, slot=cols[:, 1], vec=wide[:, 3:67],
+                    cnt=lane.cnt, src_part=lane.src_part, valid=lane.valid)
+    got = rp_ops.route_lane(ring, lane, plan, 4, 8)
+    want = rp_ref.route_lane_ref(ring, lane, plan, 4, 8)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_route_lane_raises_on_what_it_does_not_take(cuda):
+    ring, lane, plan = _lane_case(cuda, "msg", 40, 3, 6, 2, 4, 1)
+    with pytest.raises(ValueError, match="float32"):
+        rp_ops.route_lane(ring.double(), lane, plan, 2, 4)
+    with pytest.raises(ValueError, match="wide"):
+        rp_ops.route_lane(ring[:, :-1].contiguous(), lane, plan, 2, 4)
+    with pytest.raises(ValueError, match="plan for"):
+        rp_ops.route_lane(ring[:3].contiguous(), lane, plan, 2, 4)
+    bad = MsgBatch(part=lane.part, slot=lane.slot.int(), vec=lane.vec,
+                   cnt=lane.cnt, src_part=lane.src_part, valid=lane.valid)
+    with pytest.raises(ValueError, match="the wire takes"):
+        rp_ops.route_lane(ring, bad, plan, 2, 4)
+    bad = MsgBatch(part=lane.part, slot=lane.slot, vec=lane.vec.cpu(),
+                   cnt=lane.cnt, src_part=lane.src_part, valid=lane.valid)
+    with pytest.raises(ValueError, match="on cpu"):
+        rp_ops.route_lane(ring, bad, plan, 2, 4)
+    bad = MsgBatch(part=lane.part, slot=lane.slot,
+                   vec=lane.vec.t().contiguous().t(), cnt=lane.cnt,
+                   src_part=lane.src_part, valid=lane.valid)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        rp_ops.route_lane(ring, bad, plan, 2, 4)
+    with pytest.raises(ValueError, match="on cpu"):
+        rp_ops.route_lane(ring, lane, (plan[0].cpu(),) + plan[1:], 2, 4)
+
+
+# segment kernel B (fused gather + mean read) against its plain version:
+# the same IEEE division, so equal bit for bit; cnt <= 0 rows read 0
+@pytest.mark.parametrize("d", [1, 3, 64, 602, 1601])
+@pytest.mark.parametrize("K", [0, 1, 33, 8192])
+def test_mean_rows_gather_matches_plain(cuda, d, K):
+    rng = np.random.default_rng(d * 31 + K)
+    R = 3000
+    agg = torch.as_tensor(rng.normal(size=(R, d)).astype(np.float32),
+                          device=cuda)
+    cnt = torch.as_tensor(rng.integers(-2, 6, R).astype(np.float32),
+                          device=cuda)
+    rows = torch.as_tensor(np.where(rng.random(K) < 0.2, 5,
+                                    rng.integers(0, R, K)), device=cuda)
+    sr_ops.reset_launches()
+    got = sr_ops.mean_rows_gather(agg, cnt, rows)
+    torch.cuda.synchronize()
+    assert sr_ops.LAUNCHES["mean_rows_gather"] == (K > 0)
+    want = sr_ref.mean_rows_gather_ref(agg, cnt, rows)
+    assert got.shape == (K, d)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got[cnt[rows] <= 0] == 0).all())
+
+
+def test_mean_rows_gather_reads_rows_aligned_to_four_bytes_only(cuda):
+    """A table one float into its storage (rows 4-byte aligned only) runs
+    at vector width 1 and gives the plain version's result."""
+    rng = np.random.default_rng(5)
+    R, d, K = 700, 64, 500
+    flat = torch.as_tensor(rng.normal(size=R * d + 1).astype(np.float32),
+                           device=cuda)
+    cnt = torch.as_tensor(rng.integers(-1, 4, R).astype(np.float32),
+                          device=cuda)
+    rows = torch.as_tensor(rng.integers(0, R, K), device=cuda)
+    agg = flat[1:].view(R, d)
+    assert agg.data_ptr() % 16 == 4
+    got = sr_ops.mean_rows_gather(agg, cnt, rows)
+    want = sr_ref.mean_rows_gather_ref(agg, cnt, rows)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_mean_rows_gather_raises_on_what_it_does_not_take(cuda):
+    agg = torch.zeros(6, 4, device=cuda)
+    cnt = torch.ones(6, device=cuda)
+    rows = torch.tensor([0, 5, 2], device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        sr_ops.mean_rows_gather(agg.double(), cnt, rows)
+    with pytest.raises(ValueError, match="int64"):
+        sr_ops.mean_rows_gather(agg, cnt, rows.int())
+    with pytest.raises(ValueError, match="on cpu"):
+        sr_ops.mean_rows_gather(agg, cnt.cpu(), rows)
+    with pytest.raises(ValueError, match="agg must be contiguous"):
+        sr_ops.mean_rows_gather(torch.zeros(4, 6, device=cuda).t(), cnt,
+                                rows)
+    with pytest.raises(ValueError, match="agg must be contiguous"):
+        sr_ops.mean_rows_gather(torch.zeros(6, 9, device=cuda)[:, :4], cnt,
+                                rows)
+    with pytest.raises(ValueError, match="cnt must be contiguous"):
+        sr_ops.mean_rows_gather(agg, torch.ones(12, device=cuda)[::2], rows)
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        sr_ops.mean_rows_gather(agg, cnt, torch.zeros(
+            6, dtype=torch.int64, device=cuda)[::2])
+    with pytest.raises(ValueError, match="cnt has"):
+        sr_ops.mean_rows_gather(agg, cnt[:5], rows)
 
 
 # segment kernel A (gather-form delivery) against its plain version
