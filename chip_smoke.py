@@ -37,6 +37,24 @@ Phases (any failure exits non-zero; no phase is caught):
      (torch.profiler), beside its wall and host staging time, and the
      same device time by the call site that launched it.
 
+Then the query plane (serve/query.py, ServeSession):
+
+  [query-parity] tests/test_query_plane.py's golden query mix at its sizes
+     (32 nodes, dims (8, 12, 12), 4 parts), both drivers x the "kernel"
+     and "scatter" backends, card against CPU: qid, kind, ok, tick and
+     issue exactly equal, vec and score within QUERY_TOL x (1 + |cpu|);
+  [query-full] phase 4's configuration with query_cap 32 and 256
+     admissions a tick through ServeSession(driver="super") over the same
+     400,000-edge stream: 2,048 stale_ok queries a launch (7/8 EMBED, 1/8
+     LINK over ingested vids), 256 consistent ones (128 EMBED, 128 LINK)
+     submitted with the last stream launch, then the flush. Nothing
+     dropped or left outstanding; each launch's last-tick stale_ok EMBED
+     answers bit-equal read_nodes after it; consistent answers within
+     SINK_TOL of the float64 oracle; the same synchronizing call sites and
+     counts a super-tick as phase 4; answered/s, enqueue->answer ms and
+     staleness by mode, edges/s beside phase 4's, peak memory, and the
+     query stages' device ms by call site over one profiled launch.
+
 Then the sharded 1-D mesh path, four gloo ranks that share the card (one
 process each, started after the parent frees its memory; every kernel is
 built before any rank starts):
@@ -51,12 +69,17 @@ built before any rank starts):
      then the lane's fields read in place; send buffer and new ring)
      against route_lane_ref: ring only, no ring, every bucket overflowing
      past the ring, cap = 1, dense, W in {1, 5, 69, 607} and a FeatBatch
-     x D in {2, 4}, and the same full-width lane as a MsgBatch;
+     x D in {2, 4}, the same full-width lane as a MsgBatch, and the query
+     plane's QueryBatch wire lane (11 fields, W = 74, a full-width rank's
+     16 x 32 = 512 rows; ring, capped and dense);
   [mesh-parity] the serve CLI's --edges 1500 stream (dims 16,64,64) at
      route_cap 2176 (C // D) and 16, each on the card and on the CPU over
      the same gloo group: integer TickStats of every super-tick, busy and
      metrics (wire counters included) exactly equal, float state within
-     MESH_TOL;
+     MESH_TOL; then the same stream with the query plane on (query_cap 16,
+     route_cap 16: the wire lane defers) and the golden query mix plus a
+     burst of links onto the hub: answers and every counter card = CPU,
+     route_lane launched 2 L + 1 times a tick, collectives a super-tick;
   [mesh-full] GraphSAGE (602, 64, 64) with FULL's caps (16 parts a rank),
      route_cap 4096, route_defer_cap 32,768, 100,000 power-law edges,
      super-tick driver: no row dropped, route_lane launched 4 times a tick
@@ -72,7 +95,8 @@ built before any rank starts):
      index_copy_ of pre-gathered rows (timed only, as a yardstick); the
      fused lane step at the full-width layer-0 RMI lane beside its bound,
      its plain chain and the parent's card chain (pack_lane + cat + the
-     route_pack kernel + the ring gather), with the bytes of each.
+     route_pack kernel + the ring gather), with the bytes of each; and
+     the fused lane step at the QueryBatch wire lane (512 rows, W = 74).
 
 Then the LM serve path (mistral-nemo-12b), after the phases above free
 their memory:
@@ -178,6 +202,25 @@ MESH = dict(ranks=4, n_edges=100_000, route_cap=4096, route_defer_cap=32768,
 # [mesh-parity] float state, card vs CPU: |diff| <= MESH_TOL * (1 + |cpu|)
 # (f32 sums of the same records in another order)
 MESH_TOL = 1e-5
+# the query plane. [query-full]: FULL with query_cap 32 pending slots a
+# part and 256 admissions a tick (8 launches of T = 8 ticks carry 2,048
+# queries each); per launch 2,048 stale_ok queries, one in `link_every`
+# a LINK, the rest EMBED; the consistent queries (128 EMBED, 128 LINK)
+# go in with the last stream launch. [mesh-parity]'s query run: the
+# serve stream at query_cap 16 (a rank's wire lane 32 rows) and
+# route_cap 16, so the wire lane defers; `burst` stale_ok links onto the
+# hub in its second tick. [query-parity]: test_query_plane.py's sizes.
+QUERY = dict(query_cap=32, query_tick_cap=256, per_launch=2048,
+             link_every=8, consistent=128, mesh_query_cap=16, burst=48,
+             golden=dict(n_nodes=32, n_edges=100, dims=(8, 12, 12),
+                         tick_edges=24))
+# [query-parity] card vs CPU, vec and score: |diff| <= QUERY_TOL *
+# (1 + |cpu|) (the golden matrix's f32 bound). [query-full] consistent
+# answers vs the float64 oracle: EMBED |diff| <= SINK_TOL * max(1, |ref|)
+# per element; LINK |score - <ref_u, ref_v>| <= SINK_TOL * max(1,
+# sum_i |ref_u,i ref_v,i|) (a sum of 64 products, each factor within
+# SINK_TOL of its reference)
+QUERY_TOL = 1e-5
 
 # LM serve path: mistral-nemo-12b at its published widths and depth;
 # prefill_32k's batch cut from 32 to 1
@@ -583,6 +626,8 @@ def phase_full_width(full, device, check_launches=True):
         check(n_syncs == n_super, "the super-tick driver must sync with "
               f"the host once per super-tick: {n_syncs} syncs at "
               f"{dict(sync_sites.most_common(8))}")
+    baseline = dict(edges_per_s=full["n_edges"] / secs, n_super=n_super,
+                    sync_sites=dict(sync_sites))
     if check_launches:
         check(all(v > 0 for v in launches.values()),
               f"a kernel never launched on the main path: {launches}")
@@ -619,7 +664,7 @@ def phase_full_width(full, device, check_launches=True):
     for what, (err, _) in errs.items():
         check(err <= SINK_TOL, f"sink {what}: {err:.3e} > {SINK_TOL}")
     del other
-    return pipe, launches
+    return pipe, launches, baseline
 
 
 # ------------------------------------------------------------- phase 5
@@ -1000,6 +1045,347 @@ def phase_profile(full, device, warm_super_ticks=6, top=24, sites=20):
         print(f"[profile] {ms:9.3f} ms  {n_site[site]:6d} x  {site[:110]}")
 
 
+# ------------------------------------------------------------- query phases
+def golden_query_stream(g):
+    """tests/test_query_plane.py:make_stream (seed 0)."""
+    rng = np.random.default_rng(SEED)
+    n = g["n_nodes"]
+    edges = np.stack([rng.integers(0, n, g["n_edges"]),
+                      rng.integers(0, n, g["n_edges"])], 1)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    feats = {v: rng.normal(size=g["dims"][0]).astype(np.float32)
+             for v in range(n)}
+    return edges, feats
+
+
+def golden_query_mix(edges):
+    """tests/test_query_plane.py:query_mix: stale_ok and consistent
+    embeds, a consistent and a stale_ok link."""
+    from repro_torch.serve.query import KIND_EMBED, KIND_LINK
+    u, v = int(edges[0, 0]), int(edges[0, 1])
+    return [(1, KIND_EMBED, 0, False), (2, KIND_LINK, u, v, True),
+            (3, KIND_EMBED, 5, True), (4, KIND_LINK, u, 5, False)]
+
+
+def sorted_answers(pipe):
+    ans = pipe.drain_answers()
+    order = np.argsort(ans["qid"], kind="stable")
+    return {k: np.asarray(v)[order] for k, v in ans.items()}
+
+
+def golden_query_run(device, driver, backend, g):
+    """tests/test_query_plane.py:run_config through the port: three update
+    ticks, the golden mix with the fourth, then the flush."""
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    edges, feats = golden_query_stream(g)
+    cfg = PipelineConfig(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+                         feat_cap=128, edge_tick_cap=32,
+                         max_nodes=g["n_nodes"], query_cap=8,
+                         delivery_backend=backend,
+                         window=win.WindowConfig(kind=win.STREAMING))
+    pipe = D3Pipeline(GraphSAGE(g["dims"], seed=SEED), cfg, device=device)
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, g["tick_edges"])
+    q = golden_query_mix(edges)
+    if driver == "tick":
+        for i, (ch, fe) in enumerate(zip(e_chunks, f_chunks)):
+            pipe.tick(ch, fe, queries=q if i == len(e_chunks) - 1 else None)
+        pipe.flush(max_ticks=96)
+    else:
+        pipe.run_super_tick(e_chunks, f_chunks, T=len(e_chunks),
+                            query_chunks=[None] * (len(e_chunks) - 1) + [q])
+        pipe.flush_super(max_ticks=96, T=4)
+    return sorted_answers(pipe), pipe.metrics
+
+
+def answers_check(tag, got, want, tol):
+    """Card answers against CPU answers: ints exact, vec and score within
+    tol x (1 + |cpu|). Returns the max |card - cpu| of vec and score."""
+    for k in ("qid", "kind", "ok", "tick", "issue"):
+        check(np.array_equal(got[k], want[k]),
+              f"[{tag}] answer {k} differs, card vs CPU: {got[k][:8]} vs "
+              f"{want[k][:8]}")
+    err = 0.0
+    for k in ("vec", "score"):
+        d = np.abs(got[k] - want[k])
+        check(bool((d <= tol * (1 + np.abs(want[k]))).all()),
+              f"[{tag}] answer {k}: max |card - cpu| {float(d.max())}")
+        err = max(err, float(d.max()) if d.size else 0.0)
+    return err
+
+
+def phase_query_parity(device, q=QUERY):
+    import torch
+    from repro_torch.kernels.segment_reduce import ops
+    g = q["golden"]
+    worst = 0.0
+    for driver in ("tick", "super"):
+        for backend in ("kernel", "scatter"):
+            ops.reset_launches()
+            got, mg = golden_query_run(device, driver, backend, g)
+            launches = dict(ops.LAUNCHES)
+            want, mw = golden_query_run(torch.device("cpu"), driver,
+                                        backend, g)
+            worst = max(worst, answers_check("query-parity", got, want,
+                                             QUERY_TOL))
+            check(got["qid"].tolist() == [1, 2, 3, 4] and got["ok"].all(),
+                  f"[query-parity] {driver}/{backend}: answers {got['qid']}"
+                  f" ok {got['ok']}")
+            for k in ("queries_admitted", "queries_answered",
+                      "queries_dropped", "query_hold_ticks", "ticks",
+                      "reduce_msgs"):
+                check(getattr(mg, k) == getattr(mw, k),
+                      f"[query-parity] {driver}/{backend}: {k} differs")
+            if backend == "kernel" and device.type == "cuda":
+                check(all(v > 0 for v in launches.values()),
+                      f"[query-parity] a kernel never launched: {launches}")
+            print(f"[query-parity] {driver} driver, {backend} backend: card "
+                  f"= CPU on qid/kind/ok/tick/issue (answer ticks "
+                  f"{got['tick'].tolist()}, issue {got['issue'].tolist()}); "
+                  f"launches {launches}")
+    print(f"[query-parity] vec/score max |card - cpu| {worst:.3e} "
+          f"(tolerance {QUERY_TOL} x (1 + |cpu|))")
+
+
+def counted_syncs(fn, cuda):
+    """Run fn with synchronizing CUDA calls reported; returns (fn's
+    result, Counter of their call sites outside this file)."""
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+    return out, Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                        if "synchronizing CUDA operation" in str(w.message)
+                        and Path(w.filename).name != Path(__file__).name)
+
+
+def phase_query_full(device, baseline, full=FULL, q=QUERY):
+    """phase 4's configuration and stream with the query plane on, through
+    ServeSession(driver="super"); see the module docstring. baseline:
+    phase 4's edges/s and synchronizing call sites (phase_full_width)."""
+    import torch
+    from repro_torch.core import windowing as win
+    from repro_torch.core.oracle import build_snapshot, oracle_embeddings
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.serve.query import KIND_EMBED, KIND_LINK
+    from repro_torch.serve.session import ServeSession
+    edges, feats = make_stream(full["n_nodes"], full["n_edges"],
+                               full["dims"][0])
+    cfg = PipelineConfig(**full["caps"], max_nodes=full["n_nodes"],
+                         delivery_backend="kernel",
+                         query_cap=q["query_cap"],
+                         query_tick_cap=q["query_tick_cap"],
+                         window=win.WindowConfig(kind=win.SESSION,
+                                                 interval=4))
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    pipe = D3Pipeline(GraphSAGE(full["dims"], seed=SEED), cfg, device=device)
+    T, te = full["super_ticks"], full["tick_edges"]
+    sess = ServeSession(pipe, driver="super", super_ticks=T)
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, te)
+    gen = np.random.default_rng(SEED + 2)
+    per_tick = q["per_launch"] // T
+    n_link = per_tick // q["link_every"]
+    rec, consistent = {}, set()         # qid -> (kind, u, v)
+    wall, syncs, n_launch = 0.0, Counter(), 0
+    stale_checked = stale_ok = 0
+    ops.reset_launches()
+
+    def submit(pool, n_embed, n_links, cons=False):
+        vids = gen.choice(pool, n_embed)
+        pairs = gen.choice(pool, (n_links, 2))
+        qe = sess.submit_embed(vids, consistent=cons)
+        ql = sess.submit_link(pairs, consistent=cons)
+        rec.update(zip(qe, ((KIND_EMBED, int(v), 0) for v in vids)))
+        rec.update(zip(ql, ((KIND_LINK, int(u), int(v)) for u, v in pairs)))
+        if cons:
+            consistent.update(qe + ql)
+
+    def timed(fn):
+        nonlocal wall
+        t0 = time.perf_counter()
+        _, sites = counted_syncs(fn, cuda)
+        if cuda:
+            torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        syncs.update(sites)
+
+    starts = list(range(0, len(e_chunks), T))
+    for lo in starts:
+        # vids ingested by this launch's first tick (queries resolve after
+        # their tick's edges)
+        pool = np.unique(edges[:(lo + 1) * te])
+        for _ in range(T):      # the session admits them tick by tick
+            submit(pool, per_tick - n_link, n_link)
+        if lo == starts[-1]:
+            submit(pool, q["consistent"], q["consistent"], cons=True)
+        timed(lambda: sess.advance_super(e_chunks[lo:lo + T],
+                                         f_chunks[lo:lo + T], T=T))
+        n_launch += 1
+        # this launch's last tick: its stale_ok EMBED answers are the rows
+        # read_nodes reads now (not counted among the launch's syncs)
+        last = pipe.now - 1
+        mine = [a for qid, a in sess.answers.items()
+                if a.answer_tick == last and rec[qid][0] == KIND_EMBED
+                and qid not in consistent]
+        got = pipe.read_nodes([rec[a.qid][1] for a in mine])
+        for a in mine:
+            v = rec[a.qid][1]
+            stale_checked += 1
+            if a.ok:
+                check(v in got and np.array_equal(
+                    a.vec.view(np.int32), got[v].view(np.int32)),
+                    f"[query-full] stale_ok answer {a.qid} (vid {v}) at "
+                    f"tick {last} is not read_nodes' row")
+                stale_ok += 1
+            else:
+                check(v not in got, f"[query-full] vid {v} answered "
+                                    "ok=False but read_nodes has its row")
+    # consistent queries queued past the last launch's 2,048-query budget
+    # admit in one more launch; the flush drains the pipeline
+    timed(lambda: sess.advance_super(T=T))
+    n_launch += 1
+    timed(lambda: sess.flush(max_ticks=256))
+    m = pipe.metrics
+    n_super = m.ticks // T
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    launches = dict(ops.LAUNCHES)
+    n_ans = len(sess.answers)
+    check(sess.outstanding == 0, f"[query-full] {sess.outstanding} queries "
+                                 "left outstanding")
+    check(m.queries_dropped == 0, f"[query-full] {m.queries_dropped} "
+                                  "admissions dropped")
+    check(n_ans == len(rec), f"[query-full] {n_ans} answers for {len(rec)} "
+                             "queries")
+    if cuda:
+        check(all(v > 0 for v in launches.values()),
+              f"[query-full] a kernel never launched: {launches}")
+    check(stale_ok > 0, f"[query-full] no ok stale_ok EMBED answer at a "
+                        f"launch's last tick ({stale_checked} checked)")
+
+    # consistent answers against the float64 static oracle
+    model64 = copy.deepcopy(pipe.model).double()
+    g, _ = build_snapshot(edges, feats, full["dims"][0], full["n_nodes"],
+                          device, dtype=torch.float64)
+    ref = oracle_embeddings(model64, g).cpu().numpy()
+    del model64, g
+    worst_e = worst_l = 0.0
+    n_cok = 0
+    for qid in consistent:
+        a = sess.answers[qid]
+        if not a.ok:
+            continue
+        n_cok += 1
+        kind, u, v = rec[qid]
+        if kind == KIND_EMBED:
+            r = ref[u]
+            worst_e = max(worst_e, float(
+                (np.abs(a.vec - r) / np.maximum(1.0, np.abs(r))).max()))
+        else:
+            dot = float(ref[u] @ ref[v])
+            scale = max(1.0, float(np.abs(ref[u] * ref[v]).sum()))
+            worst_l = max(worst_l, abs(a.score - dot) / scale)
+    check(n_cok > 0, "[query-full] no consistent answer was ok")
+    check(worst_e <= SINK_TOL and worst_l <= SINK_TOL,
+          f"[query-full] consistent answers vs the float64 oracle: EMBED "
+          f"{worst_e:.3e}, LINK {worst_l:.3e} > {SINK_TOL}")
+
+    # the same synchronizing call sites and counts a super-tick as phase 4
+    per = {k: v / n_super for k, v in syncs.items()}
+    if cuda:
+        per4 = {k: v / baseline["n_super"]
+                for k, v in baseline["sync_sites"].items()}
+        check(per == per4, f"[query-full] synchronizing calls a super-tick "
+                           f"{per}, phase 4 {per4}")
+    print(f"[query-full] caps {full['caps']} dims {full['dims']} query_cap "
+          f"{q['query_cap']} query_tick_cap {q['query_tick_cap']}; "
+          f"ServeSession(driver=super, T={T}); {len(starts)} stream launches"
+          f" of {q['per_launch']} stale_ok queries (1 in "
+          f"{q['link_every']} LINK), {2 * q['consistent']} consistent "
+          f"queries with the last, one more launch, then the flush")
+    print(f"[query-full] {full['n_edges']} edges and {len(rec)} queries in "
+          f"{wall:.3f}s: {full['n_edges'] / wall:.1f} edges/s (phase 4 "
+          f"without queries, this call: "
+          f"{baseline['edges_per_s']:.1f}); "
+          f"{n_ans / wall:.1f} answered/s ({m.queries_answered} answered "
+          f"on the device, {n_ans - m.queries_answered} rejected on the "
+          f"host); admitted {m.queries_admitted}, dropped "
+          f"{m.queries_dropped}, held query-ticks {m.query_hold_ticks}; "
+          f"ticks {m.ticks}; RMIs {m.reduce_msgs}; host staging "
+          f"{m.host_seconds:.3f}s; peak memory {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)")
+    for mode in ("stale_ok", "consistent"):
+        xs = [a for qid, a in sess.answers.items()
+              if (qid in consistent) == (mode == "consistent")
+              and a.latency_s is not None and a.answer_tick >= 0]
+        lat = np.asarray([a.latency_s for a in xs]) * 1e3
+        st = np.asarray([a.staleness_ticks for a in xs])
+        print(f"[query-full] {mode}: {len(xs)} answers ("
+              f"{sum(a.ok for a in xs)} ok); enqueue->answer p50 "
+              f"{np.percentile(lat, 50):.3f} ms, p99 "
+              f"{np.percentile(lat, 99):.3f} ms; staleness p50 "
+              f"{np.percentile(st, 50):.1f} ticks, p99 "
+              f"{np.percentile(st, 99):.1f} ticks")
+    print(f"[query-full] stale_ok EMBED answers of each launch's last tick: "
+          f"{stale_ok} ok of {stale_checked}, each bit-equal to read_nodes "
+          f"(the others ok=False and absent from it); consistent answers "
+          f"vs the float64 oracle ({n_cok} ok): EMBED {worst_e:.3e}, LINK "
+          f"{worst_l:.3e} (tolerance {SINK_TOL}); synchronizing calls a "
+          f"super-tick {per} over {n_super} super-ticks (phase 4: "
+          f"{baseline['sync_sites']} over {baseline['n_super']}); "
+          f"launches {launches}")
+    if cuda:
+        # one more launch of the same traffic (no edges) under
+        # torch.profiler with stacks
+        for _ in range(T):
+            submit(np.unique(edges), per_tick - n_link, n_link)
+        query_stage_profile(sess, q, T)
+    del pipe, sess
+    free_cuda()
+
+
+def query_stage_profile(sess, q, T):
+    """Advance the session one launch under torch.profiler with stacks:
+    the device ms of the query plane's stages by call site (innermost
+    frame in serve/query.py) beside the launch's device busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    verbose = torch._C._profiler._ExperimentalConfig(verbose=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True, experimental_config=verbose) as prof:
+        t0 = time.perf_counter()
+        sess.advance_super(T=T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_site, n_site, _ = device_ms_by_site(prof)
+    busy = sum(k.duration for e in prof.events()
+               for k in getattr(e, "kernels", [])
+               if k.name != "Command Buffer Full") / 1e3
+    sites = {s: ms for s, ms in by_site.items()
+             if s.startswith("serve/query.py")}
+    print(f"[query-full] one more launch of {q['per_launch']} stale_ok "
+          f"queries and no edges under torch.profiler: wall "
+          f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms, the query "
+          f"stages (serve/query.py) {sum(sites.values()):.3f} ms in "
+          f"{sum(n_site[s] for s in sites)} launches"
+          + ("" if busy else " (not measured: no device events)"))
+    for site, ms in sorted(sites.items(), key=lambda kv: -kv[1])[:16]:
+        print(f"[query-full] {ms:9.3f} ms  {n_site[site]:6d} x  "
+              f"{site[:110]}")
+
+
 # ------------------------------------------------------------- mesh phases
 def plant_specials(gen, x):
     """Plant NaN payloads, +-Inf and -0.0 at 12 random words of f32 x."""
@@ -1038,7 +1424,9 @@ class PartLane:
 def mesh_lane(gen, kind, C, d, K, D, cap, live, hub, n_parts=64):
     """A lane as the router hands it to route_lane: a batch of C records
     ("msg": MsgBatch of width d + 5, "feat": FeatBatch of width d + 3,
-    "part": PartLane) with NaN / Inf / -0.0 planted in its float columns,
+    "query": the query plane's QueryBatch wire of width d + 10, 11 fields
+    in int64, bool and f32, "part": PartLane) with NaN / Inf / -0.0
+    planted in its float columns,
     slots up to 2**40 (they round on the wire), parts over n_parts (hub:
     60% on part 0) and 2% out of range, `live` of the records valid; a
     K-row ring of packed rows with `live` of them occupied; the plan over
@@ -1047,6 +1435,7 @@ def mesh_lane(gen, kind, C, d, K, D, cap, live, hub, n_parts=64):
     from repro_torch.core.events import FeatBatch, MsgBatch
     from repro_torch.dist import wire
     from repro_torch.kernels.route_pack import ops
+    from repro_torch.serve.query import QueryBatch
     dev = gen.device
     rand = lambda n: torch.rand(n, generator=gen, device=dev)
     part = torch.randint(0, n_parts, (C,), generator=gen, device=dev)
@@ -1061,6 +1450,13 @@ def mesh_lane(gen, kind, C, d, K, D, cap, live, hub, n_parts=64):
         lane, valid = PartLane(part=part), torch.ones_like(valid)
     elif kind == "feat":
         lane = FeatBatch(part=part, slot=slot, feat=f32(C, d), valid=valid)
+    elif kind == "query":
+        ints = lambda hi: torch.randint(0, hi, (C,), generator=gen,
+                                        device=dev)
+        lane = QueryBatch(qid=ints(2 ** 24), kind=ints(3), part=part,
+                          slot=slot, part2=ints(n_parts), slot2=ints(2 ** 30),
+                          consistent=rand(C) < 0.5, ok=rand(C) < 0.7,
+                          issue=ints(2 ** 24), vec=f32(C, d), valid=valid)
     else:
         lane = MsgBatch(part=part, slot=slot, vec=f32(C, d), cnt=f32(C),
                         src_part=torch.randint(0, n_parts, (C,),
@@ -1239,6 +1635,23 @@ def phase_mesh_kernel(device, full=FULL, m=MESH):
           f"cap={m['route_cap']}: {n_ship} rows shipped, {n_keep} kept in "
           f"the ring); max |kernel - plain| over finite entries {worst}")
     del ring, lane, plan
+    # the query plane's wire lane at a full-width rank: 16 parts x 32
+    # pending slots = 512 rows of W = d_out + 10 = 74, 11 fields
+    Cq = c["n_parts"] // D * QUERY["query_cap"]
+    dq = full["dims"][-1]
+    q_cases = [  # K, cap, live
+        (Cq, 32, 0.9),          # the ring (lane capacity) and a capped wire
+        (64, 8, 1.0),           # every bucket overflowing past the ring
+        (0, Cq, 0.9)]           # dense: route_cap None, no ring
+    for K, cap, live in q_cases:
+        ring, lane, plan = mesh_lane(gen, "query", Cq, dq, K, D, cap, live,
+                                     True)
+        n_ship, n_keep, err = mesh_lane_check(ring, lane, plan, D, cap)
+        worst = max(worst, err)
+        print(f"[mesh-kernel] route_lane on the QueryBatch wire lane (C={Cq}"
+              f", W={ring.shape[1]}, K={K}, D={D}, cap={cap}): bit-exact, "
+              f"{n_ship} rows shipped, {n_keep} kept in the ring")
+    del ring, lane, plan
     free_cuda()
     return worst
 
@@ -1284,8 +1697,64 @@ def _mesh_parity_rank(mesh, m):
                 "busy": pipe.metrics.busy_logical.tolist(),
                 "agg_cnt": st("agg_cnt"), "agg": st("agg"), "feat": st("feat"),
                 "sink": pipe.sink.cpu().numpy(),
-                "seen": pipe.sink_seen.cpu().numpy()}
+                "seen": pipe.sink_seen.cpu().numpy(),
+                "calls": {k: c[0] for k, c in view.calls.items()}}
+    for dev in (mesh.device, torch.device("cpu")):
+        out["query", dev.type] = _mesh_query_run(mesh, dev, m)
     return out
+
+
+def mesh_query_plan(edges, q=QUERY):
+    """[mesh-parity]'s queries by tick: a burst of stale_ok links onto the
+    busiest in-degree hub in the second tick, consistent links onto it in
+    the third, the golden mix in the fourth."""
+    from repro_torch.serve.query import KIND_LINK
+    hub = int(np.bincount(edges[:, 1]).argmax())
+    src = [int(w) for w in np.unique(edges[:, 0]) if w != hub]
+    return {1: [(100 + i, KIND_LINK, w, hub, False)
+                for i, w in enumerate(src[:q["burst"]])],
+            2: [(1000 + i, KIND_LINK, w, hub, True)
+                for i, w in enumerate(src[:q["burst"] // 4])],
+            3: golden_query_mix(edges)}
+
+
+def _mesh_query_run(mesh, dev, m, q=QUERY):
+    """The serve CLI's stream (serve_stream's configuration) with the
+    query plane on, through the super-tick driver, on `dev` over the
+    mesh's gloo group."""
+    import dataclasses
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.graphs import powerlaw_edges
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.kernels.route_pack import ops as rp
+    view = dataclasses.replace(mesh, device=dev, calls={})
+    rng = np.random.default_rng(0)
+    dims, n_nodes = (16, 64, 64), 400
+    edges = powerlaw_edges(rng, n_nodes, m["parity_edges"])
+    feats = {v: rng.normal(size=dims[0]).astype(np.float32)
+             for v in range(n_nodes)}
+    cfg = PipelineConfig(n_parts=8, node_cap=256, edge_cap=4096,
+                         repl_cap=1024, feat_cap=2048, edge_tick_cap=512,
+                         max_nodes=n_nodes, route_cap=m["parity_caps"][-1],
+                         query_cap=q["mesh_query_cap"],
+                         window=win.WindowConfig(kind=win.SESSION, interval=4))
+    pipe = D3Pipeline(GraphSAGE(dims, seed=SEED), cfg, mesh=view)
+    record = []
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 256)
+    plan = mesh_query_plan(edges)
+    rp.reset_launches()
+    with mock.patch.object(D3Pipeline, "run_super_tick",
+                           _tick_recorder(record)):
+        pipe.run_super_tick(e_chunks, f_chunks, T=16,
+                            query_chunks=[plan.get(i) for i in range(16)])
+        pipe.flush_super(max_ticks=64, T=4)
+    return {"stats": record, "answers": sorted_answers(pipe), "plan": plan,
+            "metrics": {k: v for k, v in vars(pipe.metrics).items()
+                        if isinstance(v, int)},
+            "launches": dict(rp.LAUNCHES),
+            "calls": {k: c[0] for k, c in view.calls.items()},
+            "ring_rows": pipe.queries.wire_defer.shape[0]}
 
 
 def phase_mesh_parity(device, m=MESH):
@@ -1330,6 +1799,48 @@ def phase_mesh_parity(device, m=MESH):
     print(f"[mesh-parity] {m['ranks']} gloo ranks: float state (agg, feat, "
           f"sink) card vs CPU max err {worst:.3e} (tolerance {MESH_TOL} x "
           f"(1 + |cpu|)); {secs:.1f}s with the ranks' start")
+    # the query plane on the mesh: card = CPU, and route_lane 2 L + 1
+    # times a tick (layer 0's round-B call carries the wire lane)
+    L, q_err = 2, 0.0
+    for r, res in enumerate(ranks):
+        a, b = res["query", device.type], res["query", "cpu"]
+        for key in ("stats", "metrics"):
+            check(a[key] == b[key], f"[mesh-parity] query run rank {r}: "
+                                    f"{key} differ, card vs CPU")
+        q_err = max(q_err, answers_check("mesh-parity", a["answers"],
+                                         b["answers"], MESH_TOL))
+        mt = a["metrics"]
+        check(mt["queries_answered"] > 0 and mt["route_dropped"] == 0
+              and a["ring_rows"] > 0 and len(set(a["answers"]["qid"]))
+              == len(a["answers"]["qid"]) == sum(len(x) for x in
+                                                 a["plan"].values()),
+              f"[mesh-parity] query run rank {r}: {mt}, ring rows "
+              f"{a['ring_rows']}")
+        if device.type == "cuda":
+            check(a["launches"]["route_lane"] == (2 * L + 1) * mt["ticks"],
+                  f"[mesh-parity] query run rank {r}: launches "
+                  f"{a['launches']}, expected route_lane {2 * L + 1} a tick "
+                  f"x {mt['ticks']} ticks")
+    a = ranks[0]["query", device.type]
+    mt = a["metrics"]
+    n_super = len(a["stats"])
+    print(f"[mesh-parity] query plane (query_cap "
+          f"{QUERY['mesh_query_cap']}, route_cap {m['parity_caps'][-1]}, "
+          f"the wire lane's ring {a['ring_rows']} rows a rank): card = CPU "
+          f"on {len(a['answers']['qid'])} answers (qid/kind/ok/tick/issue "
+          f"exact, vec/score max err {q_err:.3e}) and every integer stat; "
+          f"admitted {mt['queries_admitted']}, answered "
+          f"{mt['queries_answered']}, dropped {mt['queries_dropped']}, held "
+          f"query-ticks {mt['query_hold_ticks']}; ticks {mt['ticks']}, "
+          f"wire_rows {mt['wire_rows']}, route_deferred "
+          f"{mt['route_deferred']}; route_lane launches {a['launches']} = "
+          f"{a['launches']['route_lane'] / max(mt['ticks'], 1):.1f} a tick; "
+          f"collectives {a['calls']} over {n_super} super-tick calls = "
+          f"{sum(a['calls'].values()) / max(mt['ticks'], 1):.2f} a tick "
+          f"(the same stream without the plane at this route_cap: "
+          f"{ranks[0][m['parity_caps'][-1], device.type]['calls']} over "
+          f"{ranks[0][m['parity_caps'][-1], device.type]['metrics']['ticks']}"
+          f" ticks)")
 
 
 def _mesh_full_rank(mesh, full, m):
@@ -1650,6 +2161,34 @@ def phase_mesh_time(device, launches, max_err, full=FULL, m=MESH):
                              fn, f_ms)
     del ring, lane, plan, order, ship_s, left_s, kept, src, fn
     free_cuda()
+
+    # the fused lane step at the query plane's wire lane (QueryBatch, 11
+    # fields) of a full-width rank: 16 x 32 = 512 rows, a 512-row ring
+    Cq = c["n_parts"] // D * QUERY["query_cap"]
+    ring, lane, plan = mesh_lane(gen, "query", Cq, full["dims"][-1], Cq, D,
+                                 32, 0.9, True)
+    Wq = ring.shape[1]
+    n_ship, n_keep, err = mesh_lane_check(ring, lane, plan, D, 32)
+    max_err = max(max_err, err)
+    order, ship_s, _, left_s, _ = plan
+    src = order[ship_s | (left_s & (torch.cumsum(left_s, 0) <= Cq))]
+    from_ring = int((src < Cq).sum())
+    q_bytes = (from_ring * Wq * 4 + (src.numel() - from_ring)
+               * lane_row_bytes(lane) + src.numel() * 8 + (D + 1) * 8
+               + (D * 32 + Cq) * Wq * 4)
+    q_bound = bound_ms(q_bytes, 0)
+    fn = lambda: ops.route_lane(ring, lane, plan, D, 32)
+    q_ms = time_ms(fn)
+    q_plain = time_ms(lambda: ref.route_lane_ref(ring, lane, plan, D, 32))
+    print(f"[mesh-time] route_lane at the QueryBatch wire lane: C={Cq} "
+          f"K={Cq} W={Wq} D={D} cap=32, {n_ship} rows shipped and {n_keep} "
+          f"kept in the ring: {q_ms:.4f} ms; bound {q_bound:.4f} ms by "
+          f"bytes ({q_bytes} bytes; {q_bound / q_ms:.3f} of it reached); "
+          f"plain chain on the card {q_plain:.4f} ms")
+    q_win = event_window_check("mesh-time", "route_lane, QueryBatch lane",
+                               "route_lane_kernel", fn, q_ms)
+    del ring, lane, plan, order, ship_s, left_s, src, fn
+    free_cuda()
     capped = out["capped"]
     return {"name": "route_pack", "route": "cuda",
             "source": "src/repro_torch/csrc/route_pack.cu",
@@ -1666,7 +2205,10 @@ def phase_mesh_time(device, launches, max_err, full=FULL, m=MESH):
                            "plain_ms": f_plain, "bound_ms": f_bound,
                            "bound_by": "bytes", "library_ms": None,
                            "parent_chain_ms": p_ms,
-                           "parent_chain_bytes_ms": p_bound, **win}}
+                           "parent_chain_bytes_ms": p_bound, **win},
+            "query_lane": {"ms": q_ms, "plain_ms": q_plain,
+                           "bound_ms": q_bound, "bound_by": "bytes",
+                           "library_ms": None, **q_win}}
 
 
 # ------------------------------------------------------------- LM phases
@@ -2409,10 +2951,13 @@ def main():
     build_kernels()
     errs = phase_kernels_vs_plain(device)
     phase_parity_gate(device)
-    pipe, launches = phase_full_width(FULL, device)
+    pipe, launches, baseline = phase_full_width(FULL, device)
     result = phase_timing(pipe, launches, errs)
     del pipe
     phase_profile(FULL, device)
+    free_cuda()
+    phase_query_parity(device)
+    phase_query_full(device, baseline)
     free_cuda()
     mesh_err = phase_mesh_kernel(device)
     phase_mesh_parity(device)

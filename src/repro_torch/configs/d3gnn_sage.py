@@ -80,10 +80,10 @@ def step(model, shape_name: str):
     wconf = win.WindowConfig(kind=win.TUMBLING, interval=4)
 
     def stream_step(topo, state0, state1, inbox, eb, rb, now):
-        s0, out0, _ = layer_tick_body(model.layers[0], topo, state0, inbox,
-                                      eb, rb, now, wconf, FEAT_CAP)
-        s1, out1, _ = layer_tick_body(model.layers[1], topo, state1, out0,
-                                      eb, rb, now, wconf, FEAT_CAP)
+        s0, out0, _, _ = layer_tick_body(model.layers[0], topo, state0,
+                                         inbox, eb, rb, now, wconf, FEAT_CAP)
+        s1, out1, _, _ = layer_tick_body(model.layers[1], topo, state1,
+                                         out0, eb, rb, now, wconf, FEAT_CAP)
         return s0, s1, out1
 
     return stream_step

@@ -207,6 +207,10 @@ class StreamingPartitioner:
             return 0.0
         return float(self.t.replicas[seen].sum() / seen.sum())
 
+    def load_imbalance(self) -> float:
+        ld = self.t.load
+        return float(ld.max() / max(ld.mean(), 1e-9))
+
     @property
     def n_parts(self):
         return self.t.n_parts

@@ -30,14 +30,22 @@ layer ticks + sink update):
     mesh each collective waits for the device too). Capturing the T ticks
     as one CUDA graph is a later step (ROADMAP).
 
+The query plane (`serve/query.py`, query_cap > 0) rides both drivers:
+admissions and link head hops at the start of each tick, the link-tail
+wire as a second lane of layer 0's round-B exchange, answers after the
+sink update. Answers come back in the same read as the stats (the tick's,
+or the super-tick's one read); `drain_answers()` pops them and
+`serve/session.py:ServeSession` drives the whole thing. query_cap=0 runs
+exactly the program without the plane.
+
 Planes this port does not have yet raise NotImplementedError naming the
 ROADMAP item that will port them: n_stages > 1 (the 2-D stage program),
-query_cap > 0, train_cap > 0 / train=, telemetry=True, delta_eps > 0.
+train_cap > 0 / train=, telemetry=True, delta_eps > 0.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
 import numpy as np
@@ -48,6 +56,7 @@ from repro_torch.core import state as st
 from repro_torch.core import windowing as win
 from repro_torch.core.delivery import BACKENDS as DELIVERY_BACKENDS
 from repro_torch.core.delivery import make_delivery
+from repro_torch.core.explosion import layer_parallelisms, physical_busy
 from repro_torch.core.partitioner import StreamingPartitioner
 from repro_torch.core.termination import TerminationCoordinator, quiet_update
 from repro_torch.core.tick import (SCALAR_FIELDS, TickStats, add_stats,
@@ -55,6 +64,13 @@ from repro_torch.core.tick import (SCALAR_FIELDS, TickStats, add_stats,
 from repro_torch.device import resolve_device
 from repro_torch.dist.mesh import StreamMesh
 from repro_torch.dist.router import LocalRouter, MeshRouter
+from repro_torch.dist.wire import lane_width, pack_lane, unpack_lane
+from repro_torch.serve.query import (KIND_LINK, QSTAT_FIELDS,
+                                     add_query_stats, empty_query_batch,
+                                     init_query_state, query_admit_stage,
+                                     query_answer_stage,
+                                     query_batch_from_numpy, wire_width,
+                                     zero_query_stats)
 
 
 @dataclass(frozen=True)
@@ -65,8 +81,10 @@ class Capacities:
     capacity)."""
     outbox: int            # per-tick emission budget (rows, all parts)
     outbox_per_part: int   # emission slots per part (outbox // n_parts)
+    query_admissions: int  # query rows admitted per tick (0: plane off)
     bc_defer_rows: int     # broadcast-lane defer-ring rows
     rmi_defer_rows: int    # RMI-lane defer-ring rows
+    query_defer_rows: int  # query wire lane's defer-ring rows
 
 
 @dataclass
@@ -79,7 +97,11 @@ class PipelineConfig:
     outbox_cap: Optional[int] = None  # per-tick emission budget (default:
                                       # feat_cap), split evenly over parts
     edge_tick_cap: int = 1024         # new-edge records per tick
-    query_cap: int = 0                # query plane (not ported yet)
+    query_cap: int = 0                # query plane: pending-query slots
+                                      # per part (0 = the plane is off;
+                                      # serve/query.py)
+    query_tick_cap: Optional[int] = None  # query rows admitted per tick
+                                      # (None = query_cap * n_parts)
     train_cap: int = 0                # training plane (not ported yet)
     route_cap: Optional[int] = None   # per-destination all_to_all bucket
                                       # rows (None = each lane's capacity:
@@ -94,6 +116,8 @@ class PipelineConfig:
     n_stages: int = 1                 # stage pipeline (not ported yet)
     telemetry: bool = False           # telemetry plane (not ported yet)
     partitioner: str = "hdrf"
+    base_parallelism: int = 2         # p  (physical, for stats/sharding)
+    explosion: float = 1.0            # lambda (core/explosion.py)
     max_nodes: int = 100_000          # global id space for the host tables
     seed: int = 0
 
@@ -104,9 +128,18 @@ class PipelineConfig:
         p_loc = self.n_parts // max(n_devices, 1)
         return Capacities(
             outbox=outbox, outbox_per_part=max(1, outbox // self.n_parts),
+            query_admissions=self._query_admissions(),
             bc_defer_rows=self._defer_rows(p_loc * self.repl_cap, n_devices),
             rmi_defer_rows=self._defer_rows(
-                self.edge_tick_cap + p_loc * self.edge_cap, n_devices))
+                self.edge_tick_cap + p_loc * self.edge_cap, n_devices),
+            query_defer_rows=self._defer_rows(p_loc * self.query_cap,
+                                              n_devices))
+
+    def _query_admissions(self) -> int:
+        if self.query_cap <= 0:
+            return 0
+        return (self.query_cap * self.n_parts if self.query_tick_cap is None
+                else self.query_tick_cap)
 
     def _defer_rows(self, lane_capacity: int, n_devices: int) -> int:
         if n_devices <= 1 or self.route_cap is None:
@@ -144,6 +177,15 @@ class PipelineConfig:
         if self.query_cap < 0:
             raise ValueError(f"PipelineConfig.query_cap={self.query_cap} "
                              "must be >= 0 (0 disables the query plane)")
+        if self.query_cap == 0 and self.query_tick_cap:
+            raise ValueError(
+                "PipelineConfig.query_tick_cap is set but query_cap=0 — "
+                "the query plane is disabled; set query_cap > 0 to serve")
+        if self.query_cap > 0 and self._query_admissions() <= 0:
+            raise ValueError(
+                f"PipelineConfig.query_tick_cap={self.query_tick_cap} "
+                "must be > 0 (capacities().query_admissions) when the "
+                "query plane is enabled")
         if self.train_cap < 0:
             raise ValueError(
                 f"PipelineConfig.train_cap={self.train_cap} must be >= 0 "
@@ -161,6 +203,18 @@ class PipelineConfig:
                 f"PipelineConfig.route_defer_cap={self.route_defer_cap} "
                 "must be >= 0 (0 disables deferral: bucket overflow then "
                 "drops, counted in TickStats.route_dropped)")
+        if (self.route_defer_cap == 0 and self.query_cap > 0
+                and self.route_cap is not None and n_devices > 1
+                and self.route_cap < (self.n_parts // n_devices)
+                * self.query_cap):
+            raise ValueError(
+                "route_defer_cap=0 with a capped query wire lane "
+                f"(route_cap={self.route_cap} < per-device wire capacity "
+                f"{(self.n_parts // n_devices) * self.query_cap}): a "
+                "dropped link-tail record would strand its qid with no "
+                "ok=False answer — MsgBatch lanes may drop loudly, the "
+                "wire lane must be able to defer. Leave route_defer_cap "
+                "unset (defaults to the lane capacity) or raise route_cap")
         if self.delivery_backend not in DELIVERY_BACKENDS:
             raise ValueError(
                 f"PipelineConfig.delivery_backend="
@@ -180,7 +234,6 @@ class PipelineConfig:
         self._raise_unported((
             (self.n_stages != 1, "n_stages > 1 (pipeline stages)", 13),
             (self.delta_eps != 0.0, "delta_eps > 0 (delta gating)", 8),
-            (self.query_cap != 0, "query_cap > 0 (query plane)", 9),
             (self.train_cap != 0, "train_cap > 0 (training plane)", 10),
             (self.telemetry, "telemetry=True (telemetry plane)", 11)))
 
@@ -193,6 +246,10 @@ class StreamMetrics:
     broadcast_msgs: int = 0
     cross_part_msgs: int = 0
     dropped: int = 0
+    queries_admitted: int = 0
+    queries_answered: int = 0
+    queries_dropped: int = 0
+    query_hold_ticks: int = 0          # pending-query-ticks (backlog integral)
     # measured routing-plane wire counters, summed over every all_to_all
     # of every tick (0 under the LocalRouter)
     wire_rows: int = 0                 # live records shipped on the wire
@@ -202,6 +259,11 @@ class StreamMetrics:
     host_seconds: float = 0.0          # host-side staging time
     wall_seconds: float = 0.0
     busy_logical: Optional[np.ndarray] = None
+
+    @property
+    def throughput(self) -> float:
+        return (self.emitted_total / self.wall_seconds if self.wall_seconds
+                else 0.0)
 
 
 def _sink_update_body(sink, seen, fb: ev.FeatBatch, part0=0):
@@ -269,6 +331,16 @@ class D3Pipeline:
                                 dtype=torch.float32, device=dev)
         self.sink_seen = torch.zeros((p_loc, cfg.node_cap),
                                      dtype=torch.bool, device=dev)
+        # the query plane's pending table (and, on a capped mesh, its wire
+        # lane's defer ring); [p_loc, 0] tables when the plane is off
+        self.queries = init_query_state(
+            p_loc, cfg.query_cap, self.d_out, dev,
+            wire_defer_rows=caps.query_defer_rows // n_dev)
+        self._empty_queries = empty_query_batch(caps.query_admissions,
+                                                self.d_out, dev)
+        self._empty_queries_np = empty_query_batch(caps.query_admissions,
+                                                   self.d_out)
+        self._answer_log: list = []    # host-side answered-row columns
         self.now = 0
         self._wire_bytes_per_tick = self._static_wire_bytes(dims, n_dev)
         self.metrics = StreamMetrics(
@@ -288,7 +360,8 @@ class D3Pipeline:
         """EXACT collective bytes per tick across the whole mesh: every
         rank ships a [D, cap * W] f32 send buffer per lane per route_lanes
         call, so a tick moves D * sum_lanes D * cap * W * 4 bytes (host
-        int arithmetic, as in JAX). MsgBatch lanes are d + 5 wide."""
+        int arithmetic, as in JAX). MsgBatch lanes are d + 5 wide; the
+        query wire lane (layer 0's round B) d_out + 10."""
         if self.mesh is None or n_dev <= 1:
             return 0
         cfg = self.cfg
@@ -298,20 +371,33 @@ class D3Pipeline:
             lanes.append((p_loc * cfg.repl_cap, dims[li] + 5))
             lanes.append((cfg.edge_tick_cap + p_loc * cfg.edge_cap,
                           dims[li] + 5))
+        if cfg.query_cap > 0:
+            lanes.append((p_loc * cfg.query_cap, wire_width(dims[-1])))
         return n_dev * sum(n_dev * self.router.lane_cap(c) * w * 4
                            for c, w in lanes)
 
-    def _stats_to_host(self, stats_all, *extra):
-        """Per-layer TickStats (+ extra 0-d int64 tensors) to the host in
-        ONE device-to-host copy; on a mesh the ranks' busy vectors are
-        gathered first (one all_gather) into the global [n_parts] vector.
-        Returns (list of host TickStats, extra ints)."""
+    def _stats_to_host(self, stats_all, *extra, answers=None):
+        """Per-layer TickStats (+ extra 0-d int64 tensors, + the answer
+        rows of one or T ticks) to the host in ONE device-to-host copy; on
+        a mesh the ranks' busy vectors and answers are gathered first (one
+        all_gather). answers: a list of per-tick AnswerBatches; they ride
+        the copy packed as f32 wire rows (`dist/wire.py`, ints exact below
+        2**24) whose bits fill int64 words.
+        Returns (list of host TickStats, extra ints, host AnswerBatch
+        rows tick by tick then rank by rank, or None)."""
         L = len(stats_all)
         P = stats_all[0].busy.shape[0]
         parts = [torch.stack([getattr(s, f) for f in SCALAR_FIELDS])
                  for s in stats_all] + [s.busy for s in stats_all]
         if extra:
             parts.append(torch.stack(list(extra)))
+        n_int = sum(p.numel() for p in parts)
+        if answers:
+            words = torch.stack([pack_lane(a) for a in answers]).reshape(-1)
+            n_words = words.numel()
+            if n_words % 2:
+                words = torch.cat([words, words.new_zeros(1)])
+            parts.append(words.view(torch.int64))
         flat = torch.cat(parts)
         F = len(SCALAR_FIELDS)
         if self.mesh is None:
@@ -324,13 +410,73 @@ class D3Pipeline:
             sc = rows[0, li * F:(li + 1) * F]
             busy = rows[:, L * F + li * P: L * F + (li + 1) * P].reshape(-1)
             out.append(TickStats(**dict(zip(SCALAR_FIELDS, sc)), busy=busy))
-        return out, [int(v) for v in rows[0, L * (F + P):]]
+        host_extra = [int(v) for v in rows[0, L * (F + P):n_int]]
+        if not answers:
+            return out, host_extra, None
+        proto = answers[0]
+        A, W = proto.valid.shape[0], lane_width(proto)
+        buf = rows[:, n_int:].contiguous().view(torch.float32)[:, :n_words]
+        # [ranks, T, A, W] -> tick by tick, then rank by rank
+        buf = buf.reshape(rows.shape[0], len(answers), A, W).transpose(0, 1)
+        return out, host_extra, unpack_lane(buf.reshape(-1, W), proto)
 
     # ------------------------------------------------------------ host side
+    def _resolve_queries(self, queries, issue_tick: int) -> dict:
+        """Resolve host query requests [(qid, kind, vid, [vid2],
+        consistent)] to master-(part, slot)-addressed rows. Requests that
+        name a vertex the partitioner has never seen, or a qid the packed
+        f32 wire cannot carry exactly (>= 2**24), are answered HERE
+        (ok=False, zero payload, answer tick = issue tick) instead of
+        taking device slots."""
+        rows = {k: [] for k in ("qid", "kind", "part", "slot", "part2",
+                                "slot2", "consistent", "issue")}
+        rejects = []
+
+        def locate(vid):
+            if not 0 <= vid < self.cfg.max_nodes:
+                return None
+            return self.part.locate_master(vid, create=False)
+
+        for q in queries:
+            qid, kind, vid = int(q[0]), int(q[1]), int(q[2])
+            vid2 = int(q[3]) if kind == KIND_LINK else 0
+            # a qid at or past 2**24 would round on the wire and answer
+            # under the WRONG qid
+            if not 0 <= qid < 2 ** 24:
+                rejects.append((qid, kind))
+                continue
+            m = locate(vid)
+            m2 = locate(vid2) if kind == KIND_LINK else (0, 0)
+            if m is None or m2 is None:
+                rejects.append((qid, kind))
+                continue
+            rows["qid"].append(qid)
+            rows["kind"].append(kind)
+            rows["part"].append(m[0])
+            rows["slot"].append(m[1])
+            rows["part2"].append(m2[0])
+            rows["slot2"].append(m2[1])
+            rows["consistent"].append(bool(q[-1]))
+            rows["issue"].append(issue_tick)
+        if rejects:
+            r = np.asarray(rejects, np.int64).reshape(-1, 2)
+            self._answer_log.append({
+                "qid": r[:, 0], "kind": r[:, 1],
+                "ok": np.zeros(len(r), bool),
+                "tick": np.full(len(r), issue_tick, np.int64),
+                "issue": np.full(len(r), issue_tick, np.int64),
+                "vec": np.zeros((len(r), self.d_out), np.float32),
+                "score": np.zeros(len(r), np.float32)})
+        return {k: np.asarray(v) for k, v in rows.items()}
+
     def _build_batches(self, edges: Optional[np.ndarray],
-                       feats: Optional[list], device=None):
-        """One tick's padded (edge, repl, vertex, feat) batches; device=None
-        keeps numpy leaves for the super-tick staging path."""
+                       feats: Optional[list], device=None,
+                       queries: Optional[list] = None,
+                       issue_tick: Optional[int] = None):
+        """One tick's padded (edge, repl, vertex, feat, query) batches;
+        device=None keeps numpy leaves for the super-tick staging path.
+        queries: the tick's query requests (the `tick()` format), stamped
+        with issue_tick (default: the current tick)."""
         cfg = self.cfg
         if edges is not None and len(edges):
             e_rows, r1, v1 = self.part.ingest_edges(edges)
@@ -363,55 +509,132 @@ class D3Pipeline:
             np.asarray(f_vecs, np.float32).reshape(len(f_parts), -1)
             if f_parts else np.zeros((0, self.d_in), np.float32),
             cfg.feat_cap, self.d_in, device)
-        return eb, rb, vb, fb
+        if queries:
+            if cfg.query_cap <= 0:
+                raise ValueError("queries submitted but "
+                                 "PipelineConfig.query_cap=0")
+            q_rows = self._resolve_queries(
+                queries, self.now if issue_tick is None else issue_tick)
+            qb = query_batch_from_numpy(q_rows, cfg._query_admissions(),
+                                        self.d_out, device)
+        else:
+            qb = (self._empty_queries if device is not None
+                  else self._empty_queries_np)
+        return eb, rb, vb, fb, qb
 
     # ---------------------------------------------------------- device side
     @torch.no_grad()
-    def _tick_program(self, topo, states, sink, sink_seen, fb, eb, rb, vb,
-                      now, wconf):
-        """ONE micro-tick on the device: topology application, L layer
-        ticks, the sink update. Apart from a mesh's collectives, never
-        reads a value back to the host."""
+    def _tick_program(self, topo, states, sink, sink_seen, queries, fb, eb,
+                      rb, vb, qb, now, wconf):
+        """ONE micro-tick on the device: topology application, the query
+        plane's admit/head-hop stage, L layer ticks (the query wire rides
+        layer 0's round-B exchange), the sink update and the query plane's
+        answer stage. Apart from a mesh's collectives, never reads a value
+        back to the host. At query_cap=0 the plane's stages return at
+        once and the program is the one without it.
+        Returns (topo, states, sink, sink_seen, queries, stats_all,
+        answers or None, QueryStats or None)."""
         outbox_cap = self.cfg.capacities().outbox
         part0 = self.router.part0()
         topo = st.apply_vertex_batch(topo, vb, part0)
         topo = st.apply_repl_batch(topo, rb, part0)
         topo = st.apply_edge_batch(topo, eb, part0)
+        # does this tick ingest anything that could move state? (the
+        # batches are replicated: every rank votes alike); consistent link
+        # heads fire only when the whole tick is provably still
+        batch_work = (fb.valid.any() | eb.valid.any() | rb.valid.any()
+                      if self.cfg.query_cap else None)
+        queries, wire, adm_drop, n_adm = query_admit_stage(
+            queries, qb, states, sink, sink_seen, self.router, batch_work)
+        wire_d = None
         inbox = fb
         new_states, stats_all = [], []
         for li, layer in enumerate(self.layers):
             # topology reaches every layer; features only layer 0
-            ls, inbox, stats = layer_tick_body(
+            extra = ((wire, (queries.wire_defer, queries.wire_defer_ok))
+                     if li == 0 and wire is not None else None)
+            ls, inbox, stats, extra_out = layer_tick_body(
                 layer, topo, states[li], inbox, eb, rb, now, wconf,
-                outbox_cap, self.router, self.delivery)
+                outbox_cap, self.router, self.delivery, extra_lane=extra)
+            if extra_out is not None:
+                wire_d, (wdb, wdo) = extra_out
+                queries = replace(queries, wire_defer=wdb, wire_defer_ok=wdo)
             new_states.append(ls)
             stats_all.append(stats)
         # sink: final-layer emissions materialize the embedding table
         sink, sink_seen = _sink_update_body(sink, sink_seen, inbox, part0)
-        return topo, new_states, sink, sink_seen, stats_all
+        # query plane: answer point queries from the fresh sink
+        queries, answers, qstats = query_answer_stage(
+            queries, wire_d, qb, adm_drop, n_adm, new_states, sink,
+            sink_seen, now, stats_all, self.router)
+        return (topo, new_states, sink, sink_seen, queries, stats_all,
+                answers, qstats)
 
     def tick(self, edges: Optional[np.ndarray] = None,
-             feats: Optional[list] = None, window=None):
+             feats: Optional[list] = None, window=None,
+             queries: Optional[list] = None):
         """One micro-tick through the full pipeline (reference driver).
-        Returns the per-layer TickStats, read back to the host."""
+
+        queries: optional [(qid, kind, vid, [vid2,] consistent), ...]
+        point-query admissions for this tick (needs cfg.query_cap > 0);
+        answered rows accumulate in `drain_answers()`.
+        Returns the per-layer TickStats, read back to the host (with the
+        tick's answers and query counters, in one read)."""
         wconf = window or self.cfg.window
         t0 = time.perf_counter()
-        eb, rb, vb, fb = self._build_batches(edges, feats, self.device)
+        eb, rb, vb, fb, qb = self._build_batches(edges, feats, self.device,
+                                                 queries=queries)
         host_s = time.perf_counter() - t0
         now = torch.tensor(self.now, dtype=torch.int64, device=self.device)
-        (self.topo, self.states, self.sink, self.sink_seen,
-         stats_all) = self._tick_program(self.topo, self.states, self.sink,
-                                         self.sink_seen, fb, eb, rb, vb,
-                                         now, wconf)
+        (self.topo, self.states, self.sink, self.sink_seen, self.queries,
+         stats_all, answers, qstats) = self._tick_program(
+            self.topo, self.states, self.sink, self.sink_seen, self.queries,
+            fb, eb, rb, vb, qb, now, wconf)
         self.now += 1
-        host_stats, _ = self._stats_to_host(stats_all)
+        on = answers is not None
+        qx = [getattr(qstats, f) for f in QSTAT_FIELDS] if on else []
+        host_stats, host_q, host_ans = self._stats_to_host(
+            stats_all, *qx, answers=[answers] if on else None)
+        self._harvest_answers(host_ans)
         self.metrics.host_seconds += host_s
-        self._accumulate(host_stats, time.perf_counter() - t0)
+        self._accumulate(host_stats, time.perf_counter() - t0,
+                         qstats=host_q)
         return host_stats
 
-    def _accumulate(self, stats_all, dt, ticks: int = 1):
+    def _harvest_answers(self, ans) -> None:
+        """Append the answered rows (valid mask) of host AnswerBatch rows
+        to the answer log; None when the query plane is off."""
+        if ans is None:
+            return
+        mask = ans.valid.numpy()
+        if not mask.any():
+            return
+        self._answer_log.append({
+            "qid": ans.qid.numpy()[mask], "kind": ans.kind.numpy()[mask],
+            "ok": ans.ok.numpy()[mask], "tick": ans.tick.numpy()[mask],
+            "issue": ans.issue.numpy()[mask], "vec": ans.vec.numpy()[mask],
+            "score": ans.score.numpy()[mask]})
+
+    def drain_answers(self) -> dict:
+        """Pop every answered query collected so far as one dict of
+        concatenated numpy columns (qid, kind, ok, tick, issue, vec,
+        score) — empty arrays when nothing answered."""
+        log, self._answer_log = self._answer_log, []
+        if not log:
+            return {"qid": np.zeros(0, np.int64),
+                    "kind": np.zeros(0, np.int64),
+                    "ok": np.zeros(0, bool),
+                    "tick": np.zeros(0, np.int64),
+                    "issue": np.zeros(0, np.int64),
+                    "vec": np.zeros((0, self.d_out), np.float32),
+                    "score": np.zeros(0, np.float32)}
+        return {k: np.concatenate([chunk[k] for chunk in log])
+                for k in log[0]}
+
+    def _accumulate(self, stats_all, dt, ticks: int = 1, qstats=None):
         """Fold per-layer host stats (one tick, or a super-tick's sums)
-        into StreamMetrics."""
+        and the query counters (host ints in QSTAT_FIELDS order, or an
+        empty list) into StreamMetrics."""
         m = self.metrics
         m.ticks += ticks
         m.wall_seconds += dt
@@ -426,6 +649,12 @@ class D3Pipeline:
             m.route_dropped += int(s.route_dropped)
             m.busy_logical += s.busy.numpy().astype(np.int64)
         m.emitted_total += int(stats_all[-1].emitted)
+        if qstats:
+            q = dict(zip(QSTAT_FIELDS, qstats))
+            m.queries_admitted += q["admitted"]
+            m.queries_answered += q["answered"]
+            m.queries_dropped += q["dropped"]
+            m.query_hold_ticks += q["held_ticks"]
 
     def chunk_stream(self, edges, feats, tick_edges: int,
                      feat_with_first_edge: bool = True, seen=None):
@@ -465,7 +694,8 @@ class D3Pipeline:
         override = win.WindowConfig(kind=win.STREAMING) if drain else None
         for i in range(max_ticks):
             stats = self.tick(window=override)
-            if term.observe(self.states, stats, self.router):
+            if term.observe(self.states, stats, self.router,
+                            queries=self.queries):
                 return i + 1
         raise RuntimeError("pipeline failed to terminate "
                            f"within {max_ticks} flush ticks")
@@ -473,29 +703,40 @@ class D3Pipeline:
     # ------------------------------------------------------ super-tick path
     def run_super_tick(self, edge_chunks=None, feat_chunks=None,
                        T: Optional[int] = None, window=None,
-                       quiet0: int = 0):
+                       quiet0: int = 0, query_chunks=None):
         """Advance T micro-ticks with ONE host sync.
 
-        edge_chunks / feat_chunks: per-tick edge arrays and [(vid, vec)]
-        lists (None entries allowed); shorter lists are padded with empty
-        ticks up to T. quiet0 seeds the consecutive-quiet-tick counter.
+        edge_chunks / feat_chunks / query_chunks: per-tick edge arrays,
+        [(vid, vec)] lists and query-request lists (the `tick()` format,
+        admitted at their staged tick; None entries allowed); shorter
+        lists are padded with empty ticks up to T. quiet0 seeds the
+        consecutive-quiet-tick counter.
         Returns (per-layer TickStats summed over the T ticks, quiet_ticks).
+        The same read carries the T ticks' answers and the summed query
+        counters.
         """
         wconf = window or self.cfg.window
         t0 = time.perf_counter()
         edge_chunks = list(edge_chunks) if edge_chunks is not None else []
         feat_chunks = list(feat_chunks) if feat_chunks is not None else []
-        n = max(len(edge_chunks), len(feat_chunks), 1)
+        query_chunks = list(query_chunks) if query_chunks is not None else []
+        n = max(len(edge_chunks), len(feat_chunks), len(query_chunks), 1)
         T = int(T) if T is not None else n
         if T < n:
             raise ValueError(f"T={T} smaller than the {n} staged ticks")
         edge_chunks += [None] * (T - len(edge_chunks))
         feat_chunks += [None] * (T - len(feat_chunks))
-        staged = [self._build_batches(e, f) for e, f in
-                  zip(edge_chunks, feat_chunks)]
-        # one host-to-device copy per field for all T ticks
+        query_chunks += [None] * (T - len(query_chunks))
+        # issue ticks: the tick the device will admit each chunk in
+        staged = [self._build_batches(e, f, queries=q, issue_tick=self.now + i)
+                  for i, (e, f, q) in enumerate(
+                      zip(edge_chunks, feat_chunks, query_chunks))]
+        # one host-to-device copy per field for all T ticks (the query
+        # batches only when the plane is on)
         eb, rb, vb, fb = (ev.stack_batches([s[i] for s in staged],
                                            self.device) for i in range(4))
+        qb = (ev.stack_batches([s[4] for s in staged], self.device)
+              if self.cfg.query_cap else None)
         self.metrics.host_seconds += time.perf_counter() - t0
 
         dev = self.device
@@ -504,19 +745,32 @@ class D3Pipeline:
         quiet = torch.full((), quiet0, dtype=torch.int64, device=dev)
         ssum = [zero_stats(self.states[0].feat.shape[0], dev)
                 for _ in self.layers]
+        qsum = zero_query_stats(dev)
+        answers = []
         for t in range(T):
-            (self.topo, self.states, self.sink, self.sink_seen,
-             stats_t) = self._tick_program(
+            (self.topo, self.states, self.sink, self.sink_seen, self.queries,
+             stats_t, ans_t, qstats_t) = self._tick_program(
                 self.topo, self.states, self.sink, self.sink_seen,
-                ev.batch_at(fb, t), ev.batch_at(eb, t), ev.batch_at(rb, t),
-                ev.batch_at(vb, t), now, wconf)
-            quiet = quiet_update(quiet, self.states, stats_t, self.router)
+                self.queries, ev.batch_at(fb, t), ev.batch_at(eb, t),
+                ev.batch_at(rb, t), ev.batch_at(vb, t),
+                ev.batch_at(qb, t) if qb is not None else self._empty_queries,
+                now, wconf)
+            quiet = quiet_update(quiet, self.states, stats_t, self.router,
+                                 queries=self.queries)
             ssum = [add_stats(a, b) for a, b in zip(ssum, stats_t)]
+            if ans_t is not None:
+                answers.append(ans_t)
+                qsum = add_query_stats(qsum, qstats_t)
             now = now + 1
         self.now += T
         # the one host sync of the super-tick: summed stats + quiet counter
-        host_stats, (quiet_ticks,) = self._stats_to_host(ssum, quiet)
-        self._accumulate(host_stats, time.perf_counter() - t0, ticks=T)
+        # (+ the summed query counters and the T ticks' answers)
+        qx = [getattr(qsum, f) for f in QSTAT_FIELDS] if answers else []
+        host_stats, (quiet_ticks, *host_q), host_ans = self._stats_to_host(
+            ssum, quiet, *qx, answers=answers or None)
+        self._harvest_answers(host_ans)
+        self._accumulate(host_stats, time.perf_counter() - t0, ticks=T,
+                         qstats=host_q)
         return host_stats, quiet_ticks
 
     def run_stream_super(self, edges: np.ndarray, feats: dict,
@@ -586,3 +840,12 @@ class D3Pipeline:
         """Materialized final-layer embeddings {vid: vector} (masters);
         collective on a mesh."""
         return self.read_nodes(np.flatnonzero(self.part.t.master >= 0))
+
+    def physical_busy_per_layer(self):
+        """Per-layer physical busy vectors under the explosion factor
+        (core/explosion.py: layer i runs p * lambda^i sub-operators)."""
+        cfg = self.cfg
+        pars = layer_parallelisms(cfg.base_parallelism, cfg.explosion,
+                                  len(self.layers), cfg.n_parts)
+        return [physical_busy(self.metrics.busy_logical, p, cfg.n_parts)
+                for p in pars]

@@ -2,10 +2,11 @@
 
 Counterpart of `repro/core/termination.py`. The pipeline is quiescent
 when, for `quiet_sweeps` consecutive ticks, no layer moved a message and
-no layer holds pending work (window timers, routing defer rings). On a
-mesh the movement vote reads the already reduced TickStats and the
-pending-work vote is summed over the ranks (`router.psum`), so every rank
-sees the same counter. Two observation paths:
+no layer holds pending work (window timers, routing defer rings, the
+query plane's wire-lane backlog). On a mesh the movement vote reads the
+already reduced TickStats and the pending-work vote is summed over the
+ranks (`router.psum_vote`), so every rank sees the same counter. Two
+observation paths:
 
   * per-tick (host): `TerminationCoordinator.observe` reads each tick's
     stats — one host sync per tick, fine for the reference driver;
@@ -26,26 +27,35 @@ def moved_msgs(tick_stats):
         + tick_stats.broadcast_msgs
 
 
-def pending_work(layer_states):
+def pending_work(layer_states, queries=None):
     """LOCAL in-flight-work count (0-d int64): layers with pending timers
-    or occupied defer rings."""
+    or occupied defer rings, plus the query plane's wire-lane backlog
+    (occupied rows of its defer ring) when a QueryState is given. Held
+    `consistent` queries are not in-flight work.
+
+    The single aggregation every quiescence and silence gate reads:
+    `quiet_update`, `TerminationCoordinator.observe` and the query
+    plane's gates (serve/query.py:_plane_work)."""
     work = torch.zeros((), dtype=torch.int64,
                        device=layer_states[0].feat.device)
     for ls in layer_states:
         work = work + has_work(ls).to(torch.int64)
+    if queries is not None:
+        work = work + queries.wire_defer_ok.sum()
     return work
 
 
-def quiet_update(quiet, layer_states, tick_stats, router=None):
+def quiet_update(quiet, layer_states, tick_stats, router=None,
+                 queries=None):
     """One on-device step of quiescence tracking: the consecutive quiet
     tick counter resets to 0 on any movement or pending work (summed over
-    the ranks when a router is given)."""
+    the ranks when a router is given; `queries` adds the wire backlog)."""
     moved = torch.zeros((), dtype=torch.bool, device=quiet.device)
     for s in tick_stats:
         moved = moved | (moved_msgs(s) > 0)
-    work = pending_work(layer_states)
+    work = pending_work(layer_states, queries)
     if router is not None:
-        work = router.psum(work)
+        work = router.psum_vote(work)
     busy = moved | (work > 0)
     return torch.where(busy, torch.zeros_like(quiet), quiet + 1)
 
@@ -60,14 +70,15 @@ class TerminationCoordinator:
         super-ticks: quiescence streaks survive the host round-trip."""
         return self._quiet
 
-    def observe(self, layer_states, tick_stats, router=None) -> bool:
+    def observe(self, layer_states, tick_stats, router=None,
+                queries=None) -> bool:
         """Feed one tick's observations (host values); True once
         terminated. With a router the pending-work vote is summed over the
-        ranks."""
+        ranks; `queries` (a QueryState) votes the wire backlog."""
         moved = any(int(moved_msgs(s)) for s in tick_stats)
-        work = pending_work(layer_states)
+        work = pending_work(layer_states, queries)
         if router is not None:
-            work = router.psum(work)
+            work = router.psum_vote(work)
         if moved or bool(work):
             self._quiet = 0
         else:

@@ -311,7 +311,7 @@ def forward_psi(layer, topo: TopoState, ls: LayerState, feat_flat, has_feat,
 def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
                     new_edges: EdgeBatch, new_repl: ReplBatch, now,
                     wconf: win.WindowConfig, outbox_cap: int, router=None,
-                    delivery=None):
+                    delivery=None, extra_lane=None):
     """Advance one GNN layer by one tick.
 
     `layer` supplies message/update (phi/psi), e.g. graph/sage.SAGELayer;
@@ -321,7 +321,14 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
     GLOBAL per-tick emission budget; each part gets outbox_cap //
     router.n_parts slots.
 
-    Returns (new LayerState, outbox FeatBatch, TickStats).
+    extra_lane: optional (batch, (defer_rows, defer_ok)) — one more
+    part-addressed lane sent in this layer's round-B exchange (the same
+    all_to_all as the RMI lane). The pipeline rides the query plane's
+    link-score wire on layer 0 this way; its wire rows count into this
+    layer's TickStats.
+
+    Returns (new LayerState, outbox FeatBatch, TickStats, extra_out):
+    extra_out is None, or (delivered extra lane, its new defer ring).
     """
     P, N, d_in = ls.feat.shape
     dev = ls.feat.device
@@ -348,8 +355,16 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
      red_deadline, rmis, busy, n_reduce, red_cross) = round_b_emit(
         layer, topo, ls, feat_flat, changed, has_feat, bcast_d, new_edges,
         now, wconf, part0, busy, freq, delivery)
-    (rmis_d,), (rmi_defer,), rcpt_b = router.route_lanes(
-        (rmis,), ((ls.rmi_defer, ls.rmi_defer_ok),))
+    rmi_defer_in = (ls.rmi_defer, ls.rmi_defer_ok)
+    if extra_lane is None:
+        (rmis_d,), (rmi_defer,), rcpt_b = router.route_lanes(
+            (rmis,), (rmi_defer_in,))
+        extra_out = None
+    else:
+        xbatch, xdefer = extra_lane
+        (rmis_d, extra_d), (rmi_defer, xdefer_new), rcpt_b = \
+            router.route_lanes((rmis, xbatch), (rmi_defer_in, xdefer))
+        extra_out = (extra_d, xdefer_new)
     rcpt = add_receipts(rcpt, rcpt_b)
 
     # ---- apply RMIs at local masters, in canonical order
@@ -395,7 +410,7 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
                       route_dropped=g[7], n_suppressed=z,
                       occ_bc_defer=z, occ_rmi_defer=z, route_peak=z,
                       outbox_part_peak=z, busy=busy)
-    return new_ls, outbox, stats
+    return new_ls, outbox, stats, extra_out
 
 
 def has_work(ls: LayerState):

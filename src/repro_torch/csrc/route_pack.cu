@@ -73,7 +73,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kWordsPerLane = 16;
 constexpr int kChunk = 32 * kWordsPerLane;     // words a warp takes at once
 constexpr int kMaxDev = 1024;
-constexpr int kMaxFields = 8;
+constexpr int kMaxFields = 12;      // the QueryBatch wire lane has 11
 constexpr unsigned kAll = 0xffffffffu;
 
 enum : int64_t { kF32 = 0, kI64 = 1, kBool = 2 };

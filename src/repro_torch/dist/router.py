@@ -85,6 +85,10 @@ class LocalRouter:
     def psum(self, x):
         return x
 
+    def psum_vote(self, x):
+        """A quiescence / silence vote over every rank: the identity."""
+        return x
+
 
 @dataclass(frozen=True)
 class MeshRouter:
@@ -117,6 +121,11 @@ class MeshRouter:
 
     def psum(self, x):
         return self.mesh.all_reduce(x)
+
+    def psum_vote(self, x):
+        """A quiescence / silence vote over every rank (the 1-D mesh's
+        one axis: `psum`)."""
+        return self.psum(x)
 
     def lane_cap(self, capacity: int) -> int:
         """Resolved per-destination bucket rows for a lane of the given

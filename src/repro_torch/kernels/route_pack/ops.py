@@ -42,7 +42,7 @@ _SIGNATURES = {
     "d3_route_lane": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P]}
 # the kernel's field dtype codes, and its limits (csrc/route_pack.cu)
 _DTYPES = {torch.float32: 0, torch.int64: 1, torch.bool: 2}
-MAX_DEV, MAX_FIELDS = 1024, 8
+MAX_DEV, MAX_FIELDS = 1024, 12
 _DESC = ctypes.c_int64 * (4 * MAX_FIELDS)
 _LIB: dict = {}
 

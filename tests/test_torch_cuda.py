@@ -21,6 +21,7 @@ from repro_torch.kernels.embedding_bag import ops as eb_ops, ref as eb_ref
 from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.kernels.route_pack import ops as rp_ops, ref as rp_ref
 from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
+from repro_torch.serve.query import QueryBatch
 
 pytestmark = pytest.mark.cuda
 
@@ -280,6 +281,13 @@ def _lane(rng, kind, C, d, n_parts):
     if kind == "feat":
         return FeatBatch(part=part, slot=slot, feat=_special(rng, (C, d)),
                          valid=valid)
+    if kind == "query":         # 11 fields: int64, bool and f32
+        ints = lambda hi: torch.as_tensor(rng.integers(0, hi, C))
+        bools = lambda: torch.as_tensor(rng.random(C) < 0.5)
+        return QueryBatch(qid=ints(2 ** 24), kind=ints(3), part=part,
+                          slot=slot, part2=ints(n_parts), slot2=ints(2 ** 30),
+                          consistent=bools(), ok=bools(), issue=ints(2 ** 24),
+                          vec=_special(rng, (C, d)), valid=valid)
     return MsgBatch(part=part, slot=slot, vec=_special(rng, (C, d)),
                     cnt=_special(rng, (C,)),
                     src_part=torch.as_tensor(rng.integers(0, n_parts, C)),
@@ -309,8 +317,10 @@ def _lane_case(cuda, kind, C, d, K, D, cap, seed, n_parts=8):
 
 
 @pytest.mark.parametrize("kind,d", [("part", 0), ("msg", 0), ("msg", 64),
-                                    ("msg", 602), ("feat", 5)],
-                         ids=["W1", "W5", "W69", "W607", "feat-W8"])
+                                    ("msg", 602), ("feat", 5), ("query", 3),
+                                    ("query", 64)],
+                         ids=["W1", "W5", "W69", "W607", "feat-W8",
+                              "query-W13", "query-W74"])
 @pytest.mark.parametrize("C,K,D,cap", [
     (300, 0, 4, 16),         # no ring
     (300, 40, 4, 16),        # ring in front
@@ -554,3 +564,63 @@ def test_deliver_rows_raises_on_what_it_does_not_take(cuda):
                                                            device=cuda))
     with pytest.raises(ValueError, match="int64"):
         sr_ops.deliver_rows(vec, row_ptr.int())
+
+
+# the query plane on the card against the CPU, at tests/test_query_plane.py's
+# golden sizes (32 nodes, dims (8, 12, 12), 4 parts) and query mix: qid,
+# kind, ok, tick and issue exactly equal; vec and score within 1e-5 x
+# (1 + |cpu|) (f32 sums of the same records in another order)
+def _golden_stream(seed=0, n_edges=100, n_nodes=32, d_in=8):
+    rng = np.random.default_rng(seed)
+    edges = np.stack([rng.integers(0, n_nodes, n_edges),
+                      rng.integers(0, n_nodes, n_edges)], 1)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    feats = {v: rng.normal(size=d_in).astype(np.float32)
+             for v in range(n_nodes)}
+    return edges, feats
+
+
+def _serve_golden(device, driver, backend):
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    edges, feats = _golden_stream()
+    cfg = PipelineConfig(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+                         feat_cap=128, edge_tick_cap=32, max_nodes=32,
+                         query_cap=8, delivery_backend=backend,
+                         window=win.WindowConfig(kind=win.STREAMING))
+    pipe = D3Pipeline(GraphSAGE((8, 12, 12), seed=0), cfg, device=device)
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 24)
+    u, v = int(edges[0, 0]), int(edges[0, 1])
+    q = [(1, 0, 0, False), (2, 1, u, v, True), (3, 0, 5, True),
+         (4, 1, u, 5, False)]
+    if driver == "tick":
+        for i, (ch, fe) in enumerate(zip(e_chunks, f_chunks)):
+            pipe.tick(ch, fe, queries=q if i == len(e_chunks) - 1 else None)
+        pipe.flush(max_ticks=96)
+    else:
+        pipe.run_super_tick(e_chunks, f_chunks, T=len(e_chunks),
+                            query_chunks=[None] * (len(e_chunks) - 1) + [q])
+        pipe.flush_super(max_ticks=96, T=4)
+    ans = pipe.drain_answers()
+    order = np.argsort(ans["qid"])
+    return {k: a[order] for k, a in ans.items()}
+
+
+@pytest.mark.parametrize("backend", ["kernel", "scatter"])
+@pytest.mark.parametrize("driver", ["tick", "super"])
+def test_query_plane_on_the_card_matches_the_cpu(cuda, driver, backend):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rp_ops.reset_launches()
+    sr_ops.reset_launches()
+    got = _serve_golden(cuda, driver, backend)
+    want = _serve_golden(torch.device("cpu"), driver, backend)
+    assert got["qid"].tolist() == [1, 2, 3, 4] and got["ok"].all()
+    for k in ("qid", "kind", "ok", "tick", "issue"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for k in ("vec", "score"):
+        assert (np.abs(got[k] - want[k])
+                <= 1e-5 * (1 + np.abs(want[k]))).all(), k
+    if backend == "kernel":
+        assert sr_ops.LAUNCHES["segment_sum_rows"] > 0
+        assert sr_ops.LAUNCHES["mean_rows_gather"] > 0

@@ -47,7 +47,9 @@ def test_import_leaves_jax_out():
             "repro_torch.dist.router, repro_torch.dist.wire, "
             "repro_torch.dist.mesh, "
             "repro_torch.launch.mesh, repro_torch.kernels.route_pack.ops, "
-            "repro_torch.kernels.route_pack.ref; "
+            "repro_torch.kernels.route_pack.ref, "
+            "repro_torch.serve.query, repro_torch.serve.session, "
+            "repro_torch.data.streams, repro_torch.core.explosion; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

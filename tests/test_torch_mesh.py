@@ -12,13 +12,19 @@ Cases: route_cap in {None (dense), 40 (the RMI lane's C // D), 2} x
 {per-tick, super-tick}, an ADAPTIVE-window case (the CountMinSketch
 delta is psum'd over the ranks), the starved ring (route_cap=1,
 route_defer_cap=0) and cap 2 on the port's "scatter" backends (JAX runs
-its "xla" backend throughout).
+its "xla" backend throughout). The query plane (QCASES): the golden query
+mix of tests/test_query_plane.py plus a burst of link queries onto one hub
+(the link-tail wire rides layer 0's round-B exchange) at route_cap None
+and 2 (the wire lane defers), per-tick and super-tick.
 
 Tolerances: every integer TickStats field of every tick/super-tick call
 and every StreamMetrics counter (wire_rows, wire_bytes, route_deferred
 and route_dropped included), the busy vector and the final aggregator
 counts exactly equal; embeddings within 1e-5 (absolute and relative) of
 JAX's; the sink within 1e-4 of the port's static oracle (core/oracle.py).
+Answers: qid, kind, ok, tick and issue exactly equal, vec within
+rtol = atol = 1e-5, score within rtol 1e-4, atol 1e-5 (the golden
+matrix's own tolerances), and the query counters exactly equal.
 """
 import hashlib
 import os
@@ -58,6 +64,16 @@ CASES = {
 METRICS = ("ticks", "emitted_total", "reduce_msgs", "broadcast_msgs",
            "cross_part_msgs", "dropped", "wire_rows", "wire_bytes",
            "route_deferred", "route_dropped")
+QMETRICS = METRICS + ("queries_admitted", "queries_answered",
+                      "queries_dropped", "query_hold_ticks")
+# the query plane on the mesh: name -> (driver, route_cap)
+QCASES = {
+    "q-dense-tick": ("tick", None),
+    "q-dense-super": ("super", None),
+    "q-cap2-tick": ("tick", 2),
+    "q-cap2-super": ("super", 2),
+}
+KIND_EMBED, KIND_LINK = 0, 1
 STAT_FIELDS = ("broadcast_msgs", "reduce_msgs", "cross_part_msgs", "emitted",
                "dropped", "wire_rows", "route_deferred", "route_dropped")
 
@@ -77,20 +93,58 @@ def hub_stream(seed=0, n_edges=120):
     return edges, feats
 
 
-def case_config(name):
-    """test_route_plane.build_pipe's config for one case."""
-    _, _, cap, defer, kind, _, _ = CASES[name]
-    return dict(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
-                feat_cap=128, edge_tick_cap=32, max_nodes=N_NODES,
-                route_cap=cap, route_defer_cap=defer,
-                delivery_backend="scatter" if name.endswith("scatter")
-                else "kernel")
+def q_stream(seed=0, n_edges=100):
+    """test_query_plane.make_stream, here without jax."""
+    rng = np.random.default_rng(seed)
+    edges = np.stack([rng.integers(0, N_NODES, n_edges),
+                      rng.integers(0, N_NODES, n_edges)], 1)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    feats = {v: rng.normal(size=D_IN).astype(np.float32)
+             for v in range(N_NODES)}
+    return edges, feats
 
 
-def drive(pipe, name, edges, feats, record):
-    """Stream one case as test_route_plane.run_capped does, recording the
-    integer TickStats of every tick / super-tick call."""
-    _, driver, _, _, _, n_edges, flushed = CASES[name]
+def q_plan(edges):
+    """Per-chunk query lists: a burst of stale_ok links from every vertex
+    onto the busiest in-degree hub (tails converge on one rank and
+    overflow a 2-row bucket; parts past their 8 pending slots answer
+    ok=False), consistent links onto the hub, then the golden mix."""
+    u, v = int(edges[0, 0]), int(edges[0, 1])
+    hub = int(np.bincount(edges[:, 1]).argmax())
+    return {1: [(100 + w, KIND_LINK, w, hub, False)
+                for w in range(N_NODES) if w != hub],
+            2: [(200 + w, KIND_LINK, w, hub, True)
+                for w in range(0, N_NODES, 5) if w != hub],
+            3: [(1, KIND_EMBED, 0, False), (2, KIND_LINK, u, v, True),
+                (3, KIND_EMBED, 5, True), (4, KIND_LINK, u, 5, False)]}
+
+
+def drive_queries(pipe, name, edges, feats, record, ring=None):
+    """Stream the query case through its driver, recording each call's
+    integer TickStats (and, per tick, the wire ring's occupied rows into
+    `ring` when given). Returns the answers sorted by qid."""
+    driver = QCASES[name][0]
+    _record_calls(pipe, record)
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 24)
+    plan = q_plan(edges)
+    if driver == "tick":
+        for i, (ch, fe) in enumerate(zip(e_chunks, f_chunks)):
+            pipe.tick(ch, fe, queries=plan.get(i))
+            if ring is not None:
+                ring.append(int(pipe.queries.wire_defer_ok.sum()))
+        pipe.flush(max_ticks=256)
+    else:
+        pipe.run_super_tick(e_chunks, f_chunks, T=len(e_chunks),
+                            query_chunks=[plan.get(i)
+                                          for i in range(len(e_chunks))])
+        pipe.flush_super(max_ticks=256, T=4)
+    ans = pipe.drain_answers()
+    order = np.argsort(ans["qid"], kind="stable")
+    return {k: np.asarray(v)[order] for k, v in ans.items()}
+
+
+def _record_calls(pipe, record):
+    """Record the integer TickStats of every tick / super-tick call."""
     tick, sup = pipe.tick, pipe.run_super_tick
 
     def rec(stats):
@@ -109,6 +163,23 @@ def drive(pipe, name, edges, feats, record):
         return out
 
     pipe.tick, pipe.run_super_tick = tick_rec, sup_rec
+
+
+def case_config(name):
+    """test_route_plane.build_pipe's config for one case."""
+    _, _, cap, defer, kind, _, _ = CASES[name]
+    return dict(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+                feat_cap=128, edge_tick_cap=32, max_nodes=N_NODES,
+                route_cap=cap, route_defer_cap=defer,
+                delivery_backend="scatter" if name.endswith("scatter")
+                else "kernel")
+
+
+def drive(pipe, name, edges, feats, record):
+    """Stream one case as test_route_plane.run_capped does, recording the
+    integer TickStats of every tick / super-tick call."""
+    _, driver, _, _, _, n_edges, flushed = CASES[name]
+    _record_calls(pipe, record)
     if n_edges is not None:
         edges = edges[:n_edges]
     if driver == "tick":
@@ -122,9 +193,9 @@ def drive(pipe, name, edges, feats, record):
     return pipe
 
 
-def summary(pipe, record):
+def summary(pipe, record, keys=METRICS):
     m = pipe.metrics
-    return {"metrics": {k: int(getattr(m, k)) for k in METRICS},
+    return {"metrics": {k: int(getattr(m, k)) for k in keys},
             "busy": np.asarray(m.busy_logical, np.int64),
             "stats": record, "emb": pipe.embeddings()}
 
@@ -164,6 +235,21 @@ def _port_rank(mesh, params):
         res["shards"] = [p.tolist() for p in pipe.parts_per_shard()]
         res["part0"] = pipe.router.part0()
         out[name] = res
+    for name, (_, cap) in QCASES.items():
+        edges, feats = q_stream()
+        model = GraphSAGE(DIMS)
+        model.load_state_dict(params)
+        pipe = D3Pipeline(model, PipelineConfig(
+            n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+            feat_cap=128, edge_tick_cap=32, max_nodes=N_NODES, query_cap=8,
+            route_cap=cap, window=win.WindowConfig(kind=win.STREAMING)),
+            mesh=mesh)
+        record, ring = [], []
+        ans = drive_queries(pipe, name, edges, feats, record, ring)
+        res = summary(pipe, record, QMETRICS)
+        res["answers"], res["ring"] = ans, ring
+        res["wire_rows_cap"] = pipe.queries.wire_defer.shape[0]
+        out[name] = res
     return out
 
 
@@ -195,6 +281,15 @@ def jax_reference(path):
         res["agg_cnt"] = [np.asarray(ls.agg_cnt) for ls in pipe.states]
         res["edges"] = edges
         res["params"] = jax.tree.map(np.asarray, params)
+        out[name] = res
+    for name, (_, cap) in QCASES.items():
+        edges, feats = q_stream()
+        _, _, pipe = build_pipe(jwin.WindowConfig(kind=jwin.STREAMING),
+                                mesh=mesh, route_cap=cap, query_cap=8)
+        record = []
+        ans = drive_queries(pipe, name, edges, feats, record)
+        res = summary(pipe, record, QMETRICS)
+        res["answers"] = ans
         out[name] = res
     with open(path, "wb") as f:
         pickle.dump(out, f)
@@ -276,6 +371,38 @@ def test_mesh_matches_jax_mesh(runs, name):
         np.testing.assert_allclose(vec, oracle[vid], rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("name", list(QCASES))
+def test_mesh_queries_match_jax_mesh(runs, name):
+    """The query plane on 4 gloo ranks against JAX's 4-device mesh: the
+    same answers tick for tick, the same integer stats and counters."""
+    ref, port, _ = runs
+    want = ref[name]
+    for r in (p[name] for p in port):
+        assert r["metrics"] == want["metrics"]
+        assert r["stats"] == want["stats"]
+        np.testing.assert_array_equal(r["busy"], want["busy"])
+        got, exp = r["answers"], want["answers"]
+        for k in ("qid", "kind", "ok", "tick", "issue"):
+            np.testing.assert_array_equal(got[k], exp[k], err_msg=k)
+        np.testing.assert_allclose(got["vec"], exp["vec"], rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got["score"], exp["score"], rtol=1e-4,
+                                   atol=1e-5)
+    r0, m = port[0][name], want["metrics"]
+    qids = set(r0["answers"]["qid"].tolist())
+    assert qids == set(range(1, 5)) | {q[0] for qs in q_plan(
+        q_stream()[0]).values() for q in qs}, "every query answers once"
+    assert len(qids) == len(r0["answers"]["qid"])
+    assert m["queries_dropped"] > 0 and m["queries_answered"] > 0
+    assert m["route_dropped"] == 0
+    if "-cap2-" in name:
+        assert r0["wire_rows_cap"] == 8 and m["route_deferred"] > 0
+        if name.endswith("-tick"):
+            assert max(r0["ring"]) > 0, "the wire lane never deferred"
+    else:
+        assert r0["wire_rows_cap"] == 0
+
+
 def test_capped_wire_is_smaller_than_dense(runs):
     ref, port, _ = runs
     dense = port[0]["dense-super"]["metrics"]["wire_bytes"]
@@ -285,14 +412,14 @@ def test_capped_wire_is_smaller_than_dense(runs):
 
 def test_mesh_config_validation():
     """Indivisible parts and bad route caps fail in validate(n_devices),
-    before any rank allocates; the capped query wire's undeferrable case
-    comes with the query plane (item 9), which still refuses."""
+    before any rank allocates; so does a capped query wire that cannot
+    defer (a dropped link tail would strand its qid), as in JAX."""
     with pytest.raises(ValueError, match="not divisible"):
         PipelineConfig(n_parts=6, feat_cap=6).validate(n_devices=4)
     PipelineConfig(n_parts=8, feat_cap=8).validate(n_devices=4)
     cfg = PipelineConfig(n_parts=4, feat_cap=4, route_cap=1,
                          route_defer_cap=0, query_cap=8)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="route_defer_cap=0 with a capped"):
         cfg.validate(n_devices=4)
     with pytest.raises(ValueError, match="route_cap=0 must be > 0"):
         PipelineConfig(route_cap=0, feat_cap=8).validate()

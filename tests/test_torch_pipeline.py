@@ -138,7 +138,7 @@ def test_serve_cli_mesh_pinned_counts(driver, rmis, cross):
 
 @pytest.mark.parametrize("field,value,item", [
     ("n_stages", 2, 13), ("delta_eps", 1e-3, 8),
-    ("query_cap", 4, 9), ("train_cap", 4, 10), ("telemetry", True, 11)])
+    ("train_cap", 4, 10), ("telemetry", True, 11)])
 def test_unported_planes_raise(field, value, item):
     cfg = PipelineConfig(**CAPS, **{field: value})
     with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -22,6 +22,7 @@ import torch
 from repro.core.events import FeatBatch as JaxFeatBatch
 from repro.core.events import MsgBatch as JaxMsgBatch
 from repro.dist import wire as jax_wire
+from repro.serve.query import QueryBatch as JaxQueryBatch
 from repro.kernels.route_pack import route_pack as jax_route_pack
 from repro.kernels.route_pack import route_plan as jax_route_plan
 from repro.kernels.route_pack import route_plan_ref as jax_route_plan_ref
@@ -29,6 +30,7 @@ from repro_torch.core.events import FeatBatch, MsgBatch
 from repro_torch.dist import wire
 from repro_torch.dist.router import LocalRouter, MeshRouter
 from repro_torch.kernels.route_pack import ops, ref
+from repro_torch.serve.query import QueryBatch
 
 
 def plan_case(seed, n, D, skew):
@@ -271,6 +273,11 @@ LANE_CASES = {
     "msg-W607": ("msg", 120, 602, 32, 4, 16, 0.8, 0.6),
     "feat-K0": ("feat", 45, 4, 0, 4, 3, 0.8, 0.5),
     "feat-ring": ("feat", 70, 7, 24, 4, 4, 0.9, 0.6),
+    # the query plane's link-tail wire: 11 fields, int64 and bool read in
+    # place; W = d + 10 (74 at the full width's d_out = 64)
+    "query-K0": ("query", 48, 3, 0, 2, 5, 0.8, 0.5),
+    "query-W32": ("query", 64, 22, 8, 4, 3, 0.9, 0.6),
+    "query-W74-ring": ("query", 128, 64, 16, 4, 4, 0.9, 0.7),
 }
 N_PARTS = 8
 
@@ -302,6 +309,19 @@ def lane_inputs(name):
                          vec=jnp.asarray(payload), cnt=jnp.asarray(cnt),
                          src_part=jnp.asarray(src, jnp.int32),
                          valid=jnp.asarray(valid))
+    elif kind == "query":
+        cols = {"qid": rng.integers(0, 2 ** 24, C),
+                "kind": rng.integers(0, 3, C), "part": part, "slot": slot,
+                "part2": rng.integers(0, N_PARTS, C),
+                "slot2": rng.integers(0, 2 ** 20, C),
+                "consistent": rng.random(C) < 0.5,
+                "ok": rng.random(C) < 0.7,
+                "issue": rng.integers(0, 2 ** 24, C), "vec": payload,
+                "valid": valid}
+        port = QueryBatch(**{k: torch.as_tensor(v) for k, v in cols.items()})
+        jx = JaxQueryBatch(**{k: jnp.asarray(
+            v.astype(np.int32) if v.dtype == np.int64 else v)
+            for k, v in cols.items()})
     else:
         port = FeatBatch(part=torch.as_tensor(part),
                          slot=torch.as_tensor(slot),

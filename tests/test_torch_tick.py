@@ -77,7 +77,8 @@ def _assert_state_equal(got, want):
 
 
 def _assert_tick_equal(got, want):
-    (g_ls, g_out, g_st), (w_ls, w_out, w_st, _) = got, want
+    (g_ls, g_out, g_st, g_x), (w_ls, w_out, w_st, _) = got, want
+    assert g_x is None
     _assert_state_equal(g_ls, w_ls)
     valid = np.asarray(w_out.valid)
     np.testing.assert_array_equal(g_out.valid.numpy(), valid)
