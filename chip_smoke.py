@@ -37,6 +37,15 @@ Phases (any failure exits non-zero; no phase is caught):
      (torch.profiler), beside its wall and host staging time, and the
      same device time by the call site that launched it.
 
+Between phases 5 and 6, [gate-full]: phase 4's stream at delta_eps = eps
+(eps the median layer-0 ||dx|| of the first wave) beside phase 4's own
+pipeline (delta_eps = 0), then the same 3 waves of feature updates on
+8,192 ingested vertices through both: suppressed > 0, the waves' gated
+RMIs + suppressed <= the exact run's, the eps = 0 run suppresses
+nothing, the gated sink within the Lipschitz chain bound (spectral norms
+in float64) of the float64 oracle, the coalescer launching kernel A; each
+wave's wall time, the messages saved.
+
 Then the query plane (serve/query.py, ServeSession):
 
   [query-parity] tests/test_query_plane.py's golden query mix at its sizes
@@ -54,6 +63,32 @@ Then the query plane (serve/query.py, ServeSession):
      counts a super-tick as phase 4; answered/s, enqueue->answer ms and
      staleness by mode, edges/s beside phase 4's, peak memory, and the
      query stages' device ms by call site over one profiled launch.
+
+Then delta gating and the training plane:
+
+  [gate-parity] tests/test_delta_gating.py's update-wave stream at
+     delta_eps 1e-3, both drivers x both backends, card against CPU:
+     every integer stat of every call equal, the sink within PARITY_TOL;
+  [train-parity] tests/test_train_plane.py's online-learning stream
+     through TrainSession, both drivers x both backends (and the int8
+     compressed path), card against CPU: steps and fire ticks equal,
+     losses and last_grad within PARITY_TOL (TRAIN_LOSS_TOL compressed);
+     kernel A launched by the backward's edge fold, replica fold and
+     zeroing;
+  [train-full] (a) FULL with a 41-class head, lr 0: stream, flush, one
+     tick of 4,096 labels fires exactly once; last_grad and the loss
+     within TRAIN_TOL relative L2 of float64 torch.autograd through the
+     static model, the live parameters bit-unchanged; (b) online learning
+     through TrainSession(driver="super"), Adam, int8 top-k compression,
+     labels streaming with the edges: the loss falls, the scatter backend
+     fires at the same ticks with losses within TRAIN_LOSS_TOL, the same
+     synchronizing calls a super-tick as phase 4; edges/s beside phase
+     4's, peak memory, kernel A's launches by call site, and the train
+     stage's device ms by call site over one profiled launch;
+  [train-time] kernel A at its new call sites on (a)'s final topology:
+     the backward's edge fold (d = 602 and 64), its replica fold and the
+     coalescer's layer-0 RMI lane, beside the plain version, zeros (or
+     the base) + index_add_ and the bound (rows 1b and 1c of PERF.md).
 
 Then the sharded 1-D mesh path, four gloo ranks that share the card (one
 process each, started after the parent frees its memory; every kernel is
@@ -80,6 +115,10 @@ built before any rank starts):
      route_cap 16: the wire lane defers) and the golden query mix plus a
      burst of links onto the hub: answers and every counter card = CPU,
      route_lane launched 2 L + 1 times a tick, collectives a super-tick;
+     a gated case (route_cap 16, two update waves) card = CPU with the
+     coalescer on kernel A; an lr 0 training case whose quiescent grads
+     equal the CPU ranks' and a one-rank run's within MESH_TOL, with
+     route_lane launched 4 L times a tick (hops A and B a layer);
   [mesh-full] GraphSAGE (602, 64, 64) with FULL's caps (16 parts a rank),
      route_cap 4096, route_defer_cap 32,768, 100,000 power-law edges,
      super-tick driver: no row dropped, route_lane launched 4 times a tick
@@ -546,9 +585,10 @@ def make_stream(n_nodes, n_edges, d_in):
     return edges, {v: x[v] for v in range(n_nodes)}
 
 
-def stream_pipeline(full, backend, device, edges, feats):
-    """Stream + flush with the super-tick driver. Returns (pipeline, wall
-    seconds, synchronizing CUDA calls by call site during the stream)."""
+def stream_pipeline(full, backend, device, edges, feats, **cfg_kw):
+    """Stream + flush with the super-tick driver (cfg_kw: more
+    PipelineConfig fields). Returns (pipeline, wall seconds, synchronizing
+    CUDA calls by call site during the stream)."""
     import torch
     from repro_torch.core import windowing as win
     from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
@@ -556,7 +596,7 @@ def stream_pipeline(full, backend, device, edges, feats):
     cfg = PipelineConfig(**full["caps"], max_nodes=full["n_nodes"],
                          delivery_backend=backend,
                          window=win.WindowConfig(kind=win.SESSION,
-                                                 interval=4))
+                                                 interval=4), **cfg_kw)
     pipe = D3Pipeline(GraphSAGE(full["dims"], seed=SEED), cfg, device=device)
     cuda = device.type == "cuda"
     if cuda:
@@ -1386,6 +1426,764 @@ def query_stage_profile(sess, q, T):
               f"{site[:110]}")
 
 
+# ------------------------------------------ delta gating and training
+# [gate-full]: waves of feature updates on `wave_vids` ingested vertices,
+# each delta's L2 norm drawn log-uniform in [norm_lo, norm_hi]; eps is the
+# median norm of the first wave, so the layer-0 deltas straddle it.
+GATE = dict(waves=3, wave_vids=8192, norm_lo=1e-3, norm_hi=1e-1,
+            golden_eps=1e-3)
+# [train-full]: Reddit's 41 classes (Hamilton et al. 2017, whose 602-d
+# features set D_IN); labels are the argmax of a seeded projection of
+# each vertex's features. (a) lr 0, one label tick of `labels` labels;
+# (b) Adam, int8 top-k compression, `train_cap` labels a tick, a 16-tick
+# window, a fire at `batch_threshold` active masters. lr 1e-3: Adam moves
+# every weight by ~lr a step, and at 1e-2 a hundred steps outgrow the
+# layer-0 weights (lecun std 0.04 at fan-in 602) and the loss diverged.
+TRAIN = dict(n_classes=41, labels=4096, train_cap=1024, window=16,
+             batch_threshold=256, lr=1e-3, topk_frac=0.25)
+# (a): every leaf of last_grad and the loss within TRAIN_TOL relative L2
+# of float64 torch.autograd of the static model (f32 sums in the stream's
+# order vs a float64 static sum; the sink itself is within 3e-6)
+TRAIN_TOL = 1e-4
+# (b): kernel vs scatter backend, the loss at each fire within
+# TRAIN_LOSS_TOL relative (f32 sums in another order, then int8 rounding
+# and top-k thresholds that can flip on them, over every step)
+TRAIN_LOSS_TOL = 1e-2
+# [gate-parity] / [train-parity] card vs CPU, floats: |diff| <= PARITY_TOL
+# x (1 + |cpu|) (f32 sums of the same records in another order)
+PARITY_TOL = 1e-4
+
+
+class SiteLaunches:
+    """Kernel A launches by delivery call and calling function while the
+    context is open ('add_rows < coalesce_msg_batch'): the kernel
+    backend's three delivery methods are wrapped to read
+    ops.LAUNCHES["segment_sum_rows"] around each call."""
+
+    def __init__(self):
+        self.counts = Counter()
+
+    def __enter__(self):
+        from repro_torch.core.delivery import KernelDelivery
+        from repro_torch.kernels.segment_reduce import ops
+        self._saved = {}
+        for name in ("add_rows", "deliver_add", "deliver_set"):
+            orig = getattr(KernelDelivery, name)
+            self._saved[name] = orig
+
+            def wrapped(dself, *a, _orig=orig, _name=name, **k):
+                before = ops.LAUNCHES["segment_sum_rows"]
+                out = _orig(dself, *a, **k)
+                caller = sys._getframe(1).f_code.co_name
+                self.counts[f"{_name} < {caller}"] += (
+                    ops.LAUNCHES["segment_sum_rows"] - before)
+                return out
+            setattr(KernelDelivery, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.delivery import KernelDelivery
+        for name, orig in self._saved.items():
+            setattr(KernelDelivery, name, orig)
+
+
+def train_recorder(log):
+    """Patch the pipeline's train stage to append each tick's (steps,
+    loss) to `log` as a device tensor (no host read)."""
+    import torch
+    from repro_torch.core import pipeline as pl
+    orig = pl.train_stage
+
+    def rec(*a, **k):
+        ts = orig(*a, **k)
+        log.append(torch.stack([ts.steps.double(), ts.loss.double()]))
+        return ts
+    return mock.patch.object(pl, "train_stage", rec)
+
+
+def fires(log):
+    """(fire ticks, loss at each fire) of a train_recorder log."""
+    import torch
+    if not log:
+        return [], []
+    a = torch.stack(log).cpu().numpy()
+    steps = a[:, 0]
+    hit = np.flatnonzero(np.diff(np.concatenate([[0.0], steps])) > 0)
+    return hit.tolist(), a[hit, 1].tolist()
+
+
+def close_rows(tag, got, want, tol):
+    """Float arrays card vs CPU: |diff| <= tol x (1 + |cpu|); returns the
+    max |diff|."""
+    got, want = np.asarray(got), np.asarray(want)
+    d = np.abs(got - want)
+    check(got.shape == want.shape and bool((d <= tol * (1 + np.abs(want)))
+                                           .all()),
+          f"[{tag}] max |card - cpu| {float(d.max()) if d.size else 0}")
+    return float(d.max()) if d.size else 0.0
+
+
+def golden_small_stream(seed=0, n_nodes=32, n_edges=100, d_in=8):
+    """tests/test_delta_gating.py's and test_train_plane.py's stream."""
+    rng = np.random.default_rng(seed)
+    edges = np.stack([rng.integers(0, n_nodes, n_edges),
+                      rng.integers(0, n_nodes, n_edges)], 1)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    feats = {v: rng.normal(size=d_in).astype(np.float32)
+             for v in range(n_nodes)}
+    return edges, feats
+
+
+def tiny_waves(feats, n_waves=6, scale=2e-4, seed=7):
+    """test_delta_gating._tiny_update_waves."""
+    rng = np.random.default_rng(seed)
+    cur = {v: np.asarray(f, np.float32).copy() for v, f in feats.items()}
+    waves = []
+    for _ in range(n_waves):
+        events = []
+        for v in sorted(cur):
+            delta = rng.normal(size=len(cur[v])).astype(np.float32)
+            delta *= scale / max(float(np.linalg.norm(delta)), 1e-12)
+            cur[v] = cur[v] + delta
+            events.append((v, cur[v].copy()))
+        waves.append(events)
+    return waves
+
+
+def stats_row(stats):
+    from repro_torch.core.tick import SCALAR_FIELDS
+    return [[int(getattr(s, f)) for f in SCALAR_FIELDS] + s.busy.tolist()
+            for s in stats]
+
+
+def gate_golden_run(device, driver, backend):
+    """The update-wave stream at golden_eps: per-call integer stats,
+    metrics, sink, flags."""
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    edges, feats = golden_small_stream()
+    pipe = D3Pipeline(GraphSAGE((8, 12, 12), seed=SEED), PipelineConfig(
+        n_parts=4, node_cap=32, edge_cap=128, repl_cap=128, feat_cap=128,
+        edge_tick_cap=32, max_nodes=32, delivery_backend=backend,
+        delta_eps=GATE["golden_eps"],
+        window=win.WindowConfig(kind=win.STREAMING)), device=device)
+    rec = []
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 24)
+    if driver == "tick":
+        for e, f in zip(e_chunks, f_chunks):
+            rec.append(stats_row(pipe.tick(e, f)))
+        pipe.flush(max_ticks=96)
+        for w in tiny_waves(feats):
+            rec.append(stats_row(pipe.tick(feats=w)))
+        pipe.flush(max_ticks=96)
+    else:
+        rec.append(stats_row(pipe.run_super_tick(
+            e_chunks, f_chunks, T=len(e_chunks))[0]))
+        pipe.flush_super(max_ticks=96, T=4)
+        for w in tiny_waves(feats):
+            rec.append(stats_row(pipe.run_super_tick(feat_chunks=[w],
+                                                     T=1)[0]))
+        pipe.flush_super(max_ticks=96, T=4)
+    m = {k: v for k, v in vars(pipe.metrics).items() if isinstance(v, int)}
+    return rec, m, pipe.sink.cpu().numpy(), pipe.sink_seen.cpu().numpy()
+
+
+def phase_gate_parity(device):
+    """[gate-parity]: the gated update-wave stream, card against CPU, both
+    drivers x both backends; the coalescer launches kernel A."""
+    import torch
+    t0 = time.perf_counter()
+    worst = 0.0
+    for driver in ("tick", "super"):
+        for backend in ("kernel", "scatter"):
+            with SiteLaunches() as sites:
+                got = gate_golden_run(device, driver, backend)
+            want = gate_golden_run(torch.device("cpu"), driver, backend)
+            check(got[0] == want[0] and got[1] == want[1],
+                  f"[gate-parity] {driver}/{backend}: integer stats differ, "
+                  f"card {got[1]} vs CPU {want[1]}")
+            check(np.array_equal(got[3], want[3]),
+                  f"[gate-parity] {driver}/{backend}: sink flags differ")
+            check(got[1]["suppressed"] > 0,
+                  f"[gate-parity] {driver}/{backend}: nothing suppressed")
+            worst = max(worst, close_rows("gate-parity", got[2], want[2],
+                                          PARITY_TOL))
+            coal = sites.counts["add_rows < coalesce_msg_batch"]
+            if backend == "kernel" and device.type == "cuda":
+                check(coal > 0, "[gate-parity] the coalescer never "
+                      f"launched kernel A: {dict(sites.counts)}")
+            print(f"[gate-parity] {driver} driver, {backend} backend: card "
+                  f"= CPU on {len(got[0])} calls of integer stats (RMIs "
+                  f"{got[1]['reduce_msgs']}, suppressed "
+                  f"{got[1]['suppressed']}, ticks {got[1]['ticks']}); "
+                  f"kernel A in the coalescer {coal} launches")
+    print(f"[gate-parity] sink max |card - cpu| {worst:.3e} (tolerance "
+          f"{PARITY_TOL} x (1 + |cpu|)); {time.perf_counter() - t0:.1f}s")
+
+
+def train_golden_run(device, driver, backend, compression=False):
+    """tests/test_train_plane.py's online-learning run (sgd, lr 0.1, a
+    fire at 4, five label passes) through a TrainSession. Returns (fire
+    ticks, losses at them, train_stats, last_grad leaves)."""
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.core.train_plane import TrainConfig
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.optim import sgd
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.serve.train_session import TrainSession
+    edges, feats = golden_small_stream()
+    labels = {v: (v * 7 + 3) % 4 for v in range(32)}
+    pipe = D3Pipeline(
+        GraphSAGE((8, 16, 16), seed=SEED, n_classes=4), PipelineConfig(
+            n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+            feat_cap=128, edge_tick_cap=32, max_nodes=32, train_cap=64,
+            delivery_backend=backend,
+            window=win.WindowConfig(kind=win.STREAMING)),
+        train=TrainConfig(optimizer=sgd(), lr=0.1, batch_threshold=4,
+                          compression=compression, topk_frac=0.5),
+        device=device)
+    sess = TrainSession(pipe, driver=driver, super_ticks=4)
+    log = []
+    with train_recorder(log):
+        e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 24)
+        sess.observe_labels(labels)
+        if driver == "tick":
+            for e, f in zip(e_chunks, f_chunks):
+                sess.advance(e, f)
+        else:
+            sess.advance_super(e_chunks, f_chunks)
+        sess.flush()
+        for _ in range(5):
+            sess.observe_labels(labels)
+            sess.flush()
+    ticks, losses = fires(log)
+    grads = [g.cpu().numpy() for g in tree_leaves(
+        pipe.train_state.last_grad)]
+    return ticks, losses, sess.train_stats(), grads
+
+
+def phase_train_parity(device):
+    """[train-parity]: the online-learning stream, card against CPU, both
+    drivers x both backends (and the compressed path once): steps and
+    fire ticks exact, losses and last_grad within PARITY_TOL."""
+    import torch
+    t0 = time.perf_counter()
+    worst = 0.0
+    for driver, backend, comp in (("tick", "kernel", False),
+                                  ("tick", "scatter", False),
+                                  ("super", "kernel", False),
+                                  ("super", "scatter", False),
+                                  ("super", "kernel", True)):
+        with SiteLaunches() as sites:
+            got = train_golden_run(device, driver, backend, comp)
+        want = train_golden_run(torch.device("cpu"), driver, backend, comp)
+        tag = f"{driver}/{backend}{'/int8' if comp else ''}"
+        check(got[0] == want[0] and got[2]["steps"] == want[2]["steps"],
+              f"[train-parity] {tag}: fire ticks differ, card {got[0]} vs "
+              f"CPU {want[0]}")
+        check(got[2]["steps"] > 0 and got[1][-1] < got[1][0],
+              f"[train-parity] {tag}: the loss did not fall: {got[1]}")
+        # compressed: a top-k threshold or an int8 rounding can flip on
+        # f32 sums in another order, so losses and grads are held to
+        # TRAIN_LOSS_TOL there
+        tol = TRAIN_LOSS_TOL if comp else PARITY_TOL
+        err = close_rows("train-parity", got[1], want[1], tol)
+        for a, b in zip(got[3], want[3]):
+            err = max(err, close_rows("train-parity", a, b, tol))
+        if not comp:
+            worst = max(worst, err)
+        fold = {k: v for k, v in sites.counts.items()
+                if k.endswith(("edge_fold", "backward_layer_routed"))}
+        if backend == "kernel" and device.type == "cuda":
+            check(fold.get("add_rows < edge_fold", 0) > 0
+                  and fold.get("deliver_add < backward_layer_routed", 0) > 0
+                  and fold.get("deliver_set < backward_layer_routed", 0) > 0,
+                  f"[train-parity] {tag}: the backward's folds never "
+                  f"launched kernel A: {dict(sites.counts)}")
+        print(f"[train-parity] {tag}: card = CPU on {got[2]['steps']} steps "
+              f"at ticks {got[0]}; loss {got[1][0]:.6f} -> {got[1][-1]:.6f};"
+              f" max |card - cpu| {err:.3e} (tolerance {tol} x (1 + |cpu|))"
+              f"; kernel A in the backward {fold}")
+    print(f"[train-parity] uncompressed runs: losses and last_grad max "
+          f"|card - cpu| {worst:.3e} (tolerance {PARITY_TOL} x (1 + |cpu|)); "
+          f"{time.perf_counter() - t0:.1f}s")
+
+
+def gate_waves(gen, feats, vids, g=GATE):
+    """[gate-full]'s update waves over `vids` (ingested vertices). Returns
+    (waves as event lists, final features, the first wave's delta norms)."""
+    cur = dict(feats)
+    waves, first = [], None
+    lo, hi = np.log(g["norm_lo"]), np.log(g["norm_hi"])
+    for _ in range(g["waves"]):
+        pick = gen.choice(vids, g["wave_vids"], replace=False)
+        norms = np.exp(gen.uniform(lo, hi, len(pick)))
+        d = gen.normal(size=(len(pick), len(cur[pick[0]])))
+        d *= (norms / np.linalg.norm(d, axis=1))[:, None]
+        events = []
+        for v, dv in zip(pick, d.astype(np.float32)):
+            cur[int(v)] = (cur[int(v)] + dv).astype(np.float32)
+            events.append((int(v), cur[int(v)]))
+        waves.append(events)
+        first = norms if first is None else first
+    return waves, cur, first
+
+
+def sage_bound(model, eps):
+    """The Lipschitz chain bound of a 2-layer SAGE stack
+    (tests/test_delta_gating.py:269-275), spectral norms in float64."""
+    import torch
+    sn = lambda w: float(torch.linalg.matrix_norm(w.detach().double(),
+                                                   ord=2))
+    l0, l1 = model.layers
+    e1 = sn(l0.w_neigh.w) * eps
+    return sn(l1.w_self.w) * e1 + sn(l1.w_neigh.w) * (e1 + eps)
+
+
+def l2_error(emb, ref):
+    """max over vids of ||emb[v] - ref[v]||_2 (ref float64 rows)."""
+    vids = sorted(emb)
+    got = np.stack([emb[v] for v in vids]).astype(np.float64)
+    return float(np.linalg.norm(got - ref[vids], axis=1).max())
+
+
+def phase_gate_full(device, exact, edges, feats, full=FULL, g=GATE):
+    """[gate-full]: phase 4's pipeline (delta_eps = 0) and the same stream
+    at delta_eps = eps, then the same update waves through both."""
+    import torch
+    from repro_torch.core.oracle import build_snapshot, oracle_embeddings
+    t0 = time.perf_counter()
+    gen = np.random.default_rng(SEED + 7)
+    ingested = np.unique(edges)
+    waves, final, norms = gate_waves(gen, feats, ingested, g)
+    eps = float(np.median(norms))
+    gated, secs, _ = stream_pipeline(full, "kernel", device, edges, feats,
+                                     delta_eps=eps)
+    before = {id(p): (p.metrics.reduce_msgs, p.metrics.suppressed)
+              for p in (gated, exact)}
+    ticks0 = gated.metrics.ticks
+    wall = {"gated": [], "exact": []}
+    cuda = device.type == "cuda"
+    with SiteLaunches() as sites:
+        for w in waves:
+            for name, p in (("gated", gated), ("exact", exact)):
+                if cuda:
+                    torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                p.run_super_tick(feat_chunks=[w], T=1)
+                p.flush_super(max_ticks=64, T=full["super_ticks"])
+                if cuda:
+                    torch.cuda.synchronize()
+                wall[name].append(time.perf_counter() - t1)
+    d = {name: (p.metrics.reduce_msgs - before[id(p)][0],
+                p.metrics.suppressed - before[id(p)][1])
+         for name, p in (("gated", gated), ("exact", exact))}
+    check(d["gated"][1] > 0, f"[gate-full] nothing suppressed: {d}")
+    check(d["exact"][1] == 0 and exact.metrics.suppressed == 0,
+          f"[gate-full] the eps = 0 run suppressed: {d}")
+    check(d["gated"][0] + d["gated"][1] <= d["exact"][0],
+          f"[gate-full] gated RMIs + suppressed > the exact run's: {d}")
+    coal = sites.counts["add_rows < coalesce_msg_batch"]
+    n_ticks = gated.metrics.ticks - ticks0
+    if cuda:
+        check(coal > 0, f"[gate-full] the coalescer never launched kernel "
+              f"A: {dict(sites.counts)}")
+    # the float64 oracle on the final snapshot; the Lipschitz bound
+    model64 = copy.deepcopy(exact.model).double()
+    g64, _ = build_snapshot(edges, final, full["dims"][0], full["n_nodes"],
+                            device, dtype=torch.float64)
+    ref = oracle_embeddings(model64, g64).cpu().numpy()
+    del model64, g64
+    bound = sage_bound(exact.model, eps)
+    e_gated = l2_error(gated.embeddings(), ref)
+    e_exact = l2_error(exact.embeddings(), ref)
+    check(e_gated <= bound * 1.01 + e_exact,
+          f"[gate-full] gated sink error {e_gated:.3e} > bound {bound:.3e} "
+          f"x 1.01 + the exact run's {e_exact:.3e}")
+    wave_supp = float(np.mean(norms <= eps))
+    print(f"[gate-full] FULL streamed at delta_eps = {eps:.6e} (the median "
+          f"layer-0 ||dx|| of wave 1; {wave_supp:.3f} of its deltas at or "
+          f"below it) in {secs:.3f}s = {full['n_edges'] / secs:.1f} "
+          f"edges/s; the eps = 0 run is phase 4's pipeline")
+    print(f"[gate-full] {g['waves']} waves of {g['wave_vids']} feature "
+          f"updates (||dx|| log-uniform in [{g['norm_lo']}, {g['norm_hi']}])"
+          f", each one tick + flush: gated RMIs {d['gated'][0]}, suppressed"
+          f" {d['gated'][1]}; exact RMIs {d['exact'][0]}; messages saved "
+          f"{d['exact'][0] - d['gated'][0]} "
+          f"({(d['exact'][0] - d['gated'][0]) / max(d['exact'][0], 1):.3f})"
+          f"; whole runs: gated RMIs {gated.metrics.reduce_msgs} + "
+          f"suppressed {gated.metrics.suppressed}, exact "
+          f"{exact.metrics.reduce_msgs}")
+    print(f"[gate-full] wave wall s (tick + flush): gated "
+          f"{[round(x, 4) for x in wall['gated']]}, exact "
+          f"{[round(x, 4) for x in wall['exact']]}; sink vs float64 oracle, "
+          f"max L2 error: gated {e_gated:.6e}, exact {e_exact:.6e}, "
+          f"Lipschitz bound {bound:.6e}; kernel A launches by call site "
+          f"over the waves (both runs; the gated one {n_ticks} ticks) "
+          f"{dict(sites.counts)}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    del gated
+    free_cuda()
+    return {"eps": eps, "coalescer_launches": coal,
+            "wave_ticks": n_ticks}
+
+
+def class_labels(feats, n_classes, d_in):
+    """The argmax of a seeded projection of each vertex's features."""
+    proj = np.random.default_rng(SEED + 11).normal(size=(d_in, n_classes))
+    vids = sorted(feats)
+    x = np.stack([feats[v] for v in vids])
+    return dict(zip(vids, (x @ proj).argmax(1).tolist()))
+
+
+def train_pipeline(full, device, backend, train, train_cap):
+    """FULL's configuration with TRAIN's head and the training plane."""
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    cfg = PipelineConfig(**full["caps"], max_nodes=full["n_nodes"],
+                         delivery_backend=backend, train_cap=train_cap,
+                         window=win.WindowConfig(kind=win.SESSION,
+                                                 interval=4))
+    model = GraphSAGE(full["dims"], seed=SEED, n_classes=TRAIN["n_classes"])
+    return D3Pipeline(model, cfg, train=train, device=device)
+
+
+def rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def phase_train_exact(device, edges, feats, full=FULL, t=TRAIN):
+    """[train-full] (a): lr 0, a fire at 1 active master; stream, flush,
+    one label tick of t["labels"] labels on materialized masters. Returns
+    the pipeline (its topology feeds the call-site timings)."""
+    import torch
+    from repro_torch.core.oracle import build_snapshot
+    from repro_torch.core.train_plane import TrainConfig
+    from repro_torch.optim import sgd
+    t0 = time.perf_counter()
+    pipe = train_pipeline(full, device, "kernel", TrainConfig(
+        optimizer=sgd(), lr=0.0, batch_threshold=1), t["labels"])
+    init = {k: v.clone() for k, v in pipe.model.state_dict().items()}
+    log = []
+    with train_recorder(log):
+        pipe.run_stream_super(edges, feats, tick_edges=full["tick_edges"],
+                              super_ticks=full["super_ticks"])
+        pipe.flush_super(max_ticks=256, T=full["super_ticks"])
+        seen = np.asarray(sorted(pipe.embeddings()))
+        gen = np.random.default_rng(SEED + 12)
+        vids = np.sort(gen.choice(seen, t["labels"], replace=False))
+        gold = class_labels(feats, t["n_classes"], full["dims"][0])
+        pipe.run_super_tick(T=1, label_chunks=[[(int(v), gold[int(v)])
+                                                for v in vids]])
+    ticks, losses = fires(log)
+    st = pipe.train_stats()
+    check(st["steps"] == 1 and len(ticks) == 1,
+          f"[train-full] (a) fired {st['steps']} times at ticks {ticks}")
+    # float64 torch.autograd of the static model over the same snapshot
+    model64 = copy.deepcopy(pipe.model).double()
+    for p in model64.parameters():
+        p.requires_grad_(True)
+    g64, _ = build_snapshot(edges, feats, full["dims"][0], full["n_nodes"],
+                            device, dtype=torch.float64)
+    y = torch.zeros(full["n_nodes"], dtype=torch.int64, device=device)
+    mask = torch.zeros(full["n_nodes"], dtype=torch.bool, device=device)
+    idx = torch.as_tensor(vids, device=device)
+    y[idx] = torch.as_tensor([gold[int(v)] for v in vids], device=device)
+    mask[idx] = True
+    with torch.enable_grad():
+        loss64 = model64.loss(g64, y, mask)
+        names = [n for n, _ in model64.named_parameters()]
+        grads = dict(zip(names, torch.autograd.grad(
+            loss64, list(model64.parameters()))))
+    del g64
+    ts = pipe.train_state
+    errs = {"loss": rel_l2(np.float64(st["loss"]), float(loss64.detach()))}
+    for i in range(len(pipe.layers)):
+        for key, mod in (("self", "w_self"), ("neigh", "w_neigh")):
+            for leaf, val in ts.last_grad[f"l{i}"][key].items():
+                errs[f"layers.{i}.{mod}.{leaf}"] = rel_l2(
+                    val.double().cpu().numpy(),
+                    grads[f"layers.{i}.{mod}.{leaf}"].cpu().numpy())
+    for leaf, val in ts.last_grad["head"].items():
+        errs[f"head.{leaf}"] = rel_l2(val.double().cpu().numpy(),
+                                      grads[f"head.{leaf}"].cpu().numpy())
+    worst = max(errs.values())
+    check(worst <= TRAIN_TOL, f"[train-full] (a) relative L2 vs float64 "
+          f"autograd {errs} > {TRAIN_TOL}")
+    now = pipe.model.state_dict()
+    check(all(torch.equal(now[k], init[k]) for k in init),
+          "[train-full] (a) lr 0 moved the live parameters")
+    print(f"[train-full] (a) {t['n_classes']} classes, lr 0: stream + flush "
+          f"+ one tick of {t['labels']} labels; fired once (tick "
+          f"{ticks[0]}), loss {st['loss']:.6f} vs float64 autograd "
+          f"{float(loss64):.6f}; last_grad relative L2 vs float64 autograd "
+          f"by leaf {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} "
+          f"(tolerance {TRAIN_TOL}); live params bit-unchanged; "
+          f"{time.perf_counter() - t0:.1f}s")
+    del model64, grads
+    return pipe
+
+
+def online_run(full, device, backend, edges, feats, gold, t=TRAIN,
+               profile=False):
+    """[train-full] (b): TrainSession(driver="super") over the stream,
+    each launch's new vertices labeled for the next launch. Returns a
+    dict of measurements."""
+    import torch
+    from repro_torch.core.train_plane import TrainConfig
+    from repro_torch.optim import adam
+    from repro_torch.serve.train_session import TrainSession
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    pipe = train_pipeline(full, device, backend, TrainConfig(
+        optimizer=adam(), lr=t["lr"], batch_threshold=t["batch_threshold"],
+        window=t["window"], compression=True, int8=True,
+        topk_frac=t["topk_frac"]), t["train_cap"])
+    T, te = full["super_ticks"], full["tick_edges"]
+    sess = TrainSession(pipe, driver="super", super_ticks=T)
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, te)
+    log, syncs, wall = [], Counter(), 0.0
+    with train_recorder(log), SiteLaunches() as sites:
+        for lo in range(0, len(e_chunks), T):
+            t1 = time.perf_counter()
+            _, s = counted_syncs(lambda: sess.advance_super(
+                e_chunks[lo:lo + T], f_chunks[lo:lo + T], T=T), cuda)
+            if cuda:
+                torch.cuda.synchronize()
+            wall += time.perf_counter() - t1
+            syncs.update(s)
+            new = [v for f in f_chunks[lo:lo + T] for v, _ in f]
+            sess.observe_labels([(v, gold[v]) for v in new])
+        t1 = time.perf_counter()
+        _, s = counted_syncs(lambda: sess.flush(max_ticks=512), cuda)
+        if cuda:
+            torch.cuda.synchronize()
+        wall += time.perf_counter() - t1
+        syncs.update(s)
+    ticks, losses = fires(log)
+    out = dict(ticks=ticks, losses=losses, wall=wall, syncs=syncs,
+               n_super=pipe.metrics.ticks // T, stats=sess.train_stats(),
+               sites=dict(sites.counts), n_ticks=pipe.metrics.ticks,
+               peak=torch.cuda.max_memory_allocated() if cuda else 0,
+               host=pipe.metrics.host_seconds)
+    if profile and cuda:
+        sess.observe_labels(list(gold.items())[:T * t["train_cap"]])
+        out["profile"] = stage_profile(lambda: sess.advance_super(T=T),
+                                       "core/train_plane.py")
+    del pipe, sess
+    free_cuda()
+    return out
+
+
+def stage_profile(fn, prefix):
+    """fn once under torch.profiler with stacks: (wall ms, device busy ms,
+    {call site: (device ms, launches)} for sites under `prefix`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    verbose = torch._C._profiler._ExperimentalConfig(verbose=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True, experimental_config=verbose) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_site, n_site, _ = device_ms_by_site(prof)
+    busy = sum(k.duration for e in prof.events()
+               for k in getattr(e, "kernels", [])
+               if k.name != "Command Buffer Full") / 1e3
+    return wall * 1e3, busy, {s: (ms, n_site[s]) for s, ms in
+                              by_site.items() if s.startswith(prefix)}
+
+
+def phase_train_online(device, edges, feats, baseline, full=FULL, t=TRAIN):
+    """[train-full] (b): the online learning run on the kernel backend
+    (profiled once more after), then the same stream on the scatter
+    backend."""
+    t0 = time.perf_counter()
+    gold = class_labels(feats, t["n_classes"], full["dims"][0])
+    k = online_run(full, device, "kernel", edges, feats, gold, t,
+                   profile=True)
+    s = online_run(full, device, "scatter", edges, feats, gold, t)
+    check(k["stats"]["steps"] > 0 and len(k["losses"]) > 1,
+          f"[train-full] (b) fired {k['stats']['steps']} times")
+    check(k["losses"][-1] < k["losses"][0],
+          f"[train-full] (b) the loss did not fall: {k['losses'][0]} -> "
+          f"{k['losses'][-1]}")
+    check(k["ticks"] == s["ticks"],
+          f"[train-full] (b) fire ticks differ, kernel vs scatter: "
+          f"{k['ticks'][:12]} vs {s['ticks'][:12]}")
+    lk, ls = np.asarray(k["losses"]), np.asarray(s["losses"])
+    loss_err = float((np.abs(lk - ls) / np.abs(ls)).max())
+    check(loss_err <= TRAIN_LOSS_TOL, f"[train-full] (b) losses kernel vs "
+          f"scatter: max relative {loss_err:.3e} > {TRAIN_LOSS_TOL}")
+    per = {key: v / k["n_super"] for key, v in k["syncs"].items()}
+    if device.type == "cuda":
+        per4 = {key: v / baseline["n_super"]
+                for key, v in baseline["sync_sites"].items()}
+        check(per == per4, f"[train-full] (b) synchronizing calls a "
+              f"super-tick {per}, phase 4 {per4}")
+        check(k["sites"].get("add_rows < edge_fold", 0) > 0
+              and k["sites"].get("deliver_add < backward_layer_routed", 0)
+              > 0 and k["sites"].get("deliver_set < backward_layer_routed",
+                                     0) > 0,
+              f"[train-full] (b) kernel A never launched in the backward: "
+              f"{k['sites']}")
+    n = k["n_ticks"]
+    print(f"[train-full] (b) TrainSession(driver=super, T="
+          f"{full['super_ticks']}), Adam lr {t['lr']}, int8 top-k "
+          f"{t['topk_frac']} compression, train_cap {t['train_cap']}, window "
+          f"{t['window']}, fire at {t['batch_threshold']}: {k['stats']['steps']}"
+          f" steps over {n} ticks, loss {k['losses'][0]:.6f} (first fire, "
+          f"tick {k['ticks'][0]}) -> {k['losses'][-1]:.6f} (last, tick "
+          f"{k['ticks'][-1]}); scatter backend: the same {len(s['ticks'])} "
+          f"fire ticks, losses within {loss_err:.3e} relative (tolerance "
+          f"{TRAIN_LOSS_TOL})")
+    print(f"[train-full] (b) {full['n_edges']} edges in {k['wall']:.3f}s = "
+          f"{full['n_edges'] / k['wall']:.1f} edges/s with training (phase "
+          f"4 without, this call: {baseline['edges_per_s']:.1f}); host "
+          f"staging {k['host']:.3f}s; peak memory {k['peak']} bytes "
+          f"({k['peak'] / 2**30:.2f} GiB); scatter backend "
+          f"{full['n_edges'] / s['wall']:.1f} edges/s; synchronizing calls "
+          f"a super-tick {per} (phase 4: {baseline['sync_sites']} over "
+          f"{baseline['n_super']})")
+    print(f"[train-full] (b) kernel A launches by call site over the run "
+          f"({n} ticks): {k['sites']}")
+    if "profile" in k:
+        wall, busy, sites = k["profile"]
+        tot = sum(ms for ms, _ in sites.values())
+        print(f"[train-full] (b) one more launch of {full['super_ticks']} "
+              f"ticks (labels only) under torch.profiler: wall {wall:.3f} "
+              f"ms, device busy {busy:.3f} ms, the train stage "
+              f"(core/train_plane.py) {tot:.3f} ms in "
+              f"{sum(c for _, c in sites.values())} launches"
+              + ("" if busy else " (not measured: no device events)"))
+        for site, (ms, c) in sorted(sites.items(),
+                                    key=lambda kv: -kv[1][0])[:16]:
+            print(f"[train-full] {ms:9.3f} ms  {c:6d} x  {site[:110]}")
+    print(f"[train-full] (b) {time.perf_counter() - t0:.1f}s")
+    return {"launches_per_tick": {key: v / n for key, v in
+                                  k["sites"].items()}}
+
+
+def coalesce_layout(keys, valid, C):
+    """The coalescer's record -> run mapping (events.coalesce_msg_batch):
+    idx [C] run index of each record, C for invalid ones."""
+    import torch
+    past = torch.iinfo(torch.int64).max
+    key = torch.where(valid, keys, torch.full_like(keys, past))
+    key_s, order = torch.sort(key, stable=True)
+    head = torch.ones_like(valid)
+    head[1:] = key_s[1:] != key_s[:-1]
+    run = torch.cumsum(head, 0) - 1
+    idx = torch.empty_like(run)
+    idx[order] = torch.where(valid[order], run, torch.full_like(run, C))
+    return idx
+
+
+def time_call_site(name, idx, n, d, gen, errs, base=False, cnt=False):
+    """Kernel A at one call site's layout: `idx` [C] the rows (n = drop),
+    random f32 rows of width d; beside its plain version, zeros (or the
+    base) + index_add_ of the live rows, and its bound from bytes."""
+    import torch
+    from repro_torch.kernels.segment_reduce import ops, ref
+    dev = idx.device
+    C = idx.shape[0]
+    vec = torch.randn(C, d, device=dev, generator=gen)
+    cv = torch.ones(C, device=dev) if cnt else None
+    b = torch.randn(n, d, device=dev, generator=gen) if base else None
+    order, row_ptr = ops.sort_runs(idx, n)
+    args = (vec, row_ptr, order, cv, b, None, "add")
+    got, want = ops.deliver_rows(*args), ref.deliver_rows_ref(*args)
+    sync(got[0])
+    check(torch.equal(got[2], want[2]) and (not cnt or torch.equal(
+        got[1], want[1])), f"{name}: counts or flags differ")
+    absum = ref.deliver_rows_ref(vec.abs(), row_ptr, order, None,
+                                 None if b is None else b.abs(), None,
+                                 "add")[0]
+    errs["segment_sum_rows"] = max(errs["segment_sum_rows"],
+                                   kernel_a_sum_check(got[0], want[0], absum,
+                                                      name))
+    del got, want, absum
+    ms = time_ms(lambda: ops.deliver_rows(*args))
+    plain = time_ms(lambda: ref.deliver_rows_ref(*args))
+    live_m = (idx >= 0) & (idx < n)
+    live = int(live_m.sum())
+    li, lv = idx[live_m], vec[live_m]
+    dst = b if base else torch.zeros(n, d, device=dev)
+    lib = time_ms(lambda: dst.clone().index_add_(0, li, lv) if base else
+                  torch.zeros(n, d, device=dev).index_add_(0, li, lv))
+    n_bytes = (live * (d * 4 + 8) + (n + 1) * 8 + n * d * 4 + n
+               + (n * d * 4 if base else 0) + (live * 4 + n * 4 if cnt
+                                              else 0))
+    bound = bound_ms(n_bytes, live * d + (n * d if base else 0))
+    print(f"[time] {name}: records {C} (live {live}) rows {n} d {d}: "
+          f"{ms:.4f} ms; bound {bound:.4f} ms (bytes: {n_bytes}; "
+          f"{bound / ms:.3f} of it reached); plain {plain:.4f} ms; "
+          f"{'the base copy' if base else 'zeros'} + index_add_ of the live "
+          f"rows {lib:.4f} ms")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": lib, "records": C,
+            "live": live, "rows": n, "d": d}
+
+
+def phase_train_time(pipe, errs, launches_per_tick, gate_info):
+    """Rows 1b and 1c: kernel A at the backward's edge fold (d = 602 and
+    64), its replica fold (d = 602) and the gated tick's coalescer (the
+    layer-0 RMI lane), on [train-full] (a)'s final topology."""
+    import torch
+    t0 = time.perf_counter()
+    topo, dev = pipe.topo, pipe.device
+    P, E = topo.e_src_slot.shape
+    N = topo.is_master.shape[1]
+    PN = P * N
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pp = torch.arange(P, device=dev)[:, None]
+    src = (pp * N + topo.e_src_slot).reshape(-1)
+    e_live = topo.e_valid.reshape(-1)
+    fold_idx = torch.where(e_live, src, PN)
+    r_midx = (pp * N + topo.r_master_slot).reshape(-1)
+    r_idx = torch.where(topo.r_valid.reshape(-1), r_midx, PN)
+    keys = torch.cat([torch.zeros(pipe.cfg.edge_tick_cap, dtype=torch.int64,
+                                  device=dev),
+                      (topo.e_dst_mpart * N + topo.e_dst_mslot).reshape(-1)])
+    kvalid = torch.cat([torch.zeros(pipe.cfg.edge_tick_cap, dtype=torch.bool,
+                                    device=dev), e_live])
+    C = keys.shape[0]
+    coal_idx = coalesce_layout(keys, kvalid, C)
+    rows = {
+        "1b_backward_edge_fold_d602": time_call_site(
+            "segment_deliver add, backward edge fold (d = 602, layer 0)",
+            fold_idx, PN, 602, gen, errs),
+        "1b_backward_edge_fold_d64": time_call_site(
+            "segment_deliver add, backward edge fold (d = 64, layer 1)",
+            fold_idx, PN, 64, gen, errs),
+        "1b_backward_replica_fold_d602": time_call_site(
+            "segment_deliver add, backward replica fold (d = 602, base)",
+            r_idx, PN, 602, gen, errs, base=True),
+        "1c_coalescer_d602": time_call_site(
+            "segment_deliver add, coalescer of the layer-0 RMI lane "
+            "(d = 602, counts)", coal_idx, C, 602, gen, errs, cnt=True)}
+    per = launches_per_tick
+    rows["1b_backward_edge_fold_d602"]["launches_per_tick"] = \
+        per.get("add_rows < edge_fold", 0.0)
+    rows["1b_backward_edge_fold_d64"]["launches_per_tick"] = \
+        per.get("add_rows < edge_fold", 0.0)
+    rows["1b_backward_replica_fold_d602"]["launches_per_tick"] = \
+        per.get("deliver_add < backward_layer_routed", 0.0)
+    rows["1c_coalescer_d602"]["launches_per_tick"] = (
+        gate_info["coalescer_launches"] / max(gate_info["wave_ticks"], 1))
+    print(f"[time] call-site timings {time.perf_counter() - t0:.1f}s "
+          "(launches a tick: the edge fold's count covers both layers)")
+    free_cuda()
+    return rows
+
+
 # ------------------------------------------------------------- mesh phases
 def plant_specials(gen, x):
     """Plant NaN payloads, +-Inf and -0.0 at 12 random words of f32 x."""
@@ -1701,7 +2499,92 @@ def _mesh_parity_rank(mesh, m):
                 "calls": {k: c[0] for k, c in view.calls.items()}}
     for dev in (mesh.device, torch.device("cpu")):
         out["query", dev.type] = _mesh_query_run(mesh, dev, m)
+        out["gate", dev.type] = _mesh_gate_run(mesh, dev, m)
+        out["train", dev.type] = _mesh_train_run(mesh, dev, m)
     return out
+
+
+def _serve_stream_setup(m, **cfg_kw):
+    """The serve CLI's stream and configuration (dims 16,64,64, 8 parts,
+    400 ids) with more PipelineConfig fields."""
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.graph.graphs import powerlaw_edges
+    rng = np.random.default_rng(0)
+    dims, n_nodes = (16, 64, 64), 400
+    edges = powerlaw_edges(rng, n_nodes, m["parity_edges"])
+    feats = {v: rng.normal(size=dims[0]).astype(np.float32)
+             for v in range(n_nodes)}
+    cfg = PipelineConfig(n_parts=8, node_cap=256, edge_tick_cap=512,
+                         edge_cap=4096, repl_cap=1024, feat_cap=2048,
+                         max_nodes=n_nodes, route_cap=m["parity_caps"][-1],
+                         window=win.WindowConfig(kind=win.SESSION,
+                                                 interval=4), **cfg_kw)
+    return dims, edges, feats, cfg
+
+
+def _mesh_gate_run(mesh, dev, m):
+    """[mesh-parity]'s gated case: the serve stream at route_cap 16, then
+    two waves of feature updates on 64 vertices, eps their median
+    layer-0 norm; super-tick driver."""
+    import dataclasses
+    from repro_torch.core.pipeline import D3Pipeline
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.kernels.segment_reduce import ops as sr
+    view = dataclasses.replace(mesh, device=dev, calls={})
+    _, edges, feats, _ = _serve_stream_setup(m)
+    waves, _, norms = gate_waves(np.random.default_rng(SEED + 8), feats,
+                                 np.unique(edges),
+                                 dict(GATE, waves=2, wave_vids=64))
+    dims, _, _, cfg = _serve_stream_setup(m, delta_eps=float(np.median(
+        norms)))
+    pipe = D3Pipeline(GraphSAGE(dims, seed=SEED), cfg, mesh=view)
+    record = []
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 256)
+    sr.reset_launches()
+    with mock.patch.object(D3Pipeline, "run_super_tick",
+                           _tick_recorder(record)), \
+            SiteLaunches() as sites:
+        pipe.run_super_tick(e_chunks, f_chunks, T=len(e_chunks))
+        pipe.flush_super(max_ticks=256, T=4)
+        for w in waves:
+            pipe.run_super_tick(feat_chunks=[w], T=1)
+        pipe.flush_super(max_ticks=256, T=4)
+    return {"stats": record, "sink": pipe.sink.cpu().numpy(),
+            "metrics": {k: v for k, v in vars(pipe.metrics).items()
+                        if isinstance(v, int)},
+            "coalescer": sites.counts["add_rows < coalesce_msg_batch"]}
+
+
+def _mesh_train_run(mesh, dev, m):
+    """[mesh-parity]'s training case: the serve stream at route_cap 2176
+    (C // D; the gradient lanes are dense whatever the cap) with a
+    4-class head, lr 0, a fire at 1; stream, flush, one label tick of
+    every vertex. mesh None: the one-rank run on `dev`."""
+    import dataclasses
+    from repro_torch.core.pipeline import D3Pipeline
+    from repro_torch.core.train_plane import TrainConfig
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.kernels.route_pack import ops as rp
+    from repro_torch.optim import sgd
+    from repro_torch.optim.optimizers import tree_leaves
+    dims, edges, feats, cfg = _serve_stream_setup(m, train_cap=512)
+    cfg = dataclasses.replace(cfg, route_cap=m["parity_caps"][0])
+    kw = (dict(device=dev) if mesh is None else
+          dict(mesh=dataclasses.replace(mesh, device=dev, calls={})))
+    pipe = D3Pipeline(GraphSAGE(dims, seed=SEED, n_classes=4), cfg,
+                      train=TrainConfig(optimizer=sgd(), lr=0.0,
+                                        batch_threshold=1), **kw)
+    gold = class_labels(feats, 4, dims[0])
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 256)
+    rp.reset_launches()
+    pipe.run_super_tick(e_chunks, f_chunks, T=len(e_chunks))
+    pipe.flush_super(max_ticks=256, T=4)
+    pipe.run_super_tick(T=1, label_chunks=[list(gold.items())])
+    return {"stats": pipe.train_stats(), "ticks": pipe.metrics.ticks,
+            "grads": [g.cpu().numpy() for g in tree_leaves(
+                pipe.train_state.last_grad)],
+            "launches": dict(rp.LAUNCHES)}
 
 
 def mesh_query_plan(edges, q=QUERY):
@@ -1748,7 +2631,7 @@ def _mesh_query_run(mesh, dev, m, q=QUERY):
                            _tick_recorder(record)):
         pipe.run_super_tick(e_chunks, f_chunks, T=16,
                             query_chunks=[plan.get(i) for i in range(16)])
-        pipe.flush_super(max_ticks=64, T=4)
+        pipe.flush_super(max_ticks=256, T=4)
     return {"stats": record, "answers": sorted_answers(pipe), "plan": plan,
             "metrics": {k: v for k, v in vars(pipe.metrics).items()
                         if isinstance(v, int)},
@@ -1821,6 +2704,55 @@ def phase_mesh_parity(device, m=MESH):
                   f"[mesh-parity] query run rank {r}: launches "
                   f"{a['launches']}, expected route_lane {2 * L + 1} a tick "
                   f"x {mt['ticks']} ticks")
+    # the gated case (route_cap 16: the coalesced RMI lane defers) and the
+    # lr 0 training case (dense gradient lanes), card = CPU
+    g_err = t_err = 0.0
+    one = _mesh_train_run(None, device, m)
+    for r, res in enumerate(ranks):
+        a, b = res["gate", device.type], res["gate", "cpu"]
+        for key in ("stats", "metrics"):
+            check(a[key] == b[key], f"[mesh-parity] gated run rank {r}: "
+                                    f"{key} differ, card vs CPU")
+        check(a["metrics"]["suppressed"] > 0
+              and a["metrics"]["route_dropped"] == 0,
+              f"[mesh-parity] gated run rank {r}: {a['metrics']}")
+        g_err = max(g_err, close_rows("mesh-parity", a["sink"], b["sink"],
+                                      MESH_TOL))
+        a, b = res["train", device.type], res["train", "cpu"]
+        check(a["stats"]["steps"] == b["stats"]["steps"]
+              == one["stats"]["steps"] == 1,
+              f"[mesh-parity] training run rank {r}: steps {a['stats']}, "
+              f"CPU {b['stats']}, one rank {one['stats']}")
+        for x, y, z in zip(a["grads"] + [a["stats"]["loss"]],
+                           b["grads"] + [b["stats"]["loss"]],
+                           one["grads"] + [one["stats"]["loss"]]):
+            t_err = max(t_err, close_rows("mesh-parity", x, y, MESH_TOL),
+                        close_rows("mesh-parity", x, z, MESH_TOL))
+        if device.type == "cuda":
+            check(res["gate", device.type]["coalescer"] > 0,
+                  f"[mesh-parity] gated run rank {r}: the coalescer never "
+                  "launched kernel A")
+            check(a["launches"]["route_lane"] == 4 * L * a["ticks"],
+                  f"[mesh-parity] training run rank {r}: route_lane "
+                  f"{a['launches']}, expected {4 * L} a tick (2 L data "
+                  f"lanes, hops A and B a layer) x {a['ticks']} ticks")
+    ga, ta = ranks[0]["gate", device.type], ranks[0]["train", device.type]
+    print(f"[mesh-parity] gated run (route_cap {m['parity_caps'][-1]}): "
+          f"card = CPU on every integer stat; RMIs "
+          f"{ga['metrics']['reduce_msgs']}, suppressed "
+          f"{ga['metrics']['suppressed']}, route_deferred "
+          f"{ga['metrics']['route_deferred']}, wire_rows "
+          f"{ga['metrics']['wire_rows']}; sink max err {g_err:.3e}; kernel "
+          f"A in the coalescer {ga['coalescer']} launches on rank 0")
+    print(f"[mesh-parity] training run (lr 0, 4 classes, route_cap "
+          f"{m['parity_caps'][0]}): one fire on 4 "
+          f"ranks, on the CPU and on one rank; last_grad and loss 4 ranks "
+          f"vs CPU and vs one rank max err {t_err:.3e} (tolerance "
+          f"{MESH_TOL} x (1 + |ref|)); loss {ta['stats']['loss']:.6f} (one "
+          f"rank {one['stats']['loss']:.6f}); route_lane launches "
+          f"{ta['launches']} over {ta['ticks']} ticks = "
+          f"{ta['launches'].get('route_lane', 0) / max(ta['ticks'], 1):.1f} "
+          f"a tick")
     a = ranks[0]["query", device.type]
     mt = a["metrics"]
     n_super = len(a["stats"])
@@ -2948,31 +3880,60 @@ def main():
 
     card = card_line()
     print(f"[card] {card}")
-    build_kernels()
-    errs = phase_kernels_vs_plain(device)
-    phase_parity_gate(device)
-    pipe, launches, baseline = phase_full_width(FULL, device)
-    result = phase_timing(pipe, launches, errs)
+    clock = [time.perf_counter()]
+
+    def phase(name, fn, *args):
+        """Run one phase and print its seconds."""
+        out = fn(*args)
+        now = time.perf_counter()
+        print(f"[secs] {name}: {now - clock[0]:.1f}s")
+        clock[0] = now
+        return out
+
+    phase("build", build_kernels)
+    errs = phase("kernels", phase_kernels_vs_plain, device)
+    phase("parity", phase_parity_gate, device)
+    pipe, launches, baseline = phase("full", phase_full_width, FULL, device)
+    result = phase("time", phase_timing, pipe, launches, errs)
+    # the same stream as phase 4 (its pipeline is the eps = 0 run)
+    edges, feats = make_stream(FULL["n_nodes"], FULL["n_edges"],
+                               FULL["dims"][0])
+    gate_info = phase("gate-full", phase_gate_full, device, pipe, edges,
+                      feats)
     del pipe
-    phase_profile(FULL, device)
+    phase("profile", phase_profile, FULL, device)
     free_cuda()
-    phase_query_parity(device)
-    phase_query_full(device, baseline)
+    phase("query-parity", phase_query_parity, device)
+    phase("query-full", phase_query_full, device, baseline)
     free_cuda()
-    mesh_err = phase_mesh_kernel(device)
-    phase_mesh_parity(device)
-    mesh_launches = phase_mesh_full(device)
-    result["kernels"].append(phase_mesh_time(device, mesh_launches, mesh_err))
+    phase("gate-parity", phase_gate_parity, device)
+    phase("train-parity", phase_train_parity, device)
+    tpipe = phase("train-full (a)", phase_train_exact, device, edges, feats)
+    online = phase("train-full (b)", phase_train_online, device, edges,
+                   feats, baseline)
+    seg = result["kernels"][0]
+    seg["call_sites"] = phase("train-time", phase_train_time, tpipe, errs,
+                              online["launches_per_tick"], gate_info)
+    seg["max_abs_err"] = errs["segment_sum_rows"]
+    del tpipe, edges, feats
     free_cuda()
-    fa_err = phase_lm_kernel(device)
-    phase_lm_parity(device)
-    lm_launches = phase_lm_full(device)
-    result["kernels"].append(phase_lm_time(device, lm_launches, fa_err))
+    mesh_err = phase("mesh-kernel", phase_mesh_kernel, device)
+    phase("mesh-parity", phase_mesh_parity, device)
+    mesh_launches = phase("mesh-full", phase_mesh_full, device)
+    result["kernels"].append(phase("mesh-time", phase_mesh_time, device,
+                                   mesh_launches, mesh_err))
     free_cuda()
-    eb_err = phase_rs_kernel(device)
-    phase_rs_parity(device)
-    rs_launches = phase_rs_full(device)
-    result["kernels"].append(phase_rs_time(device, rs_launches, eb_err))
+    fa_err = phase("lm-kernel", phase_lm_kernel, device)
+    phase("lm-parity", phase_lm_parity, device)
+    lm_launches = phase("lm-full", phase_lm_full, device)
+    result["kernels"].append(phase("lm-time", phase_lm_time, device,
+                                   lm_launches, fa_err))
+    free_cuda()
+    eb_err = phase("rs-kernel", phase_rs_kernel, device)
+    phase("rs-parity", phase_rs_parity, device)
+    rs_launches = phase("rs-full", phase_rs_full, device)
+    result["kernels"].append(phase("rs-time", phase_rs_time, device,
+                                   rs_launches, eb_err))
     print("[card] all times above on this card:")
     print(card)
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

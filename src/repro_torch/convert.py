@@ -17,16 +17,20 @@ def params_from_numpy(tree: dict) -> dict:
     `state_dict` for `repro_torch.graph.sage.GraphSAGE`.
 
     {"l0": {"self": {"w", "b"}, "neigh": {"w"}}, ...} maps to
-    "layers.0.w_self.w", "layers.0.w_self.b", "layers.0.w_neigh.w", ...
-    Weights keep JAX's [in, out] layout (nn/layers.py), so nothing is
-    transposed."""
+    "layers.0.w_self.w", "layers.0.w_self.b", "layers.0.w_neigh.w", ...,
+    and the classification head {"head": {"w", "b"}} to "head.w",
+    "head.b". Weights keep JAX's [in, out] layout (nn/layers.py), so
+    nothing is transposed."""
     out = {}
     for key, layer in tree.items():
+        if key == "head":
+            for leaf, arr in layer.items():
+                out[f"head.{leaf}"] = torch.tensor(np.asarray(arr,
+                                                              np.float32))
+            continue
         if not key.startswith("l"):
-            raise NotImplementedError(
-                f"parameter group {key!r}: only SAGE layer groups l<i> are "
-                "ported (the output head belongs to the training plane, "
-                "ROADMAP Queue 1 item 10)")
+            raise ValueError(f"parameter group {key!r}: expected l<i> or "
+                             "head")
         i = int(key[1:])
         for jax_name, port_name in (("self", "w_self"), ("neigh", "w_neigh")):
             for leaf, arr in layer[jax_name].items():

@@ -9,6 +9,9 @@ state effects of the tick's hot path:
                   local masters plus a dirty flag;
   agg_read_rows : the MEAN-synopsis read at the forward stage's rows.
 
+plus `add_rows`, deliver_add into a zero table: the run sums of the
+delta-gated tick's coalescer and the training plane's gradient folds.
+
 Two registered backends:
 
   "kernel"  — the default, counterpart of `PallasDelivery`: every delivery
@@ -60,7 +63,8 @@ class ScatterDelivery:
 
     def deliver_add(self, agg, cnt, idx, vec, dcnt):
         """Add (vec [C, d], dcnt [C]) into (agg [R, d], cnt [R]) at idx.
-        Returns (agg', cnt', dirty [R] bool).
+        Returns (agg', cnt', dirty [R] bool); cnt and dcnt may both be
+        None (cnt' is None then).
 
         The tick's records are summed in float64 into a zero table and
         added to the synopsis once, so the reference depends neither on the
@@ -76,10 +80,22 @@ class ScatterDelivery:
                             device=agg.device).index_add_(
             0, tgt, torch.where(live[:, None], vec, 0.0).double()
         ).to(agg.dtype)
-        d_cnt = cnt.new_zeros(R + 1).index_add_(
-            0, tgt, torch.where(live, dcnt, 0.0))
-        return (agg + d_vec[:-1], cnt + d_cnt[:-1],
-                mark_rows(R, tgt, agg.device))
+        cnt_out = None
+        if cnt is not None:
+            cnt_out = cnt + cnt.new_zeros(R + 1).index_add_(
+                0, tgt, torch.where(live, dcnt, 0.0))[:-1]
+        return agg + d_vec[:-1], cnt_out, mark_rows(R, tgt, agg.device)
+
+    def add_rows(self, n_rows, idx, vec, dcnt=None):
+        """deliver_add into a zero table of n_rows rows, as the plain f32
+        index_add_: (sums [n_rows, d], count sums [n_rows] or None)."""
+        live = (idx >= 0) & (idx < n_rows)
+        tgt = torch.where(live, idx, torch.full_like(idx, n_rows))
+        out = vec.new_zeros((n_rows + 1, vec.shape[1])).index_add_(
+            0, tgt, vec)[:-1]
+        if dcnt is None:
+            return out, None
+        return out, dcnt.new_zeros(n_rows + 1).index_add_(0, tgt, dcnt)[:-1]
 
     def agg_read_rows(self, agg, cnt, rows):
         """MEAN synopsis at `rows` [K] (full table, then the gather)."""
@@ -104,6 +120,12 @@ class KernelDelivery:
         order, row_ptr = ops.sort_runs(idx, agg.shape[0])
         return ops.deliver_rows(vec, row_ptr, order, dcnt, base=agg,
                                 base_cnt=cnt, mode="add")
+
+    def add_rows(self, n_rows, idx, vec, dcnt=None):
+        order, row_ptr = ops.sort_runs(idx, n_rows)
+        out, cnt, _ = ops.deliver_rows(vec, row_ptr, order, dcnt,
+                                       mode="add")
+        return out, cnt
 
     def agg_read_rows(self, agg, cnt, rows):
         return ops.mean_rows(agg, cnt, rows)

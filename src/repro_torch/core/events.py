@@ -69,6 +69,16 @@ class FeatBatch:
 
 
 @dataclass(frozen=True)
+class LabelBatch:
+    """Label observations addressed to master (part, slot): the training
+    plane's admission unit (capacity = PipelineConfig.train_cap)."""
+    part: torch.Tensor
+    slot: torch.Tensor
+    label: torch.Tensor            # [C] gold class
+    valid: torch.Tensor            # [C] bool
+
+
+@dataclass(frozen=True)
 class MsgBatch:
     """Fixed-capacity, part-addressed message records — one round's
     cross-part traffic. Round-A broadcast rows SET a feature value, Round-B
@@ -146,10 +156,65 @@ def feat_batch_from_numpy(parts, slots, feats, cap: int, d: int,
                      valid=_leaf(_valid(n, cap), device))
 
 
+def empty_label_batch(cap: int, device=None) -> LabelBatch:
+    z = np.zeros(0, np.int64)
+    return label_batch_from_numpy(z, z, z, cap, device)
+
+
+def label_batch_from_numpy(parts, slots, labels, cap: int,
+                           device=None) -> LabelBatch:
+    n = len(parts)
+    _check_fits("label", n, cap)
+    return LabelBatch(part=_leaf(_padded(parts, n, cap), device),
+                      slot=_leaf(_padded(slots, n, cap), device),
+                      label=_leaf(_padded(labels, n, cap), device),
+                      valid=_leaf(_valid(n, cap), device))
+
+
 def concat_msg_batches(a: MsgBatch, b: MsgBatch) -> MsgBatch:
     """Concatenate two MsgBatches along the record axis (same payload
     dim): Round B's new-edge and windowed delta RMIs ride as one lane."""
     return _map(lambda x, y: torch.cat([x, y]), a, b)
+
+
+def coalesce_msg_batch(b: MsgBatch, n_slots: int, delivery) -> MsgBatch:
+    """Coalesce same-destination records of one additive MsgBatch.
+
+    Aggregator RMIs are additive, so the records addressed to one (part,
+    slot) in a tick can be summed before the routing plane: the result
+    keeps the capacity C but carries one live row per distinct
+    destination, in destination-key order (key part * n_slots + slot,
+    int64; invalid rows sort past every valid key). A STABLE sort makes
+    each run's head its first record in record order; the head carries
+    that record's part, slot and src_part, and the run's vec / cnt sums
+    land at the run's index. The sums go through the delivery plane
+    (`delivery.add_rows`, kernel A on the "kernel" backend), each run's
+    records added in record order. Rows past the last run are dead and
+    carry zeros. ADD semantics only: never coalesce a set lane this way.
+    """
+    C = b.part.shape[0]
+    dev = b.part.device
+    past = torch.iinfo(torch.int64).max
+    key = torch.where(b.valid, b.part * n_slots + b.slot,
+                      torch.full_like(b.part, past))
+    key_s, order = torch.sort(key, stable=True)
+    valid_s = b.valid[order]
+    head = torch.ones_like(valid_s)
+    head[1:] = key_s[1:] != key_s[:-1]
+    run = torch.cumsum(head, 0) - 1                 # run index, sorted row
+    # each record's run, at its own position; invalid records drop
+    idx = torch.empty_like(run)
+    idx[order] = torch.where(valid_s, run, torch.full_like(run, C))
+    vec, cnt = delivery.add_rows(C, idx, b.vec, b.cnt)
+    # the sorted position of each run's head (dead rows: position 0, the
+    # last row the largest non-head position), as JAX's .at[pos].max
+    pos = torch.where(head, run, torch.full_like(run, C - 1))
+    take = torch.zeros(C, dtype=torch.int64, device=dev).scatter_reduce(
+        0, pos, torch.arange(C, device=dev), "amax")
+    src = order[take]
+    live = (torch.arange(C, device=dev) <= run[-1]) & valid_s[take]
+    return MsgBatch(part=b.part[src], slot=b.slot[src], vec=vec, cnt=cnt,
+                    src_part=b.src_part[src], valid=live)
 
 
 def _upload(a: np.ndarray, device):

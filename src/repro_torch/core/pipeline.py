@@ -38,9 +38,21 @@ or the super-tick's one read); `drain_answers()` pops them and
 `serve/session.py:ServeSession` drives the whole thing. query_cap=0 runs
 exactly the program without the plane.
 
+Delta-gated propagation (PipelineConfig.delta_eps > 0) gates each layer's
+re-emissions and coalesces its RMIs (core/tick.py); StreamMetrics counts
+the suppressed out-edge messages. delta_eps = 0 runs the exact program.
+
+The training plane (`train=TrainConfig(...)` with train_cap > 0,
+core/train_plane.py): label events ride a per-tick LabelBatch, and every
+tick ENDS with a windowed online training step over the live state; the
+forward of the next tick reads the trained parameters (mirrored into the
+model's modules). Progress stays on the device until `train_stats()`
+reads it; `serve/train_session.py:TrainSession` drives both drivers.
+train_cap=0 runs exactly the program without the plane.
+
 Planes this port does not have yet raise NotImplementedError naming the
 ROADMAP item that will port them: n_stages > 1 (the 2-D stage program),
-train_cap > 0 / train=, telemetry=True, delta_eps > 0.
+telemetry=True.
 """
 from __future__ import annotations
 
@@ -58,13 +70,17 @@ from repro_torch.core.delivery import BACKENDS as DELIVERY_BACKENDS
 from repro_torch.core.delivery import make_delivery
 from repro_torch.core.explosion import layer_parallelisms, physical_busy
 from repro_torch.core.partitioner import StreamingPartitioner
-from repro_torch.core.termination import TerminationCoordinator, quiet_update
+from repro_torch.core.termination import (TerminationCoordinator, moved_msgs,
+                                          quiet_update)
 from repro_torch.core.tick import (SCALAR_FIELDS, TickStats, add_stats,
                                    layer_tick_body, zero_stats)
+from repro_torch.core.train_plane import (TrainConfig, init_train_state,
+                                          train_stage)
 from repro_torch.device import resolve_device
 from repro_torch.dist.mesh import StreamMesh
 from repro_torch.dist.router import LocalRouter, MeshRouter
 from repro_torch.dist.wire import lane_width, pack_lane, unpack_lane
+from repro_torch.graph.sage import linear_tree, load_linear_tree
 from repro_torch.serve.query import (KIND_LINK, QSTAT_FIELDS,
                                      add_query_stats, empty_query_batch,
                                      init_query_state, query_admit_stage,
@@ -82,6 +98,7 @@ class Capacities:
     outbox: int            # per-tick emission budget (rows, all parts)
     outbox_per_part: int   # emission slots per part (outbox // n_parts)
     query_admissions: int  # query rows admitted per tick (0: plane off)
+    train_cap: int         # label rows admitted per tick (0: plane off)
     bc_defer_rows: int     # broadcast-lane defer-ring rows
     rmi_defer_rows: int    # RMI-lane defer-ring rows
     query_defer_rows: int  # query wire lane's defer-ring rows
@@ -102,7 +119,9 @@ class PipelineConfig:
                                       # serve/query.py)
     query_tick_cap: Optional[int] = None  # query rows admitted per tick
                                       # (None = query_cap * n_parts)
-    train_cap: int = 0                # training plane (not ported yet)
+    train_cap: int = 0                # training plane: label rows
+                                      # admitted per tick (0 = the plane
+                                      # is off; needs D3Pipeline(train=))
     route_cap: Optional[int] = None   # per-destination all_to_all bucket
                                       # rows (None = each lane's capacity:
                                       # the dense, never-overflow wire);
@@ -111,7 +130,9 @@ class PipelineConfig:
                                       # lane (default: the lane's local
                                       # capacity; 0 = overflow drops)
     window: win.WindowConfig = field(default_factory=win.WindowConfig)
-    delta_eps: float = 0.0            # delta gating (not ported yet)
+    delta_eps: float = 0.0            # delta-gated propagation: 0 =
+                                      # exact; > 0 suppresses re-emissions
+                                      # whose message moved <= eps
     delivery_backend: str = "kernel"  # "kernel" (CUDA kernels) | "scatter"
     n_stages: int = 1                 # stage pipeline (not ported yet)
     telemetry: bool = False           # telemetry plane (not ported yet)
@@ -129,6 +150,7 @@ class PipelineConfig:
         return Capacities(
             outbox=outbox, outbox_per_part=max(1, outbox // self.n_parts),
             query_admissions=self._query_admissions(),
+            train_cap=self.train_cap,
             bc_defer_rows=self._defer_rows(p_loc * self.repl_cap, n_devices),
             rmi_defer_rows=self._defer_rows(
                 self.edge_tick_cap + p_loc * self.edge_cap, n_devices),
@@ -232,9 +254,8 @@ class PipelineConfig:
                 "the ranks, so pick n_parts as a multiple of the device "
                 "count (each rank owns n_parts // n_devices parts)")
         self._raise_unported((
-            (self.n_stages != 1, "n_stages > 1 (pipeline stages)", 13),
-            (self.delta_eps != 0.0, "delta_eps > 0 (delta gating)", 8),
-            (self.train_cap != 0, "train_cap > 0 (training plane)", 10),
+            (self.n_stages != 1, "n_stages > 1 (pipeline stages, and "
+             "training at n_stages > 1)", 13),
             (self.telemetry, "telemetry=True (telemetry plane)", 11)))
 
 
@@ -246,6 +267,7 @@ class StreamMetrics:
     broadcast_msgs: int = 0
     cross_part_msgs: int = 0
     dropped: int = 0
+    suppressed: int = 0                # out-edge RMIs the delta gate saved
     queries_admitted: int = 0
     queries_answered: int = 0
     queries_dropped: int = 0
@@ -277,23 +299,34 @@ def _sink_update_body(sink, seen, fb: ev.FeatBatch, part0=0):
 class D3Pipeline:
     """L chained GraphStorage operators + the host driver."""
 
-    def __init__(self, model, cfg: PipelineConfig, mesh=None, train=None,
-                 device=None):
+    def __init__(self, model, cfg: PipelineConfig, mesh=None,
+                 train: Optional[TrainConfig] = None, device=None):
         """model: graph/sage.GraphSAGE (an nn.Module whose `layers` have
         message/update); it is moved to the pipeline's device.
         mesh: optional `dist/mesh.py:StreamMesh` — this process is one
         rank of a 1-D mesh that shards the part axis (MeshRouter), and the
-        pipeline runs on the mesh's device. device: where a pipeline
-        without a mesh runs — CUDA unless given; raises without CUDA."""
-        if train is not None:
-            raise NotImplementedError(
-                "D3Pipeline(train=...) is not ported to repro_torch yet "
-                "(ROADMAP Queue 1 item 10)")
+        pipeline runs on the mesh's device.
+        train: optional TrainConfig — the online training plane (needs
+        cfg.train_cap > 0 and a model with a head, n_classes > 0).
+        device: where a pipeline without a mesh runs — CUDA unless given;
+        raises without CUDA."""
         if mesh is not None and not isinstance(mesh, StreamMesh):
             raise TypeError(f"mesh must be a dist.mesh.StreamMesh, got "
                             f"{type(mesh).__name__}")
         n_dev = mesh.size if mesh is not None else 1
         cfg.validate(n_devices=n_dev)
+        if (train is not None) != (cfg.train_cap > 0):
+            raise ValueError(
+                f"train={'set' if train is not None else 'None'} but "
+                f"PipelineConfig.train_cap={cfg.train_cap}: the online "
+                "training plane needs BOTH a TrainConfig (the knobs) and "
+                "train_cap > 0 (the per-tick label admission budget, "
+                "capacities().train_cap) — set both or neither")
+        if train is not None and getattr(model, "head", None) is None:
+            raise ValueError(
+                "train= needs an output operator: build the model with "
+                "n_classes > 0 (GraphSAGE(dims, n_classes=...)) so it "
+                "carries a 'head' to train")
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device={device} but the mesh's rank runs "
@@ -305,6 +338,8 @@ class D3Pipeline:
         self.mesh = mesh
         self.model = model.to(self.device)
         self.layers = list(model.layers)
+        self.train_cfg = train
+        self._head = model.head if train is not None else None
         self.router = (MeshRouter(cfg.n_parts, mesh, route_cap=cfg.route_cap,
                                   pack_backend=cfg.delivery_backend)
                        if mesh is not None else LocalRouter(cfg.n_parts))
@@ -340,6 +375,13 @@ class D3Pipeline:
                                                 self.d_out, dev)
         self._empty_queries_np = empty_query_batch(caps.query_admissions,
                                                    self.d_out)
+        self._empty_labels = ev.empty_label_batch(cfg.train_cap, dev)
+        self._empty_labels_np = ev.empty_label_batch(cfg.train_cap)
+        # the training plane's device state: labels/dirty window, live
+        # params, per-part optimizer state (core/train_plane.py)
+        self.train_state = (init_train_state(
+            p_loc, cfg.node_cap, self.params, linear_tree(model.head),
+            train, dev) if train is not None else None)
         self._answer_log: list = []    # host-side answered-row columns
         self.now = 0
         self._wire_bytes_per_tick = self._static_wire_bytes(dims, n_dev)
@@ -361,7 +403,10 @@ class D3Pipeline:
         rank ships a [D, cap * W] f32 send buffer per lane per route_lanes
         call, so a tick moves D * sum_lanes D * cap * W * 4 bytes (host
         int arithmetic, as in JAX). MsgBatch lanes are d + 5 wide; the
-        query wire lane (layer 0's round B) d_out + 10."""
+        query wire lane (layer 0's round B) d_out + 10. The training plane
+        adds two DENSE lanes a layer (hop A: repl_cap rows of dagg, hop B:
+        node_cap rows of source gradients a part; route_cap does not apply
+        to gradient lanes)."""
         if self.mesh is None or n_dev <= 1:
             return 0
         cfg = self.cfg
@@ -373,8 +418,13 @@ class D3Pipeline:
                           dims[li] + 5))
         if cfg.query_cap > 0:
             lanes.append((p_loc * cfg.query_cap, wire_width(dims[-1])))
-        return n_dev * sum(n_dev * self.router.lane_cap(c) * w * 4
-                           for c, w in lanes)
+        total = n_dev * sum(n_dev * self.router.lane_cap(c) * w * 4
+                            for c, w in lanes)
+        if self.train_cfg is not None:
+            total += n_dev * sum(
+                n_dev * (p_loc * cfg.repl_cap + p_loc * cfg.node_cap)
+                * (dims[li] + 5) * 4 for li in range(len(self.layers)))
+        return total
 
     def _stats_to_host(self, stats_all, *extra, answers=None):
         """Per-layer TickStats (+ extra 0-d int64 tensors, + the answer
@@ -472,11 +522,15 @@ class D3Pipeline:
     def _build_batches(self, edges: Optional[np.ndarray],
                        feats: Optional[list], device=None,
                        queries: Optional[list] = None,
-                       issue_tick: Optional[int] = None):
-        """One tick's padded (edge, repl, vertex, feat, query) batches;
-        device=None keeps numpy leaves for the super-tick staging path.
-        queries: the tick's query requests (the `tick()` format), stamped
-        with issue_tick (default: the current tick)."""
+                       issue_tick: Optional[int] = None,
+                       labels: Optional[list] = None):
+        """One tick's padded (edge, repl, vertex, feat, query, label)
+        batches; device=None keeps numpy leaves for the super-tick staging
+        path. queries: the tick's query requests (the `tick()` format),
+        stamped with issue_tick (default: the current tick). labels:
+        [(vid, gold_class), ...] training-plane admissions, resolved to
+        master coordinates (the last label of a vid wins); vids the
+        partitioner has never seen are skipped."""
         cfg = self.cfg
         if edges is not None and len(edges):
             e_rows, r1, v1 = self.part.ingest_edges(edges)
@@ -520,18 +574,37 @@ class D3Pipeline:
         else:
             qb = (self._empty_queries if device is not None
                   else self._empty_queries_np)
-        return eb, rb, vb, fb, qb
+        if labels:
+            if cfg.train_cap <= 0:
+                raise ValueError("labels submitted but "
+                                 "PipelineConfig.train_cap=0")
+            gold = {}
+            for vid, y in labels:
+                m = self.part.locate_master(int(vid), create=False)
+                if m is not None:
+                    gold[m] = int(y)
+            lb = ev.label_batch_from_numpy(
+                np.asarray([m[0] for m in gold], np.int64),
+                np.asarray([m[1] for m in gold], np.int64),
+                np.asarray(list(gold.values()), np.int64), cfg.train_cap,
+                device)
+        else:
+            lb = (self._empty_labels if device is not None
+                  else self._empty_labels_np)
+        return eb, rb, vb, fb, qb, lb
 
     # ---------------------------------------------------------- device side
     @torch.no_grad()
     def _tick_program(self, topo, states, sink, sink_seen, queries, fb, eb,
-                      rb, vb, qb, now, wconf):
+                      rb, vb, qb, lb, now, wconf):
         """ONE micro-tick on the device: topology application, the query
         plane's admit/head-hop stage, L layer ticks (the query wire rides
-        layer 0's round-B exchange), the sink update and the query plane's
-        answer stage. Apart from a mesh's collectives, never reads a value
-        back to the host. At query_cap=0 the plane's stages return at
-        once and the program is the one without it.
+        layer 0's round-B exchange), the sink update, the query plane's
+        answer stage and the training plane's step (which updates
+        self.train_state and mirrors the live parameters into the model).
+        Apart from a mesh's collectives, never reads a value back to the
+        host. At query_cap=0 / train_cap=0 a plane's stages are skipped
+        and the program is the one without it.
         Returns (topo, states, sink, sink_seen, queries, stats_all,
         answers or None, QueryStats or None)."""
         outbox_cap = self.cfg.capacities().outbox
@@ -555,7 +628,8 @@ class D3Pipeline:
                      if li == 0 and wire is not None else None)
             ls, inbox, stats, extra_out = layer_tick_body(
                 layer, topo, states[li], inbox, eb, rb, now, wconf,
-                outbox_cap, self.router, self.delivery, extra_lane=extra)
+                outbox_cap, self.router, self.delivery, extra_lane=extra,
+                delta_eps=self.cfg.delta_eps)
             if extra_out is not None:
                 wire_d, (wdb, wdo) = extra_out
                 queries = replace(queries, wire_defer=wdb, wire_defer_ok=wdo)
@@ -567,29 +641,82 @@ class D3Pipeline:
         queries, answers, qstats = query_answer_stage(
             queries, wire_d, qb, adm_drop, n_adm, new_states, sink,
             sink_seen, now, stats_all, self.router)
+        # training plane: one windowed online step through the live state
+        # (stats scalars are already reduced over the mesh)
+        if self.train_cfg is not None:
+            ts = self.train_state
+            moved = sum(moved_msgs(s) for s in stats_all)
+            self.train_state = train_stage(
+                self.train_cfg, self._head,
+                [(layer, ts.params[f"l{li}"])
+                 for li, layer in enumerate(self.layers)],
+                [(ls.feat, ls.agg, ls.agg_cnt) for ls in new_states], topo,
+                sink, sink_seen, ts, lb, inbox, now, moved, self.router,
+                part0, self.delivery)
+            self._sync_params_from_train()
         return (topo, new_states, sink, sink_seen, queries, stats_all,
                 answers, qstats)
 
+    def _sync_params_from_train(self) -> None:
+        """Mirror the live trained parameters into the model's modules, so
+        the next tick's forward (and every host reader) sees the online
+        plane's latest step: device copies, no host sync."""
+        ts = self.train_state
+        for li, layer in enumerate(self.layers):
+            layer.load_param_tree(ts.params[f"l{li}"])
+        load_linear_tree(self._head, ts.head_params)
+
+    @property
+    def params(self) -> dict:
+        """{f"l{i}": parameter tree} of the layers (the JAX package's
+        layout; detached views of the modules' weights)."""
+        return {f"l{i}": layer.param_tree()
+                for i, layer in enumerate(self.layers)}
+
+    def train_stats(self) -> dict:
+        """Training-plane progress in ONE host read: the last fired step's
+        global loss and gradient norm, and the fired-step count."""
+        ts = self.train_state
+        if ts is None:
+            raise ValueError("training plane disabled (train_cap=0 / no "
+                             "TrainConfig)")
+        loss, gn, steps = torch.stack([
+            ts.loss.double(), ts.grad_norm.double(),
+            ts.steps.double()]).cpu().tolist()
+        return {"loss": loss, "grad_norm": gn, "steps": int(steps)}
+
+    def layer_state(self, l: int):
+        """Layer l's LayerState (the 1-D engine keeps one per layer)."""
+        return self.states[l]
+
+    def set_layer_state(self, l: int, ls) -> None:
+        """Write layer l's LayerState back (the coordinator's rebuild)."""
+        self.states[l] = ls
+
     def tick(self, edges: Optional[np.ndarray] = None,
              feats: Optional[list] = None, window=None,
-             queries: Optional[list] = None):
+             queries: Optional[list] = None,
+             labels: Optional[list] = None):
         """One micro-tick through the full pipeline (reference driver).
 
         queries: optional [(qid, kind, vid, [vid2,] consistent), ...]
         point-query admissions for this tick (needs cfg.query_cap > 0);
         answered rows accumulate in `drain_answers()`.
+        labels: optional [(vid, gold_class), ...] training-plane label
+        admissions (needs cfg.train_cap > 0 and a TrainConfig); progress
+        is read with `train_stats()`.
         Returns the per-layer TickStats, read back to the host (with the
         tick's answers and query counters, in one read)."""
         wconf = window or self.cfg.window
         t0 = time.perf_counter()
-        eb, rb, vb, fb, qb = self._build_batches(edges, feats, self.device,
-                                                 queries=queries)
+        eb, rb, vb, fb, qb, lb = self._build_batches(
+            edges, feats, self.device, queries=queries, labels=labels)
         host_s = time.perf_counter() - t0
         now = torch.tensor(self.now, dtype=torch.int64, device=self.device)
         (self.topo, self.states, self.sink, self.sink_seen, self.queries,
          stats_all, answers, qstats) = self._tick_program(
             self.topo, self.states, self.sink, self.sink_seen, self.queries,
-            fb, eb, rb, vb, qb, now, wconf)
+            fb, eb, rb, vb, qb, lb, now, wconf)
         self.now += 1
         on = answers is not None
         qx = [getattr(qstats, f) for f in QSTAT_FIELDS] if on else []
@@ -644,6 +771,7 @@ class D3Pipeline:
             m.broadcast_msgs += int(s.broadcast_msgs)
             m.cross_part_msgs += int(s.cross_part_msgs)
             m.dropped += int(s.dropped)
+            m.suppressed += int(s.n_suppressed)
             m.wire_rows += int(s.wire_rows)
             m.route_deferred += int(s.route_deferred)
             m.route_dropped += int(s.route_dropped)
@@ -703,14 +831,16 @@ class D3Pipeline:
     # ------------------------------------------------------ super-tick path
     def run_super_tick(self, edge_chunks=None, feat_chunks=None,
                        T: Optional[int] = None, window=None,
-                       quiet0: int = 0, query_chunks=None):
+                       quiet0: int = 0, query_chunks=None,
+                       label_chunks=None):
         """Advance T micro-ticks with ONE host sync.
 
-        edge_chunks / feat_chunks / query_chunks: per-tick edge arrays,
-        [(vid, vec)] lists and query-request lists (the `tick()` format,
-        admitted at their staged tick; None entries allowed); shorter
-        lists are padded with empty ticks up to T. quiet0 seeds the
-        consecutive-quiet-tick counter.
+        edge_chunks / feat_chunks / query_chunks / label_chunks: per-tick
+        edge arrays, [(vid, vec)] lists, query-request lists and
+        [(vid, gold_class)] label lists (the `tick()` formats, admitted at
+        their staged tick; None entries allowed); shorter lists are padded
+        with empty ticks up to T. quiet0 seeds the consecutive-quiet-tick
+        counter. Training progress stays on the device (`train_stats()`).
         Returns (per-layer TickStats summed over the T ticks, quiet_ticks).
         The same read carries the T ticks' answers and the summed query
         counters.
@@ -720,23 +850,30 @@ class D3Pipeline:
         edge_chunks = list(edge_chunks) if edge_chunks is not None else []
         feat_chunks = list(feat_chunks) if feat_chunks is not None else []
         query_chunks = list(query_chunks) if query_chunks is not None else []
-        n = max(len(edge_chunks), len(feat_chunks), len(query_chunks), 1)
+        label_chunks = list(label_chunks) if label_chunks is not None else []
+        n = max(len(edge_chunks), len(feat_chunks), len(query_chunks),
+                len(label_chunks), 1)
         T = int(T) if T is not None else n
         if T < n:
             raise ValueError(f"T={T} smaller than the {n} staged ticks")
         edge_chunks += [None] * (T - len(edge_chunks))
         feat_chunks += [None] * (T - len(feat_chunks))
         query_chunks += [None] * (T - len(query_chunks))
+        label_chunks += [None] * (T - len(label_chunks))
         # issue ticks: the tick the device will admit each chunk in
-        staged = [self._build_batches(e, f, queries=q, issue_tick=self.now + i)
-                  for i, (e, f, q) in enumerate(
-                      zip(edge_chunks, feat_chunks, query_chunks))]
-        # one host-to-device copy per field for all T ticks (the query
-        # batches only when the plane is on)
+        staged = [self._build_batches(e, f, queries=q, issue_tick=self.now + i,
+                                      labels=lab)
+                  for i, (e, f, q, lab) in enumerate(
+                      zip(edge_chunks, feat_chunks, query_chunks,
+                          label_chunks))]
+        # one host-to-device copy per field for all T ticks (the query and
+        # label batches only when their plane is on)
         eb, rb, vb, fb = (ev.stack_batches([s[i] for s in staged],
                                            self.device) for i in range(4))
         qb = (ev.stack_batches([s[4] for s in staged], self.device)
               if self.cfg.query_cap else None)
+        lb = (ev.stack_batches([s[5] for s in staged], self.device)
+              if self.cfg.train_cap else None)
         self.metrics.host_seconds += time.perf_counter() - t0
 
         dev = self.device
@@ -754,6 +891,7 @@ class D3Pipeline:
                 self.queries, ev.batch_at(fb, t), ev.batch_at(eb, t),
                 ev.batch_at(rb, t), ev.batch_at(vb, t),
                 ev.batch_at(qb, t) if qb is not None else self._empty_queries,
+                ev.batch_at(lb, t) if lb is not None else self._empty_labels,
                 now, wconf)
             quiet = quiet_update(quiet, self.states, stats_t, self.router,
                                  queries=self.queries)

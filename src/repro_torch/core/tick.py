@@ -1,9 +1,10 @@
 """The per-layer micro-tick: streaming (Alg. 1) and windowed (Alg. 2)
 forward pass.
 
-Counterpart of `repro/core/tick.py` in exact mode (delta_eps = 0), under
-the LocalRouter or the 1-D MeshRouter. One tick = two routing rounds,
-four part-local stages with a Router delivery between them:
+Counterpart of `repro/core/tick.py`, under the LocalRouter or the 1-D
+MeshRouter, in exact mode (delta_eps = 0) and delta-gated mode. One tick
+= two routing rounds, four part-local stages with a Router delivery
+between them:
 
   round_a_apply : master-addressed feature updates land at local masters
                   (delivery.deliver_set); selectiveBroadcast records for
@@ -13,6 +14,10 @@ four part-local stages with a Router delivery between them:
                   feature deltas and new-edge messages become aggregator
                   RMI records (delta, dcnt) addressed to destination
                   masters (reduce / replace / remove are all additive).
+                  With delta_eps > 0 a source whose un-sent delta passes
+                  its aggregator's gate (core/aggregators.GATES) is
+                  suppressed, and the RMIs are coalesced per destination
+                  (events.coalesce_msg_batch) before the exchange.
        -- router.route_lanes --
                   each route_lanes call is one packed all_to_all on the
                   mesh, its buckets capped by route_cap; overflow defers
@@ -46,9 +51,11 @@ from dataclasses import dataclass, fields
 import torch
 
 from repro_torch.core import windowing as win
+from repro_torch.core.aggregators import GATES
 from repro_torch.core.delivery import KernelDelivery
 from repro_torch.core.events import (EdgeBatch, FeatBatch, MsgBatch,
-                                     ReplBatch, concat_msg_batches)
+                                     ReplBatch, coalesce_msg_batch,
+                                     concat_msg_batches)
 from repro_torch.core.state import (LayerState, TopoState, local_index,
                                     mark_rows)
 from repro_torch.dist.router import LocalRouter, add_receipts
@@ -59,8 +66,8 @@ class TickStats:
     """Per-layer tick counters: 0-d int64 tensors (reduced over the mesh)
     plus the rank's [P_loc] busy vector. Field meanings as in the JAX
     package; the wire counters are zero under the LocalRouter, the
-    suppression and telemetry counters zero on the port (exact mode,
-    telemetry off)."""
+    suppression counter zero in exact mode, the telemetry gauges zero on
+    the port (telemetry off)."""
     broadcast_msgs: torch.Tensor     # round-A replica messages
     reduce_msgs: torch.Tensor        # round-B aggregator RMIs routed
     cross_part_msgs: torch.Tensor    # messages leaving their part
@@ -149,13 +156,21 @@ def round_a_apply(topo: TopoState, ls: LayerState, inbox: FeatBatch,
 
 def round_b_emit(layer, topo: TopoState, ls: LayerState, feat_flat, changed,
                  has_feat, bcast_d: MsgBatch, new_edges: EdgeBatch, now,
-                 wconf: win.WindowConfig, part0, busy, freq, delivery):
+                 wconf: win.WindowConfig, part0, busy, freq, delivery,
+                 delta_eps: float = 0.0):
     """Round B: apply DELIVERED broadcasts at local replicas, decide which
     touched vertices send this tick (inter-layer window), and emit the
-    tick's aggregator RMI records (exact mode: no delta gate).
+    tick's aggregator RMI records.
+
+    delta_eps > 0 gates the re-emissions: a candidate that has sent before
+    and whose message moved by no more than eps under its aggregator's
+    gate is SUPPRESSED — it leaves the pending set without advancing
+    x_sent, so the residual stays accumulated against the last value sent
+    and is re-gated on its next touch. At 0 the gate is not built.
 
     Returns (feat_flat, changed, has_feat, x_sent_flat, has_sent,
-    red_pending, red_deadline, rmis, busy, n_reduce, n_cross).
+    red_pending, red_deadline, rmis, busy, n_reduce, n_cross, n_supp):
+    n_supp counts the valid out-edges of suppressed sources.
     """
     P, N, d_in = ls.feat.shape
     dev = feat_flat.device
@@ -187,11 +202,18 @@ def round_b_emit(layer, topo: TopoState, ls: LayerState, feat_flat, changed,
         wconf, now, red_deadline, ls.red_pending.reshape(P * N), freq)
     red_deadline = torch.where(changed, touched_deadline, red_deadline)
     # STREAMING evicts everything pending (the drain path of flush())
-    send = red_pending if wconf.kind == win.STREAMING else \
+    cand = red_pending if wconf.kind == win.STREAMING else \
         red_pending & (red_deadline <= now)
     # delta = phi(x) - phi(x_sent) if has_sent else (phi(x), +1)
     msg_new = layer.message(feat_flat)
     msg_old = layer.message(x_sent_flat)
+    if delta_eps > 0.0:
+        gate = GATES[getattr(layer, "agg_kind", "mean")]
+        suppress = cand & has_sent & gate(msg_new, msg_old, delta_eps)
+        send = cand & ~suppress
+    else:
+        suppress = None
+        send = cand
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     delta_vec = torch.where(
         send[:, None], msg_new - torch.where(has_sent[:, None], msg_old, zero),
@@ -219,12 +241,21 @@ def round_b_emit(layer, topo: TopoState, ls: LayerState, feat_flat, changed,
     n_cross = ((e_ready & (new_edges.dst_master_part != new_edges.part)).sum()
                + (o_live2 & (topo.e_dst_mpart != part0 + pp)).sum())
 
-    # commit send bookkeeping
+    # commit send bookkeeping; suppressed vertices leave the pending set
+    # WITHOUT advancing x_sent
     x_sent_flat = torch.where(send[:, None], feat_flat, x_sent_flat)
     has_sent = has_sent | send
-    red_pending = red_pending & ~send
+    if suppress is None:
+        red_pending = red_pending & ~send
+        n_supp = torch.zeros((), dtype=torch.int64, device=dev)
+    else:
+        red_pending = red_pending & ~send & ~suppress
+        # the saved message volume: out-edge RMIs the gate skipped
+        n_supp = (topo.e_valid
+                  & suppress[o_sidx].reshape(topo.e_valid.shape)).sum()
     return (feat_flat, changed, has_feat, x_sent_flat, has_sent,
-            red_pending, red_deadline, rmis, busy, n_reduce, n_cross)
+            red_pending, red_deadline, rmis, busy, n_reduce, n_cross,
+            n_supp)
 
 
 def canon_msg_batch(b: MsgBatch, part0, P_loc: int, N: int,
@@ -311,7 +342,7 @@ def forward_psi(layer, topo: TopoState, ls: LayerState, feat_flat, has_feat,
 def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
                     new_edges: EdgeBatch, new_repl: ReplBatch, now,
                     wconf: win.WindowConfig, outbox_cap: int, router=None,
-                    delivery=None, extra_lane=None):
+                    delivery=None, extra_lane=None, delta_eps: float = 0.0):
     """Advance one GNN layer by one tick.
 
     `layer` supplies message/update (phi/psi), e.g. graph/sage.SAGELayer;
@@ -326,6 +357,11 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
     all_to_all as the RMI lane). The pipeline rides the query plane's
     link-score wire on layer 0 this way; its wire rows count into this
     layer's TickStats.
+
+    delta_eps: delta-gated propagation (round_b_emit). In approximate mode
+    (> 0) the RMIs are also coalesced per destination before the routing
+    plane (after the stats count them); coalescing reorders f32 sums,
+    which is why exact mode (0) skips it and keeps its program.
 
     Returns (new LayerState, outbox FeatBatch, TickStats, extra_out):
     extra_out is None, or (delivered extra lane, its new defer ring).
@@ -352,9 +388,11 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
 
     # ---- Round B: apply broadcast at replicas, emit + route the RMIs
     (feat_flat, changed, has_feat, x_sent_flat, has_sent, red_pending,
-     red_deadline, rmis, busy, n_reduce, red_cross) = round_b_emit(
+     red_deadline, rmis, busy, n_reduce, red_cross, n_supp) = round_b_emit(
         layer, topo, ls, feat_flat, changed, has_feat, bcast_d, new_edges,
-        now, wconf, part0, busy, freq, delivery)
+        now, wconf, part0, busy, freq, delivery, delta_eps=delta_eps)
+    if delta_eps > 0.0:
+        rmis = coalesce_msg_batch(rmis, N, delivery)
     rmi_defer_in = (ls.rmi_defer, ls.rmi_defer_ok)
     if extra_lane is None:
         (rmis_d,), (rmi_defer,), rcpt_b = router.route_lanes(
@@ -402,12 +440,12 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
     # the scalar counters reduced over the ranks in ONE collective
     g = router.psum(torch.stack([
         n_bcast, n_reduce, bcast_cross + red_cross, n_emit, n_drop,
-        rcpt.rows, rcpt.deferred, rcpt.dropped]).to(torch.int64))
+        rcpt.rows, rcpt.deferred, rcpt.dropped, n_supp]).to(torch.int64))
     z = torch.zeros((), dtype=torch.int64, device=dev)
     stats = TickStats(broadcast_msgs=g[0], reduce_msgs=g[1],
                       cross_part_msgs=g[2], emitted=g[3], dropped=g[4],
                       wire_rows=g[5], route_deferred=g[6],
-                      route_dropped=g[7], n_suppressed=z,
+                      route_dropped=g[7], n_suppressed=g[8],
                       occ_bc_defer=z, occ_rmi_defer=z, route_peak=z,
                       outbox_part_peak=z, busy=busy)
     return new_ls, outbox, stats, extra_out

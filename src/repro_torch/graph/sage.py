@@ -1,22 +1,45 @@
 """GraphSAGE — the paper's evaluation model (2-layer SAGE-mean, dim 64).
 
-Counterpart of `repro/graph/sage.py` (SAGE layers only):
+Counterpart of `repro/graph/sage.py` (SAGE layers, the classification
+head and its loss):
 
     x_v' = act( W_self x_v + W_neigh mean_{u in N_in(v)} x_u )
 
 `message` (phi) and `update` (psi) are what the streaming tick calls;
-`forward` is the static full-graph layer the oracle runs.
+`forward` is the static full-graph model the oracle runs. The training
+plane differentiates the layer through its functional forms
+(`message_params`, `update_params`) over a parameter tree in the JAX
+package's layout ({"self": {"w", "b"}, "neigh": {"w"}}; the head
+{"w", "b"}), read with `param_tree` and written back with
+`load_param_tree`.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from repro_torch.graph import segment
 from repro_torch.graph.graphs import Graph
 from repro_torch.nn.layers import Linear
+
+
+def linear_tree(lin: Linear) -> dict:
+    """A Linear's parameters as a {"w"[, "b"]} tree (detached views)."""
+    out = {"w": lin.w.detach()}
+    if lin.b is not None:
+        out["b"] = lin.b.detach()
+    return out
+
+
+def load_linear_tree(lin: Linear, tree: dict) -> None:
+    """Copy a {"w"[, "b"]} tree into a Linear's parameters in place."""
+    with torch.no_grad():
+        for name, val in tree.items():
+            getattr(lin, name).copy_(val)
 
 
 class SAGELayer(nn.Module):
@@ -39,6 +62,25 @@ class SAGELayer(nn.Module):
         h = self.w_self(x_v) + self.w_neigh(agg)
         return torch.relu(h) if self.act else h
 
+    def param_tree(self) -> dict:
+        return {"self": linear_tree(self.w_self),
+                "neigh": linear_tree(self.w_neigh)}
+
+    def load_param_tree(self, tree: dict) -> None:
+        load_linear_tree(self.w_self, tree["self"])
+        load_linear_tree(self.w_neigh, tree["neigh"])
+
+    def message_params(self, params, x_u):
+        """phi over a parameter tree (SAGE: the identity)."""
+        del params
+        return x_u
+
+    def update_params(self, params, x_v, agg):
+        """psi over a parameter tree: the same arithmetic as `update`."""
+        h = (functional_call(self.w_self, params["self"], (x_v,))
+             + functional_call(self.w_neigh, params["neigh"], (agg,)))
+        return torch.relu(h) if self.act else h
+
     def forward(self, g: Graph, x):
         agg = segment.segment_mean(x[g.senders], g.receivers, g.n_nodes,
                                    g.edge_mask)
@@ -47,20 +89,33 @@ class SAGELayer(nn.Module):
 
 class GraphSAGE(nn.Module):
     """Stack of SAGE layers; the paper's model is dims=(in, 64, 64).
-    Weights are drawn from a `torch.Generator` seeded with `seed`."""
+    n_classes > 0 adds a Linear head (and the last layer keeps its relu,
+    as in JAX). Weights are drawn from a `torch.Generator` seeded with
+    `seed`, the layers first, then the head."""
 
-    def __init__(self, dims: Sequence[int], seed: int = 0):
+    def __init__(self, dims: Sequence[int], seed: int = 0,
+                 n_classes: int = 0):
         super().__init__()
         self.dims = tuple(dims)
+        self.n_classes = n_classes
         gen = torch.Generator().manual_seed(seed)
         n = len(self.dims) - 1
         self.layers = nn.ModuleList(
-            SAGELayer(self.dims[i], self.dims[i + 1], act=i < n - 1,
-                      generator=gen)
+            SAGELayer(self.dims[i], self.dims[i + 1],
+                      act=i < n - 1 or n_classes > 0, generator=gen)
             for i in range(n))
+        self.head = (Linear(self.dims[-1], n_classes, generator=gen)
+                     if n_classes else None)
 
     def forward(self, g: Graph, x=None):
         x = g.x if x is None else x
         for layer in self.layers:
             x = layer(g, x)
-        return x
+        return self.head(x) if self.head is not None else x
+
+    def loss(self, g: Graph, labels, label_mask):
+        """Masked-mean cross-entropy of the head's logits."""
+        logp = F.log_softmax(self(g).to(torch.float32), dim=-1)
+        gold = torch.take_along_dim(logp, labels[:, None], dim=-1)[:, 0]
+        ce = torch.where(label_mask, -gold, 0.0)
+        return torch.sum(ce) / torch.clamp(torch.sum(label_mask), min=1)

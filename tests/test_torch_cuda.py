@@ -624,3 +624,169 @@ def test_query_plane_on_the_card_matches_the_cpu(cuda, driver, backend):
     if backend == "kernel":
         assert sr_ops.LAUNCHES["segment_sum_rows"] > 0
         assert sr_ops.LAUNCHES["mean_rows_gather"] > 0
+
+
+# kernel A at the training plane's and the gated tick's call sites: the
+# backward's edge fold (no base, no counts), its replica fold (a base, no
+# counts) and replica zeroing (a stride-0 row of zeros, set mode), and the
+# coalescer, card against the plain version / the CPU
+@pytest.mark.parametrize("d", [64, 602])
+def test_delivery_at_the_backward_call_sites(cuda, d):
+    from repro_torch.core.delivery import KernelDelivery
+    kd = KernelDelivery()
+    n, C = 500, 6000
+    vec, _, base, _, _, _ = _sorted_runs(cuda, n, C, d, 7, 0.3, d)
+    rng = np.random.default_rng(d)
+    idx = rng.integers(0, n, C)
+    idx[rng.random(C) < 0.6] = 3
+    idx[rng.random(C) < 0.3] = n                  # dropped records
+    idx = torch.as_tensor(idx, device=cuda)
+    sr_ops.reset_launches()
+    got, cnt = kd.add_rows(n, idx, vec)
+    order, row_ptr = sr_ops.sort_runs(idx, n)
+    want = sr_ref.deliver_rows_ref(vec, row_ptr, order)[0]
+    absum = sr_ref.deliver_rows_ref(vec.abs(), row_ptr, order)[0]
+    assert cnt is None and sr_ops.LAUNCHES["segment_sum_rows"] == 1
+    assert bool(((got - want).abs() <= KA_TOL * (1 + absum)).all())
+    got, none, flag = kd.deliver_add(base, None, idx, vec, None)
+    want = sr_ref.deliver_rows_ref(vec, row_ptr, order, base=base)
+    assert none is None and torch.equal(flag, want[2])
+    absum = sr_ref.deliver_rows_ref(vec.abs(), row_ptr, order,
+                                    base=base.abs())[0]
+    assert bool(((got - want[0]).abs() <= KA_TOL * (1 + absum)).all())
+    zeros = base.new_zeros((1, d)).expand(C, d)
+    got, touched = kd.deliver_set(base, idx, zeros)
+    want = base.clone()
+    want[idx[idx < n]] = 0.0
+    assert torch.equal(got, want) and int(touched.sum()) == int(
+        torch.unique(idx[idx < n]).numel())
+
+
+@pytest.mark.parametrize("live", [0.0, 0.7, 1.0])
+def test_coalescer_on_the_card_matches_the_cpu(cuda, live):
+    from repro_torch.core.delivery import KernelDelivery
+    from repro_torch.core.events import coalesce_msg_batch
+    rng = np.random.default_rng(int(live * 10))
+    C, n_parts, n_slots, d = 20000, 8, 64, 602
+    cols = dict(part=rng.integers(0, n_parts, C),
+                slot=np.where(rng.random(C) < 0.5, 0,
+                              rng.integers(0, n_slots, C)),
+                vec=rng.normal(size=(C, d)).astype(np.float32),
+                cnt=rng.integers(-1, 2, C).astype(np.float32),
+                src_part=rng.integers(0, n_parts, C),
+                valid=rng.random(C) < live)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        b = MsgBatch(**{k: torch.as_tensor(v, device=dev)
+                        for k, v in cols.items()})
+        outs.append(coalesce_msg_batch(b, n_slots, KernelDelivery()))
+    got, want = outs
+    for k in ("part", "slot", "src_part", "valid", "cnt"):
+        assert torch.equal(getattr(got, k).cpu(), getattr(want, k)), k
+    absum = np.zeros((C, d))
+    keys = cols["part"] * n_slots + cols["slot"]
+    live_keys = np.unique(keys[cols["valid"]])
+    for r, key in enumerate(live_keys):
+        absum[r] = np.abs(cols["vec"][cols["valid"] & (keys == key)]).sum(0)
+    err = (got.vec.cpu() - want.vec).abs().numpy()
+    assert (err <= KA_TOL * (1 + absum)).all()
+
+
+# the gated tick and the training plane on the card against the CPU, at
+# tests/test_delta_gating.py's and test_train_plane.py's sizes: integer
+# stats, steps and fire ticks exactly equal; the sink, losses and
+# last_grad within 1e-4 x (1 + |cpu|) (f32 sums in another order)
+def _gated_run(device, driver, backend):
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    edges, feats = _golden_stream()
+    pipe = D3Pipeline(GraphSAGE((8, 12, 12), seed=0), PipelineConfig(
+        n_parts=4, node_cap=32, edge_cap=128, repl_cap=128, feat_cap=128,
+        edge_tick_cap=32, max_nodes=32, delta_eps=1e-3,
+        delivery_backend=backend,
+        window=win.WindowConfig(kind=win.STREAMING)), device=device)
+    rng = np.random.default_rng(7)
+    cur = dict(feats)
+    if driver == "tick":
+        pipe.run_stream(edges, feats, tick_edges=24)
+        pipe.flush(max_ticks=96)
+    else:
+        pipe.run_stream_super(edges, feats, tick_edges=24, super_ticks=4)
+        pipe.flush_super(max_ticks=96, T=4)
+    for _ in range(4):
+        wave = []
+        for v in sorted(cur):
+            dv = rng.normal(size=8).astype(np.float32)
+            cur[v] = cur[v] + dv * (2e-4 / np.linalg.norm(dv))
+            wave.append((v, cur[v]))
+        if driver == "tick":
+            pipe.tick(feats=wave)
+        else:
+            pipe.run_super_tick(feat_chunks=[wave], T=1)
+    if driver == "tick":
+        pipe.flush(max_ticks=96)
+    else:
+        pipe.flush_super(max_ticks=96, T=4)
+    m = {k: v for k, v in vars(pipe.metrics).items() if isinstance(v, int)}
+    return m, pipe.sink.cpu()
+
+
+@pytest.mark.parametrize("backend", ["kernel", "scatter"])
+@pytest.mark.parametrize("driver", ["tick", "super"])
+def test_gated_tick_on_the_card_matches_the_cpu(cuda, driver, backend):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got_m, got = _gated_run(cuda, driver, backend)
+    want_m, want = _gated_run(torch.device("cpu"), driver, backend)
+    assert got_m == want_m and got_m["suppressed"] > 0
+    assert bool(((got - want).abs() <= 1e-4 * (1 + want.abs())).all())
+
+
+def _train_run(device, driver, backend):
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.core.train_plane import TrainConfig
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.optim import sgd
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.serve.train_session import TrainSession
+    edges, feats = _golden_stream()
+    labels = {v: (v * 7 + 3) % 4 for v in range(32)}
+    pipe = D3Pipeline(
+        GraphSAGE((8, 16, 16), seed=0, n_classes=4), PipelineConfig(
+            n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+            feat_cap=128, edge_tick_cap=32, max_nodes=32, train_cap=64,
+            delivery_backend=backend,
+            window=win.WindowConfig(kind=win.STREAMING)),
+        train=TrainConfig(optimizer=sgd(), lr=0.1, batch_threshold=4),
+        device=device)
+    sess = TrainSession(pipe, driver=driver, super_ticks=4)
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 24)
+    sess.observe_labels(labels)
+    steps = []
+    for e, f in zip(e_chunks, f_chunks):
+        sess.step(e, f)
+        steps.append(sess.train_stats()["steps"])
+    for _ in range(3):
+        sess.observe_labels(labels)
+        sess.flush()
+        steps.append(sess.train_stats()["steps"])
+    st = sess.train_stats()
+    return steps, st, [g.cpu() for g in tree_leaves(
+        pipe.train_state.last_grad)]
+
+
+@pytest.mark.parametrize("backend", ["kernel", "scatter"])
+@pytest.mark.parametrize("driver", ["tick", "super"])
+def test_train_plane_on_the_card_matches_the_cpu(cuda, driver, backend):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sr_ops.reset_launches()
+    got = _train_run(cuda, driver, backend)
+    want = _train_run(torch.device("cpu"), driver, backend)
+    assert got[0] == want[0] and got[1]["steps"] > 0
+    for k in ("loss", "grad_norm"):
+        assert abs(got[1][k] - want[1][k]) <= 1e-4 * (1 + abs(want[1][k]))
+    for a, b in zip(got[2], want[2]):
+        assert bool(((a - b).abs() <= 1e-4 * (1 + b.abs())).all())
+    if backend == "kernel":
+        assert sr_ops.LAUNCHES["segment_sum_rows"] > 0

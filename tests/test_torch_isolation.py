@@ -49,7 +49,11 @@ def test_import_leaves_jax_out():
             "repro_torch.launch.mesh, repro_torch.kernels.route_pack.ops, "
             "repro_torch.kernels.route_pack.ref, "
             "repro_torch.serve.query, repro_torch.serve.session, "
-            "repro_torch.data.streams, repro_torch.core.explosion; "
+            "repro_torch.data.streams, repro_torch.core.explosion, "
+            "repro_torch.core.train_plane, repro_torch.core.training, "
+            "repro_torch.serve.train_session, repro_torch.optim, "
+            "repro_torch.optim.quantized, repro_torch.dist.grad_compression, "
+            "repro_torch.core.aggregators; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -25,6 +25,17 @@ JAX's; the sink within 1e-4 of the port's static oracle (core/oracle.py).
 Answers: qid, kind, ok, tick and issue exactly equal, vec within
 rtol = atol = 1e-5, score within rtol 1e-4, atol 1e-5 (the golden
 matrix's own tolerances), and the query counters exactly equal.
+
+Delta gating and training (GCASES, TCASES): test_delta_gating.py's
+stream plus two waves of sub-eps feature updates at delta_eps 1e-3 over
+a capped exchange (route_cap 2: the coalesced RMI lane defers), per-tick
+and super-tick — every integer stat of every call (suppressed included)
+and the wire counters exactly equal, embeddings within 1e-5; and
+test_train_plane.py's quiescent-gradient run (lr 0, one label tick after
+the flush; dims (8, 16, 16), 4 classes) at route_cap 2, where the
+gradient lanes stay dense — steps exactly equal, loss and every
+last_grad leaf within rtol 1e-5, atol 1e-6 of JAX's 4-device run, and
+the same within the port between the 4-rank run and a one-rank run.
 """
 import hashlib
 import os
@@ -75,7 +86,16 @@ QCASES = {
 }
 KIND_EMBED, KIND_LINK = 0, 1
 STAT_FIELDS = ("broadcast_msgs", "reduce_msgs", "cross_part_msgs", "emitted",
-               "dropped", "wire_rows", "route_deferred", "route_dropped")
+               "dropped", "wire_rows", "route_deferred", "route_dropped",
+               "n_suppressed")
+# delta gating on the mesh: name -> (driver, route_cap)
+GCASES = {"gate-cap2-tick": ("tick", 2), "gate-cap2-super": ("super", 2)}
+GMETRICS = METRICS + ("suppressed",)
+GATE_EPS = 1e-3
+# the training plane on the mesh: name -> route_cap (the data plane's;
+# the gradient lanes are dense)
+TCASES = {"train-cap2-super": 2}
+T_DIMS, T_CLS = (8, 16, 16), 4
 
 
 def hub_stream(seed=0, n_edges=120):
@@ -143,6 +163,56 @@ def drive_queries(pipe, name, edges, feats, record, ring=None):
     return {k: np.asarray(v)[order] for k, v in ans.items()}
 
 
+def update_waves(feats, n_waves=2, scale=1e-4, seed=13):
+    """test_delta_gating._tiny_update_waves, here without jax."""
+    rng = np.random.default_rng(seed)
+    cur = {v: np.asarray(f, np.float32).copy() for v, f in feats.items()}
+    waves = []
+    for _ in range(n_waves):
+        events = []
+        for v in sorted(cur):
+            delta = rng.normal(size=D_IN).astype(np.float32)
+            delta *= scale / max(float(np.linalg.norm(delta)), 1e-12)
+            cur[v] = cur[v] + delta
+            events.append((v, cur[v].copy()))
+        waves.append(events)
+    return waves
+
+
+def drive_gated(pipe, name, edges, feats, record):
+    """Stream, flush, two waves of sub-eps updates, flush."""
+    driver = GCASES[name][0]
+    _record_calls(pipe, record)
+    if driver == "tick":
+        pipe.run_stream(edges, feats, tick_edges=24)
+        pipe.flush(max_ticks=256)
+        for events in update_waves(feats):
+            pipe.tick(feats=events)
+        pipe.flush(max_ticks=256)
+    else:
+        pipe.run_stream_super(edges, feats, tick_edges=24, super_ticks=4)
+        pipe.flush_super(max_ticks=256, T=4)
+        for events in update_waves(feats):
+            pipe.run_super_tick(feat_chunks=[events], T=1)
+        pipe.flush_super(max_ticks=256, T=4)
+    return pipe
+
+
+def drive_train(pipe, labels):
+    """test_train_plane._quiescent_grad_run: stream, flush, one label
+    tick. Returns (train_stats, last_grad as numpy leaves in jax.tree
+    order: head.b, head.w, then each layer's neigh.w, self.b, self.w)."""
+    edges, feats = q_stream()
+    pipe.run_stream_super(edges, feats, tick_edges=24, super_ticks=4)
+    pipe.flush_super(max_ticks=160, T=4)
+    pipe.run_super_tick(T=1, label_chunks=[list(labels.items())])
+    return pipe.train_stats(), pipe.train_state.last_grad
+
+
+def train_labels():
+    return {v: (v * 7 + 3) % T_CLS for v in range(N_NODES)}
+
+
 def _record_calls(pipe, record):
     """Record the integer TickStats of every tick / super-tick call."""
     tick, sup = pipe.tick, pipe.run_super_tick
@@ -202,7 +272,7 @@ def summary(pipe, record, keys=METRICS):
 
 # ------------------------------------------------------------ port side
 
-def _port_rank(mesh, params):
+def _port_rank(mesh, params, tparams):
     """One rank: every case, on CPU tensors. Returns per case the rank's
     aggregator-count blocks, a digest of the host batches it built and
     (all ranks alike) the summary."""
@@ -250,6 +320,35 @@ def _port_rank(mesh, params):
         res["answers"], res["ring"] = ans, ring
         res["wire_rows_cap"] = pipe.queries.wire_defer.shape[0]
         out[name] = res
+    for name, (_, cap) in GCASES.items():
+        edges, feats = q_stream()
+        model = GraphSAGE(DIMS)
+        model.load_state_dict(params)
+        pipe = D3Pipeline(model, PipelineConfig(
+            n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+            feat_cap=128, edge_tick_cap=32, max_nodes=N_NODES,
+            route_cap=cap, delta_eps=GATE_EPS,
+            window=win.WindowConfig(kind=win.STREAMING)), mesh=mesh)
+        record = []
+        drive_gated(pipe, name, edges, feats, record)
+        out[name] = summary(pipe, record, GMETRICS)
+    from repro_torch.core.train_plane import TrainConfig
+    from repro_torch.optim import sgd
+    from repro_torch.optim.optimizers import tree_leaves
+    for name, cap in TCASES.items():
+        model = GraphSAGE(T_DIMS, n_classes=T_CLS)
+        model.load_state_dict(tparams)
+        pipe = D3Pipeline(model, PipelineConfig(
+            n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+            feat_cap=128, edge_tick_cap=32, max_nodes=N_NODES,
+            route_cap=cap, train_cap=64,
+            window=win.WindowConfig(kind=win.STREAMING)), mesh=mesh,
+            train=TrainConfig(optimizer=sgd(), lr=0.0, batch_threshold=1))
+        st, grads = drive_train(pipe, train_labels())
+        out[name] = {"stats": st, "grads": [g.numpy() for g in
+                                            tree_leaves(grads)],
+                     "metrics": {k: int(getattr(pipe.metrics, k))
+                                 for k in METRICS}}
     return out
 
 
@@ -291,6 +390,35 @@ def jax_reference(path):
         res = summary(pipe, record, QMETRICS)
         res["answers"] = ans
         out[name] = res
+    from repro.core.pipeline import D3Pipeline as JaxPipeline
+    from repro.core.pipeline import PipelineConfig as JaxConfig
+    from repro.core.train_plane import TrainConfig as JaxTrainConfig
+    from repro.graph.sage import GraphSAGE as JaxSAGE
+    from repro.optim import sgd as jsgd
+    caps = dict(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+                feat_cap=128, edge_tick_cap=32, max_nodes=N_NODES,
+                window=jwin.WindowConfig(kind=jwin.STREAMING))
+    for name, (_, cap) in GCASES.items():
+        edges, feats = q_stream()
+        jm = JaxSAGE(DIMS)
+        pipe = JaxPipeline(jm, jm.init(jax.random.key(0)), JaxConfig(
+            **caps, route_cap=cap, delta_eps=GATE_EPS), mesh=mesh)
+        record = []
+        drive_gated(pipe, name, edges, feats, record)
+        out[name] = summary(pipe, record, GMETRICS)
+    for name, cap in TCASES.items():
+        jm = JaxSAGE(T_DIMS, n_classes=T_CLS)
+        jp = jm.init(jax.random.key(0))
+        pipe = JaxPipeline(jm, jp, JaxConfig(**caps, route_cap=cap,
+                                             train_cap=64), mesh=mesh,
+                           train=JaxTrainConfig(optimizer=jsgd(), lr=0.0,
+                                                batch_threshold=1))
+        st, grads = drive_train(pipe, train_labels())
+        out[name] = {"stats": st, "grads": [np.asarray(g) for g in
+                                            jax.tree.leaves(grads)],
+                     "metrics": {k: int(getattr(pipe.metrics, k))
+                                 for k in METRICS},
+                     "params": jax.tree.map(np.asarray, jp)}
     with open(path, "wb") as f:
         pickle.dump(out, f)
 
@@ -316,8 +444,11 @@ def runs(tmp_path_factory):
     try:
         params = params_from_numpy(jax.tree.map(
             np.asarray, JaxSAGE(DIMS).init(jax.random.key(0))))
+        tparams = params_from_numpy(jax.tree.map(
+            np.asarray, JaxSAGE(T_DIMS, n_classes=T_CLS).init(
+                jax.random.key(0))))
         port = spawn_stream_mesh(N_RANKS, _port_rank, backend="gloo",
-                                 device="cpu", args=(params,),
+                                 device="cpu", args=(params, tparams),
                                  timeout=TIMEOUT)
         log, _ = proc.communicate(timeout=TIMEOUT)
     finally:
@@ -326,12 +457,12 @@ def runs(tmp_path_factory):
     assert proc.returncode == 0, log[-4000:]
     with open(out, "rb") as f:
         ref = pickle.load(f)
-    return ref, port, params
+    return ref, port, params, tparams
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_mesh_matches_jax_mesh(runs, name):
-    ref, port, params = runs
+    ref, port, params, _ = runs
     want = ref[name.removesuffix("-scatter")]
     edges, feats = hub_stream(CASES[name][0])
     np.testing.assert_array_equal(edges, want["edges"])
@@ -375,7 +506,7 @@ def test_mesh_matches_jax_mesh(runs, name):
 def test_mesh_queries_match_jax_mesh(runs, name):
     """The query plane on 4 gloo ranks against JAX's 4-device mesh: the
     same answers tick for tick, the same integer stats and counters."""
-    ref, port, _ = runs
+    ref, port, *_ = runs
     want = ref[name]
     for r in (p[name] for p in port):
         assert r["metrics"] == want["metrics"]
@@ -403,8 +534,63 @@ def test_mesh_queries_match_jax_mesh(runs, name):
         assert r0["wire_rows_cap"] == 0
 
 
+@pytest.mark.parametrize("name", list(GCASES))
+def test_mesh_gating_matches_jax_mesh(runs, name):
+    """Delta gating on 4 gloo ranks against JAX's 4-device mesh: the
+    coalesced, gated RMI lane over a 2-row bucket gives the same stats
+    (suppressed included) call for call."""
+    ref, port, *_ = runs
+    want = ref[name]
+    for r in (p[name] for p in port):
+        assert r["metrics"] == want["metrics"]
+        assert r["stats"] == want["stats"]
+        np.testing.assert_array_equal(r["busy"], want["busy"])
+        assert set(r["emb"]) == set(want["emb"]) and r["emb"]
+        for vid, vec in want["emb"].items():
+            np.testing.assert_allclose(r["emb"][vid], vec, rtol=1e-5,
+                                       atol=1e-5)
+    m = want["metrics"]
+    assert m["suppressed"] > 0 and m["route_deferred"] > 0
+    assert m["route_dropped"] == 0
+
+
+def _one_rank_train(tparams, cap):
+    from repro_torch.core.train_plane import TrainConfig
+    from repro_torch.optim import sgd
+    from repro_torch.optim.optimizers import tree_leaves
+    model = GraphSAGE(T_DIMS, n_classes=T_CLS)
+    model.load_state_dict(tparams)
+    pipe = D3Pipeline(model, PipelineConfig(
+        n_parts=4, node_cap=32, edge_cap=128, repl_cap=128, feat_cap=128,
+        edge_tick_cap=32, max_nodes=N_NODES, route_cap=cap, train_cap=64,
+        window=win.WindowConfig(kind=win.STREAMING)), device="cpu",
+        train=TrainConfig(optimizer=sgd(), lr=0.0, batch_threshold=1))
+    st, grads = drive_train(pipe, train_labels())
+    return st, [g.numpy() for g in tree_leaves(grads)]
+
+
+@pytest.mark.parametrize("name", list(TCASES))
+def test_mesh_training_matches_jax_mesh(runs, name):
+    """lr 0 quiescent gradients on 4 gloo ranks (hops A and B on the
+    wire) against JAX's 4-device run and the port's one-rank run."""
+    ref, port, _, tparams = runs
+    want = ref[name]
+    one_st, one_grads = _one_rank_train(tparams, TCASES[name])
+    for r in (p[name] for p in port):
+        assert r["metrics"] == want["metrics"]
+        for st, grads in ((want["stats"], want["grads"]),
+                          (one_st, one_grads)):
+            assert r["stats"]["steps"] == st["steps"] == 1
+            np.testing.assert_allclose(r["stats"]["loss"], st["loss"],
+                                       rtol=1e-5, atol=1e-6)
+            assert len(r["grads"]) == len(grads)
+            for a, b in zip(r["grads"], grads):
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+    assert want["metrics"]["wire_bytes"] > 0
+
+
 def test_capped_wire_is_smaller_than_dense(runs):
-    ref, port, _ = runs
+    ref, port, *_ = runs
     dense = port[0]["dense-super"]["metrics"]["wire_bytes"]
     assert port[0]["cap2-super"]["metrics"]["wire_bytes"] < \
         port[0]["cap40-super"]["metrics"]["wire_bytes"] < dense

@@ -140,7 +140,21 @@ def test_serve_cli_mesh_pinned_counts(driver, rmis, cross):
     ("n_stages", 2, 13), ("delta_eps", 1e-3, 8),
     ("train_cap", 4, 10), ("telemetry", True, 11)])
 def test_unported_planes_raise(field, value, item):
+    """Planes not ported raise NotImplementedError naming their ROADMAP
+    item; items 8 (delta gating) and 10 (the training plane) are ported
+    now: delta_eps > 0 runs, and train_cap > 0 without train= is the
+    ValueError JAX raises."""
     cfg = PipelineConfig(**CAPS, **{field: value})
+    if item == 8:
+        edges, feats = _stream()
+        pipe = D3Pipeline(GraphSAGE(DIMS), cfg, device="cpu")
+        pipe.run_stream(edges[:48], feats, tick_edges=24)
+        assert pipe.metrics.ticks == 2
+        return
+    if item == 10:
+        with pytest.raises(ValueError, match="train_cap"):
+            D3Pipeline(GraphSAGE(DIMS), cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         D3Pipeline(GraphSAGE(DIMS), cfg, device="cpu")
 
@@ -188,7 +202,9 @@ def test_unported_pipeline_arguments_raise():
         spawn_stream_mesh(4, print, backend="gloo", device="cpu", stage=2)
     with pytest.raises(TypeError, match="StreamMesh"):
         D3Pipeline(GraphSAGE(DIMS), cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the training plane is ported: train= without train_cap is the
+    # ValueError JAX raises
+    with pytest.raises(ValueError, match="train_cap"):
         D3Pipeline(GraphSAGE(DIMS), cfg, train=object(), device="cpu")
     with pytest.raises(ValueError, match="not registered"):
         PipelineConfig(**CAPS, delivery_backend="xla").validate()
