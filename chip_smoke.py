@@ -90,6 +90,34 @@ Then delta gating and the training plane:
      coalescer's layer-0 RMI lane, beside the plain version, zeros (or
      the base) + index_add_ and the bound (rows 1b and 1c of PERF.md).
 
+Then the telemetry plane and consistent-cut checkpoints:
+
+  [telemetry-parity] the golden small stream (32 nodes, dims (8, 12, 12),
+     query mix aboard) with telemetry on, both drivers, card against CPU:
+     every stat of every call and every integer trace column exactly
+     equal; on the card every stat but the four gauges, the sink and the
+     state bit-equal to the run without telemetry; the advisor's caps
+     card = CPU, and their replay on the card drops nothing and gives the
+     same sink;
+  [telemetry-full] phase 4's stream with telemetry on: edges/s beside
+     phase 4's, the synchronizing calls a super-tick (must be phase 4's:
+     the occupancy rows ride the one stats read), the trace's rows, the
+     advisor's caps against FULL's, the cost model's fit (hit_frac,
+     mae_frac), the saved .npz's bytes, and one profiled super-tick's
+     device busy with and without telemetry;
+  [ckpt-parity] the golden small stream on the card cut mid-stream
+     (pending windows, held consistent queries), saved with both
+     async_write settings, restored into fresh pipelines: the continuation
+     bit-equal to the uninterrupted run on every stat, answer and float of
+     the sink and the state; the card's checkpoint continued on the CPU;
+     the torn-checkpoint drill (ft/chaos.py) on the card;
+  [ckpt-full] phase 4's configuration with the query plane on, cut after
+     48 ticks with 64 consistent queries held: state and blob bytes, save
+     seconds (synchronous; asynchronous: the stall for the snapshot and the
+     write's end), restore seconds, peak host and device memory; the
+     restored pipeline finishes the stream bit-equal to the uninterrupted
+     run.
+
 Then the sharded 1-D mesh path, four gloo ranks that share the card (one
 process each, started after the parent frees its memory; every kernel is
 built before any rank starts):
@@ -118,7 +146,10 @@ built before any rank starts):
      a gated case (route_cap 16, two update waves) card = CPU with the
      coalescer on kernel A; an lr 0 training case whose quiescent grads
      equal the CPU ranks' and a one-rank run's within MESH_TOL, with
-     route_lane launched 4 L times a tick (hops A and B a layer);
+     route_lane launched 4 L times a tick (hops A and B a layer); a
+     telemetry case (the golden small stream at route_cap 2): every stat
+     and trace column card = CPU on every rank, the straggler feed fed
+     once a launch, telemetry changing no other stat nor the sink;
   [mesh-full] GraphSAGE (602, 64, 64) with FULL's caps (16 parts a rank),
      route_cap 4096, route_defer_cap 32,768, 100,000 power-law edges,
      super-tick driver: no row dropped, route_lane launched 4 times a tick
@@ -126,7 +157,9 @@ built before any rank starts):
      SINK_TOL of the float64 oracle and of a single-rank run whose
      aggregator counts it equals; edges/s, wire counters, collectives
      (host syncs) per super-tick, time blocked in all_to_all and peak
-     memory per rank; then rank 0's device time inside route_lanes by
+     memory per rank; the exchange rate (rank 0's all_to_all bytes over
+     the seconds blocked in it); then rank 0's device time inside
+     route_lanes by
      call site over one steady super-tick of a second run
      (torch.profiler);
   [mesh-time] route_pack at [mesh-full]'s layer-0 RMI shape and at the
@@ -180,6 +213,10 @@ phases free their memory:
   [rs-time] the kernel at retrieval_cand's item side (2,000,896 bags)
      on a fresh item-sized table beside its bound, its plain version and
      F.embedding_bag (timed only, as a yardstick).
+
+After [mesh-full], [what-if]: the cost model fitted on [mesh-parity]'s
+telemetry trace prices other route_caps' wire at [mesh-full]'s measured
+gloo all_to_all rate (bytes over the seconds blocked in it).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository around it, the script exits non-zero and prints no
@@ -2185,6 +2222,534 @@ def phase_train_time(pipe, errs, launches_per_tick, gate_info):
 
 
 # ------------------------------------------------------------- mesh phases
+# ------------------------------------------ telemetry and checkpoint phases
+# [ckpt-full]: phase 4's configuration with the query plane on (QUERY's
+# caps), cut after `cut_launches` super-ticks of the stream with
+# `consistent` consistent EMBED queries submitted in the launch before
+# the cut (held on the device at the cut)
+CKPT = dict(cut_launches=6, consistent=64)
+TEL_GAUGES = ("occ_bc_defer", "occ_rmi_defer", "route_peak",
+              "outbox_part_peak")
+
+
+def gauge_free(rows):
+    """stats_row rows without the four telemetry gauges."""
+    from repro_torch.core.tick import SCALAR_FIELDS
+    keep = [i for i, f in enumerate(SCALAR_FIELDS) if f not in TEL_GAUGES]
+    n = len(SCALAR_FIELDS)
+    return [[[r[i] for i in keep] + r[n:] for r in call] for call in rows]
+
+
+def state_leaves(pipe):
+    """Every tensor of the pipeline's checkpoint cut, in the checkpoint's
+    order (ft/checkpoint.py)."""
+    from repro_torch.ft import checkpoint as ck
+    return [l for _, l in ck.tree_flatten(ck.pipeline_tree(pipe))]
+
+
+def states_equal(a, b):
+    la, lb = state_leaves(a), state_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and bool(torch_equal(x.cpu(), y.cpu()))
+        for x, y in zip(la, lb))
+
+
+def torch_equal(x, y):
+    import torch
+    return torch.equal(x, y)
+
+
+def trace_ints(pipe):
+    """The trace's device columns and integer host columns."""
+    from repro_torch.telemetry.trace import TRACE_DEVICE_COLS
+    cols = pipe.trace.columns()
+    return {c: cols[c] for c in TRACE_DEVICE_COLS + [
+        "tick", "ticks", "amortized", "wire_bytes", "edges_in", "feats_in",
+        "queries_in", "labels_in"]}
+
+
+def tel_golden_run(device, driver, telemetry=True, **cfg_kw):
+    """The golden small stream (32 nodes, dims (8, 12, 12), 4 parts,
+    session(3), query_cap 8) with the golden query mix in its second
+    tick, then 8 empty ticks. Returns (pipeline, per-call stats rows)."""
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    edges, feats = golden_small_stream()
+    kw = dict(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+              feat_cap=128, edge_tick_cap=32, max_nodes=32, query_cap=8,
+              window=win.WindowConfig(kind=win.SESSION, interval=3))
+    kw.update(cfg_kw)
+    pipe = D3Pipeline(GraphSAGE((8, 12, 12), seed=SEED),
+                      PipelineConfig(**kw, telemetry=telemetry),
+                      device=device)
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 24)
+    q = golden_query_mix(edges)
+    if driver == "tick":
+        rows = [stats_row(pipe.tick(e, f, queries=q if i == 1 else None))
+                for i, (e, f) in enumerate(zip(e_chunks, f_chunks))]
+        rows += [stats_row(pipe.tick()) for _ in range(8)]
+    else:
+        rows = [stats_row(pipe.run_super_tick(
+                    e_chunks, f_chunks, T=len(e_chunks),
+                    query_chunks=[None, q])[0]),
+                stats_row(pipe.run_super_tick(T=8)[0])]
+    return pipe, rows
+
+
+def phase_telemetry_parity(device):
+    """The golden small stream with telemetry on, card (kernel backend)
+    against the CPU, both drivers: every stat of every call and every
+    integer trace column exactly equal; on the card, every stat other
+    than the gauges, the sink and the state bit-equal to the run without
+    telemetry; the advisor's recommendation equal, and its replay on the
+    card drops nothing and gives the same sink."""
+    import torch
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.telemetry.advisor import recommend, replay_ok
+    from repro_torch.telemetry.trace import Trace
+    cpu = torch.device("cpu")
+    for driver in ("tick", "super"):
+        ops.reset_launches()
+        card, card_rows = tel_golden_run(device, driver)
+        launches = dict(ops.LAUNCHES)
+        host, host_rows = tel_golden_run(cpu, driver)
+        check(card_rows == host_rows, f"[telemetry-parity] {driver}: "
+                                      "TickStats differ, card vs CPU")
+        a, b = trace_ints(card), trace_ints(host)
+        for c in a:
+            check(np.array_equal(a[c], b[c]), f"[telemetry-parity] "
+                  f"{driver}: trace column {c} differs, card vs CPU: "
+                  f"{a[c].tolist()} vs {b[c].tolist()}")
+        off, off_rows = tel_golden_run(device, driver, telemetry=False)
+        check(gauge_free(off_rows) == gauge_free(card_rows),
+              f"[telemetry-parity] {driver}: telemetry changed a stat")
+        check(all(v == 0 for call in off_rows for r in call
+                  for v in r[9:13]), "[telemetry-parity] gauges not zero "
+                                     "with telemetry off")
+        check(states_equal(card, off), f"[telemetry-parity] {driver}: "
+              "telemetry changed the state or the sink")
+        recs = recommend(Trace(card.trace.meta, card.trace.columns()))
+        check(recs == recommend(Trace(host.trace.meta,
+                                      host.trace.columns())),
+              f"[telemetry-parity] {driver}: advisor differs, card vs CPU")
+        caps = {k: v for k, v in recs["caps"].items()
+                if v is not None or k in ("route_cap", "route_defer_cap")}
+        replay, _ = tel_golden_run(device, driver, telemetry=False, **caps)
+        got = replay_ok(replay)
+        check(torch.equal(replay.sink, card.sink), f"[telemetry-parity] "
+              f"{driver}: the replay's sink differs from the recorded run")
+        if device.type == "cuda":
+            check(all(v > 0 for v in launches.values()),
+                  f"[telemetry-parity] a kernel never launched: {launches}")
+        print(f"[telemetry-parity] driver {driver}: card = CPU on "
+              f"{len(card.trace)} trace rows x {len(a)} integer columns and "
+              f"{len(card_rows)} calls' stats (route_peak max "
+              f"{int(a['route_peak'].max())}, outbox_part_peak max "
+              f"{int(a['outbox_part_peak'].max())}, query_pending max "
+              f"{int(a['query_pending'].max())}); telemetry off: every other "
+              f"stat, the sink and the state bit-equal; advisor caps "
+              f"{recs['caps']} (card = CPU), replay {got}, sink bit-equal; "
+              f"launches {launches}")
+
+
+def profiled_busy(full, device, edges, feats, telemetry, warm=3):
+    """(device busy ms, wall ms) of one steady super-tick under
+    torch.profiler after `warm` unprofiled ones of the stream."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    cfg = PipelineConfig(**full["caps"], max_nodes=full["n_nodes"],
+                         telemetry=telemetry,
+                         window=win.WindowConfig(kind=win.SESSION,
+                                                 interval=4))
+    pipe = D3Pipeline(GraphSAGE(full["dims"], seed=SEED), cfg, device=device)
+    T = full["super_ticks"]
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, full["tick_edges"])
+    for lo in range(0, warm * T, T):
+        pipe.run_super_tick(e_chunks[lo:lo + T], f_chunks[lo:lo + T], T=T)
+    lo = warm * T
+    sync(torch.zeros((), device=device))
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        pipe.run_super_tick(e_chunks[lo:lo + T], f_chunks[lo:lo + T], T=T)
+        sync(torch.zeros((), device=device))
+        wall = time.perf_counter() - t0
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in prof.key_averages()
+               if "CUDA" in str(e.device_type) and dev_us(e) > 0
+               and e.key != "Command Buffer Full") / 1e3
+    return busy, wall * 1e3
+
+
+def phase_telemetry_full(device, baseline, full=FULL):
+    """Phase 4's full-width stream with telemetry on (super-tick driver):
+    edges/s beside phase 4's, the synchronizing calls a super-tick (must
+    be phase 4's), one profiled super-tick's device busy with and without
+    telemetry, the trace, the advisor's caps against FULL's, the cost
+    model's fit on the trace and the saved .npz's size."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.telemetry.advisor import recommend
+    from repro_torch.telemetry.cost_model import fit_cost_model
+    from repro_torch.telemetry.trace import Trace, load_trace
+    edges, feats = make_stream(full["n_nodes"], full["n_edges"],
+                               full["dims"][0])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    pipe, secs, sites = stream_pipeline(full, "kernel", device, edges, feats,
+                                        telemetry=True)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    m = pipe.metrics
+    T = full["super_ticks"]
+    n_super = m.ticks // T
+    n_syncs = sum(sites.values())
+    base_syncs = sum(baseline["sync_sites"].values())
+    eps = full["n_edges"] / secs
+    print(f"[telemetry-full] caps {full['caps']} dims {full['dims']} "
+          f"telemetry on, driver super(T={T}): {full['n_edges']} edges in "
+          f"{secs:.3f}s = {eps:.1f} edges/s, {eps / baseline['edges_per_s']:.3f}"
+          f" of phase 4's {baseline['edges_per_s']:.1f} in this run; ticks "
+          f"{m.ticks}; peak memory {peak / 2**30:.2f} GiB")
+    print(f"[telemetry-full] synchronizing CUDA calls {n_syncs} over "
+          f"{n_super} super-ticks = {n_syncs / max(n_super, 1):.2f} a "
+          f"super-tick at {dict(sites)} (phase 4: {base_syncs} over "
+          f"{baseline['n_super']} = {base_syncs / max(baseline['n_super'], 1):.2f}"
+          f" at {baseline['sync_sites']})")
+    if cuda:
+        check(n_syncs == n_super and n_syncs * baseline["n_super"]
+              == base_syncs * n_super,
+              "[telemetry-full] telemetry changed the syncs a super-tick: "
+              f"{n_syncs} over {n_super} (phase 4: {base_syncs} over "
+              f"{baseline['n_super']})")
+    check(len(pipe.trace) == m.ticks, f"[telemetry-full] {len(pipe.trace)} "
+          f"trace rows for {m.ticks} ticks")
+    trace = Trace(pipe.trace.meta, pipe.trace.columns())
+    cols = trace.columns
+    check(int(cols["emitted_final"].sum()) == m.emitted_total
+          and int(cols["dropped"].sum()) == m.dropped,
+          "[telemetry-full] trace columns disagree with the metrics")
+    recs = recommend(trace)
+    print(f"[telemetry-full] trace {len(trace)} rows; outbox_part_peak max "
+          f"{int(cols['outbox_part_peak'].max())}, outbox_demand max "
+          f"{int(cols['outbox_demand'].max())}, dropped {int(cols['dropped'].sum())}, "
+          f"edges_in max {int(cols['edges_in'].max())}, feats_in max "
+          f"{int(cols['feats_in'].max())}; advisor caps {recs['caps']} "
+          f"against FULL's outbox_cap (feat_cap) {full['caps']['feat_cap']}, "
+          f"feat_cap {full['caps']['feat_cap']}, edge_tick_cap "
+          f"{full['caps']['edge_tick_cap']}")
+    cm = fit_cost_model(trace)
+    rep = cm.report(trace)
+    print(f"[telemetry-full] cost model on the trace (amortized rows, "
+          f"super-tick wall / T): report {rep}; intercept "
+          f"{cm.intercept:.6f} s; s/row {cm.coef}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace-")
+    try:
+        path = Path(tmp) / "trace.npz"
+        pipe.save_trace(path)
+        size = path.stat().st_size
+        back = load_trace(path)
+        check(len(back) == len(trace), "[telemetry-full] trace round trip")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[telemetry-full] saved trace {size} bytes "
+          f"({size / max(len(trace), 1):.1f} bytes a row)")
+    del pipe
+    free_cuda()
+    busy = {t: profiled_busy(full, device, edges, feats, t)
+            for t in (False, True)}
+    if cuda and not all(b for b, _ in busy.values()):
+        print("[telemetry-full] profiled device busy: not measured (no "
+              "device events in the profile)")
+    else:
+        print(f"[telemetry-full] one profiled super-tick (stream ticks "
+              f"{3 * T}..{4 * T - 1}): device busy {busy[True][0]:.3f} ms "
+              f"with telemetry, {busy[False][0]:.3f} ms without "
+              f"({busy[True][0] - busy[False][0]:+.3f} ms); wall "
+              f"{busy[True][1]:.3f} / {busy[False][1]:.3f} ms")
+
+
+def ckpt_pipeline(device, full, q, telemetry=False):
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    cfg = PipelineConfig(**full["caps"], max_nodes=full["n_nodes"],
+                         query_cap=q["query_cap"],
+                         query_tick_cap=q["query_tick_cap"],
+                         telemetry=telemetry,
+                         window=win.WindowConfig(kind=win.SESSION,
+                                                 interval=4))
+    return D3Pipeline(GraphSAGE(full["dims"], seed=SEED), cfg, device=device)
+
+
+def finish_rows(pipe, e_chunks, f_chunks, lo, T):
+    """Stream the chunks from `lo` on, T ticks a launch, then flush_super:
+    every call's stats rows."""
+    rows = []
+    run = pipe.run_super_tick
+
+    def recorded(*a, **k):
+        stats, quiet = run(*a, **k)
+        rows.append(stats_row(stats))
+        return stats, quiet
+
+    pipe.run_super_tick = recorded
+    try:
+        for i in range(lo, len(e_chunks), T):
+            pipe.run_super_tick(e_chunks[i:i + T], f_chunks[i:i + T], T=T)
+        pipe.flush_super(max_ticks=256, T=T)
+    finally:
+        del pipe.run_super_tick
+    return rows
+
+
+def phase_ckpt_parity(device):
+    """On the card at the golden small size: cut mid-stream (windows
+    pending, consistent queries held), save with both write modes,
+    restore into fresh pipelines and continue: bit-equal to the
+    uninterrupted run on every stat, answer, float of the sink and of the
+    state. The card's checkpoint also restores on the CPU. Then the torn
+    checkpoint drill on the card."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.ft import chaos
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.kernels.segment_reduce import ops
+    small = dict(n_nodes=32, dims=(8, 12, 12), caps=dict(
+        n_parts=4, node_cap=32, edge_cap=128, repl_cap=128, feat_cap=128,
+        edge_tick_cap=32))
+    q = dict(query_cap=8, query_tick_cap=None)
+    edges, feats = golden_small_stream()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt-"))
+    try:
+        ref = ckpt_pipeline(device, small, q)
+        e_chunks, f_chunks = ref.chunk_stream(edges, feats, 12)
+        T, cut = 2, 4
+        for lo in range(0, cut, T):
+            ref.run_super_tick(e_chunks[lo:lo + T], f_chunks[lo:lo + T], T=T,
+                               query_chunks=[golden_query_mix(edges)]
+                               if lo == cut - T else None)
+        ref.drain_answers()         # answered before the cut
+        held = int(ref.queries.pending.sum())
+        pend = sum(int((ls.red_pending | ls.fwd_pending).sum())
+                   for ls in ref.states)
+        check(held > 0 and pend > 0, f"[ckpt-parity] the cut holds {held} "
+              f"queries and {pend} pending windows: nothing in flight")
+        mgrs = {a: CheckpointManager(tmp / f"async{int(a)}", async_write=a)
+                for a in (False, True)}
+        for mgr in mgrs.values():
+            mgr.save_pipeline(1, ref)
+        mgrs[True].wait()
+        restored = {}
+        for a, mgr in mgrs.items():
+            p = ckpt_pipeline(device, small, q)
+            check(mgr.restore_pipeline(p) == 1 and states_equal(p, ref),
+                  f"[ckpt-parity] async_write={a}: the restored cut differs")
+            restored[a] = p
+        host = ckpt_pipeline(torch.device("cpu"), small, q)
+        mgrs[False].restore_pipeline(host)
+        ops.reset_launches()
+        want = finish_rows(ref, e_chunks, f_chunks, cut, T)
+        launches = dict(ops.LAUNCHES)
+        want_ans = sorted_answers(ref)
+        for a, p in restored.items():
+            got = finish_rows(p, e_chunks, f_chunks, cut, T)
+            check(got == want, f"[ckpt-parity] async_write={a}: the "
+                               "continuation's stats differ")
+            ans = sorted_answers(p)
+            check(all(np.array_equal(ans[k], want_ans[k]) for k in want_ans),
+                  f"[ckpt-parity] async_write={a}: answers differ")
+            check(states_equal(p, ref), f"[ckpt-parity] async_write={a}: "
+                  "the continuation's state differs from the uninterrupted "
+                  "run's")
+        h_rows = finish_rows(host, e_chunks, f_chunks, cut, T)
+        check(h_rows == want, "[ckpt-parity] the card's checkpoint "
+                              "continued on the CPU: stats differ")
+        h_err = answers_check("ckpt-parity", sorted_answers(host), want_ans,
+                              QUERY_TOL)
+        if device.type == "cuda":
+            check(all(v > 0 for v in launches.values()),
+                  f"[ckpt-parity] a kernel never launched: {launches}")
+        blob = (tmp / "async0" / "0000000001.ckpt").read_bytes()
+        print(f"[ckpt-parity] cut at tick {cut} ({held} held queries, "
+              f"{pend} pending windows): restored with async_write False "
+              f"and True, the continuation ({len(want)} calls, "
+              f"{len(want_ans['qid'])} answers) bit-equal to the "
+              f"uninterrupted run on every stat, answer and float of the "
+              f"sink and the state; restored on the CPU: stats equal, "
+              f"answers within {h_err:.3e}; blob {len(blob)} bytes, codec "
+              f"tag {blob[:1]!r}; launches {launches}")
+        rep = chaos.scenario_truncated_checkpoint(chaos.ChaosConfig(),
+                                                  tmp / "torn",
+                                                  device=device)
+        check(rep["explicit_error"] is not None
+              and f"step {rep['torn_step']}" in rep["explicit_error"]
+              and rep["restored_step"] == rep["torn_step"] - 1
+              and rep["fallback_warned"],
+              f"[ckpt-parity] torn-checkpoint drill: {rep}")
+        print(f"[ckpt-parity] torn checkpoint: step {rep['torn_step']} "
+              f"raises CheckpointCorruptError, step=None warns and falls "
+              f"back to step {rep['restored_step']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_ckpt_full(device, full=FULL, q=QUERY, c=CKPT):
+    """Phase 4's full-width pipeline (query plane on) cut mid-stream with
+    pending windows and held consistent queries; saved sync and async,
+    restored into a fresh pipeline that finishes the stream: bit-equal to
+    the uninterrupted run. State and blob bytes, save / stall / restore
+    seconds, peak host and device memory."""
+    import resource
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.serve.query import KIND_EMBED
+    edges, feats = make_stream(full["n_nodes"], full["n_edges"],
+                               full["dims"][0])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ref = ckpt_pipeline(device, full, q)
+    T = full["super_ticks"]
+    e_chunks, f_chunks = ref.chunk_stream(edges, feats, full["tick_edges"])
+    cut = c["cut_launches"] * T
+    gen = np.random.default_rng(SEED + 3)
+    seen = np.unique(np.concatenate(e_chunks[:cut - T]))
+    vids = gen.choice(seen, c["consistent"], replace=False)
+    qs = [(i, KIND_EMBED, int(v), True) for i, v in enumerate(vids)]
+    t0 = time.perf_counter()
+    for lo in range(0, cut, T):
+        ref.run_super_tick(e_chunks[lo:lo + T], f_chunks[lo:lo + T], T=T,
+                           query_chunks=[qs] if lo == cut - T else None)
+    pre_secs = time.perf_counter() - t0
+    ref.drain_answers()
+    held = int(ref.queries.pending.sum())
+    pend = sum(int((ls.red_pending | ls.fwd_pending).sum())
+               for ls in ref.states)
+    check(held > 0 and pend > 0, f"[ckpt-full] the cut holds {held} queries "
+          f"and {pend} pending windows")
+    leaves = state_leaves(ref)
+    state_bytes = sum(l.numel() * l.element_size() for l in leaves)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt-"))
+    try:
+        sync(leaves[0])
+        t0 = time.perf_counter()
+        CheckpointManager(tmp / "sync").save_pipeline(1, ref)
+        save_s = time.perf_counter() - t0
+        amgr = CheckpointManager(tmp / "async", async_write=True)
+        t0 = time.perf_counter()
+        amgr.save_pipeline(1, ref)
+        stall_s = time.perf_counter() - t0
+        amgr.wait()
+        async_s = time.perf_counter() - t0
+        blob = sum(p.stat().st_size for p in (tmp / "sync").iterdir())
+        tag = (tmp / "sync" / "0000000001.ckpt").read_bytes()[:1]
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        got = ckpt_pipeline(device, full, q)
+        sync(leaves[0])
+        t0 = time.perf_counter()
+        check(CheckpointManager(tmp / "async").restore_pipeline(got) == 1,
+              "[ckpt-full] restored the wrong step")
+        sync(got.sink)
+        restore_s = time.perf_counter() - t0
+        check(states_equal(got, ref), "[ckpt-full] the restored cut differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    want = finish_rows(ref, e_chunks, f_chunks, cut, T)
+    ref_secs = time.perf_counter() - t0
+    want_ans = sorted_answers(ref)
+    rows = finish_rows(got, e_chunks, f_chunks, cut, T)
+    ans = sorted_answers(got)
+    check(rows == want, "[ckpt-full] the continuation's stats differ from "
+                        "the uninterrupted run's")
+    check(len(want_ans["qid"]) == c["consistent"] and all(
+        np.array_equal(ans[k], want_ans[k]) for k in want_ans),
+          "[ckpt-full] the held queries' answers differ")
+    check(states_equal(got, ref), "[ckpt-full] the continuation's sink or "
+                                  "state differs from the uninterrupted run's")
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    emitted = sum(r[-1][3] for r in want)
+    print(f"[ckpt-full] caps {full['caps']} + query_cap {q['query_cap']}, "
+          f"cut after {cut} ticks ({pre_secs:.3f}s of streaming), "
+          f"{held} consistent queries held, {pend} pending windows; state "
+          f"{state_bytes} bytes ({state_bytes / 2**30:.3f} GiB) in "
+          f"{len(leaves)} tensors; blob {blob} bytes (codec tag {tag!r}, "
+          f"{state_bytes / max(blob, 1):.1f}x)")
+    print(f"[ckpt-full] save {save_s:.3f}s synchronous; asynchronous: the "
+          f"stream stalls {stall_s:.3f}s for the snapshot, the write ends "
+          f"{async_s:.3f}s after the call; restore {restore_s:.3f}s; peak "
+          f"host memory (max RSS) {rss} bytes ({rss / 2**30:.2f} GiB), "
+          f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    print(f"[ckpt-full] the restored pipeline finished the stream "
+          f"({len(want)} super-ticks, the uninterrupted run's in "
+          f"{ref_secs:.3f}s, {emitted} final-layer emissions) bit-equal to the uninterrupted run on every stat, every "
+          f"answer ({len(ans['qid'])}) and every float of the sink and "
+          f"the state")
+    del ref, got
+    free_cuda()
+
+
+def phase_what_if(trace, rate, card):
+    """The cost model fitted on [mesh-parity]'s telemetry trace (4 ranks,
+    route_cap 2) asked what other route_caps would cost on the wire,
+    priced at [mesh-full]'s measured exchange rate (no TPU constant)."""
+    from repro_torch.telemetry.cost_model import fit_cost_model
+    cm = fit_cost_model(trace)
+    for rc in (None, 8, 2, 1):
+        wi = cm.what_if(trace, route_cap=rc, link_bw=rate)
+        print(f"[what-if] route_cap {rc}: wire {wi['wire_bytes_per_tick']} "
+              f"bytes a tick ({wi['wire_bytes_delta']:+d} against the "
+              f"recorded route_cap {trace.meta['route_cap']}), "
+              f"{wi['wire_delta_s'] * 1e3:+.4f} ms a tick at {rate:.1f} "
+              f"bytes/s, predicted tick {wi['pred_tick_s'] * 1e3:.4f} ms")
+    print(f"[what-if] cost model fitted on the trace's {len(trace)} rows: "
+          f"report {cm.report(trace)}; the rate is [mesh-full]'s, on {card}")
+
+
+def _mesh_tel_run(mesh, dev):
+    """[mesh-parity]'s telemetry case: the golden small stream (32 nodes,
+    dims (8, 12, 12), 4 parts, one a rank) at route_cap 2, super-tick
+    driver, with telemetry and without."""
+    import dataclasses
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    edges, feats = golden_small_stream()
+    out = {}
+    for tel in (True, False):
+        view = dataclasses.replace(mesh, device=dev, calls={})
+        pipe = D3Pipeline(GraphSAGE((8, 12, 12), seed=SEED), PipelineConfig(
+            n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+            feat_cap=128, edge_tick_cap=32, max_nodes=32, route_cap=2,
+            telemetry=tel, window=win.WindowConfig(kind=win.STREAMING)),
+            mesh=view)
+        e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 24)
+        rows = [stats_row(pipe.run_super_tick(e_chunks, f_chunks,
+                                              T=len(e_chunks))[0]),
+                stats_row(pipe.run_super_tick(T=16)[0])]
+        out["on" if tel else "off"] = {
+            "rows": rows, "sink": pipe.sink.cpu().numpy(),
+            "calls": {k: c[0] for k, c in view.calls.items()}}
+        if tel:
+            out["trace"] = trace_ints(pipe)
+            out["meta"] = pipe.trace.meta
+            out["cols"] = pipe.trace.columns()
+            out["fed"] = pipe.straggler.ticks_observed
+    return out
+
+
 def plant_specials(gen, x):
     """Plant NaN payloads, +-Inf and -0.0 at 12 random words of f32 x."""
     import torch
@@ -2501,6 +3066,7 @@ def _mesh_parity_rank(mesh, m):
         out["query", dev.type] = _mesh_query_run(mesh, dev, m)
         out["gate", dev.type] = _mesh_gate_run(mesh, dev, m)
         out["train", dev.type] = _mesh_train_run(mesh, dev, m)
+        out["tel", dev.type] = _mesh_tel_run(mesh, dev)
     return out
 
 
@@ -2643,7 +3209,9 @@ def _mesh_query_run(mesh, dev, m, q=QUERY):
 def phase_mesh_parity(device, m=MESH):
     """4 gloo ranks sharing the card, the serve CLI's --edges 1500 stream
     (dims 16,64,64) at two route_caps: the card run equals the CPU run
-    exactly on every integer stat and within MESH_TOL on float state."""
+    exactly on every integer stat and within MESH_TOL on float state; then
+    the query, gated, training and telemetry cases. Returns rank 0's
+    telemetry trace (for [what-if])."""
     from repro_torch.launch.mesh import spawn_stream_mesh
     free_cuda()
     t0 = time.perf_counter()
@@ -2773,6 +3341,43 @@ def phase_mesh_parity(device, m=MESH):
           f"{ranks[0][m['parity_caps'][-1], device.type]['calls']} over "
           f"{ranks[0][m['parity_caps'][-1], device.type]['metrics']['ticks']}"
           f" ticks)")
+    # the telemetry case (route_cap 2): card = CPU on every stat and trace
+    # column; telemetry changes no other stat and not the sink
+    from repro_torch.telemetry.trace import Trace
+    for r, res in enumerate(ranks):
+        a, b = res["tel", device.type], res["tel", "cpu"]
+        check(a["on"]["rows"] == b["on"]["rows"],
+              f"[mesh-parity] telemetry run rank {r}: stats differ, card "
+              "vs CPU")
+        for c in a["trace"]:
+            check(np.array_equal(a["trace"][c], b["trace"][c]),
+                  f"[mesh-parity] telemetry run rank {r}: trace column {c} "
+                  f"differs, card vs CPU")
+            check(np.array_equal(a["trace"][c], ranks[0]["tel", device.type]
+                                 ["trace"][c]),
+                  f"[mesh-parity] telemetry run: rank {r}'s {c} differs "
+                  "from rank 0's")
+        check(gauge_free(a["on"]["rows"]) == gauge_free(a["off"]["rows"])
+              and np.array_equal(a["on"]["sink"], a["off"]["sink"]),
+              f"[mesh-parity] telemetry run rank {r}: telemetry changed a "
+              "stat or the sink")
+        check(a["fed"] == b["fed"] == 2, f"[mesh-parity] telemetry run rank "
+              f"{r}: the straggler feed took {a['fed']} launches, not 2")
+    a = ranks[0]["tel", device.type]
+    tr = a["trace"]
+    check(int(tr["route_peak"].max()) > 2 and int(tr["occ_rmi_defer"].max())
+          > 0, f"[mesh-parity] telemetry run: route_peak max "
+               f"{int(tr['route_peak'].max())}, occ_rmi_defer max "
+               f"{int(tr['occ_rmi_defer'].max())}: nothing deferred")
+    print(f"[mesh-parity] telemetry case (golden stream, 4 parts, route_cap "
+          f"2, super-tick driver): card = CPU on every stat and on "
+          f"{len(tr)} integer trace columns x {len(tr['tick'])} rows on "
+          f"every rank; route_peak max {int(tr['route_peak'].max())}, "
+          f"occ_rmi_defer max {int(tr['occ_rmi_defer'].max())}, "
+          f"occ_bc_defer max {int(tr['occ_bc_defer'].max())}; telemetry "
+          f"off: every other stat and the sink bit-equal; collectives "
+          f"{a['on']['calls']} with telemetry, {a['off']['calls']} without")
+    return Trace(a["meta"], a["cols"])
 
 
 def _mesh_full_rank(mesh, full, m):
@@ -2870,7 +3475,7 @@ def _route_lanes_profile(mesh, cfg, full, edges, feats, warm=2):
             "kernel_ms": [e.time_range.elapsed_us() / 1e3 for e in kern]}
 
 
-def phase_mesh_full(device, full=FULL, m=MESH):
+def phase_mesh_full(device, full=FULL, m=MESH, card=""):
     """d3gnn-sage at full width on 4 gloo ranks sharing the card; against
     the float64 oracle and a single-rank LocalRouter run of the stream.
     Returns the route_pack launches summed over the ranks."""
@@ -2982,8 +3587,15 @@ def phase_mesh_full(device, full=FULL, m=MESH):
     print(f"[mesh-full] the single-rank run of the same stream: {s_secs:.3f}s"
           f" = {m['n_edges'] / s_secs:.1f} edges/s; aggregator counts equal "
           f"to the mesh's; materialized {len(emb)}")
+    # the port's exchange rate: rank 0's all_to_all bytes over the seconds
+    # it spent blocked in all_to_all (waits for the other ranks included)
+    a2a = ranks[0]["calls"]["all_to_all"]
+    rate = a2a[2] / a2a[1]
+    print(f"[mesh-full] exchange rate (gloo all_to_all, 4 ranks on one "
+          f"card, rank 0): {a2a[2]} bytes in {a2a[1]:.3f}s blocked = "
+          f"{rate:.1f} bytes/s on {card}")
     free_cuda()
-    return sum(r["launches"]["route_lane"] for r in ranks)
+    return sum(r["launches"]["route_lane"] for r in ranks), rate
 
 
 def lane_row_bytes(lane):
@@ -3917,9 +4529,17 @@ def main():
     seg["max_abs_err"] = errs["segment_sum_rows"]
     del tpipe, edges, feats
     free_cuda()
+    phase("telemetry-parity", phase_telemetry_parity, device)
+    phase("telemetry-full", phase_telemetry_full, device, baseline)
+    free_cuda()
+    phase("ckpt-parity", phase_ckpt_parity, device)
+    phase("ckpt-full", phase_ckpt_full, device)
+    free_cuda()
     mesh_err = phase("mesh-kernel", phase_mesh_kernel, device)
-    phase("mesh-parity", phase_mesh_parity, device)
-    mesh_launches = phase("mesh-full", phase_mesh_full, device)
+    mesh_trace = phase("mesh-parity", phase_mesh_parity, device)
+    mesh_launches, rate = phase("mesh-full", phase_mesh_full, device,
+                                FULL, MESH, card)
+    phase("what-if", phase_what_if, mesh_trace, rate, card)
     result["kernels"].append(phase("mesh-time", phase_mesh_time, device,
                                    mesh_launches, mesh_err))
     free_cuda()

@@ -50,14 +50,26 @@ model's modules). Progress stays on the device until `train_stats()`
 reads it; `serve/train_session.py:TrainSession` drives both drivers.
 train_cap=0 runs exactly the program without the plane.
 
+The telemetry plane (PipelineConfig.telemetry=True, `telemetry/`): the
+tick's occupancy gauges carry exact values and every tick appends one row
+to a `TraceRecorder` (`save_trace()` -> .npz): the [21] device occupancy
+row, host timings, wire bytes and ingest counts. The rows (and the per-part
+busy vector) ride the drivers' one stats read, so the super-tick driver
+still syncs once a super-tick; `_trace_ticks` also feeds the
+`ft/stragglers.py` mitigator. Telemetry observes and changes nothing:
+every other stat and the state are bit-equal to a run without it.
+Checkpoints of the whole pipeline are `ft/checkpoint.py`'s
+(`CheckpointManager.save_pipeline` / `restore_pipeline`).
+
 Planes this port does not have yet raise NotImplementedError naming the
 ROADMAP item that will port them: n_stages > 1 (the 2-D stage program),
-telemetry=True.
+a live reshard onto another mesh (`reshard`, and `mitigate_stragglers`'
+reshard branch), all item 13.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field, replace
+from dataclasses import asdict, dataclass, field, replace
 from typing import Optional
 
 import numpy as np
@@ -80,6 +92,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.mesh import StreamMesh
 from repro_torch.dist.router import LocalRouter, MeshRouter
 from repro_torch.dist.wire import lane_width, pack_lane, unpack_lane
+from repro_torch.ft.stragglers import StragglerMitigator
 from repro_torch.graph.sage import linear_tree, load_linear_tree
 from repro_torch.serve.query import (KIND_LINK, QSTAT_FIELDS,
                                      add_query_stats, empty_query_batch,
@@ -87,6 +100,7 @@ from repro_torch.serve.query import (KIND_LINK, QSTAT_FIELDS,
                                      query_answer_stage,
                                      query_batch_from_numpy, wire_width,
                                      zero_query_stats)
+from repro_torch.telemetry.trace import TRACE_DEVICE_COLS, TraceRecorder
 
 
 @dataclass(frozen=True)
@@ -135,7 +149,9 @@ class PipelineConfig:
                                       # whose message moved <= eps
     delivery_backend: str = "kernel"  # "kernel" (CUDA kernels) | "scatter"
     n_stages: int = 1                 # stage pipeline (not ported yet)
-    telemetry: bool = False           # telemetry plane (not ported yet)
+    telemetry: bool = False           # telemetry plane: exact occupancy
+                                      # gauges, the per-tick trace and the
+                                      # straggler feed (telemetry/)
     partitioner: str = "hdrf"
     base_parallelism: int = 2         # p  (physical, for stats/sharding)
     explosion: float = 1.0            # lambda (core/explosion.py)
@@ -255,8 +271,7 @@ class PipelineConfig:
                 "count (each rank owns n_parts // n_devices parts)")
         self._raise_unported((
             (self.n_stages != 1, "n_stages > 1 (pipeline stages, and "
-             "training at n_stages > 1)", 13),
-            (self.telemetry, "telemetry=True (telemetry plane)", 11)))
+             "training at n_stages > 1)", 13),))
 
 
 @dataclass
@@ -278,6 +293,17 @@ class StreamMetrics:
     wire_bytes: int = 0                # exchanged send-buffer bytes
     route_deferred: int = 0            # records carried by backpressure
     route_dropped: int = 0             # records lost to FULL defer rings
+    # telemetry plane (all 0 unless PipelineConfig.telemetry)
+    occ_defer_ticks: int = 0           # defer-ring backlog integral
+                                       # (end-of-tick ring rows, summed
+                                       # over ticks)
+    route_peak: int = 0                # max per-tick route bucket demand
+                                       # before the cap
+    outbox_peak: int = 0               # max per-tick per-layer emission
+                                       # demand (emitted + dropped)
+    outbox_part_peak: int = 0          # max per-tick PER-PART eviction
+                                       # demand (outbox_cap >= n_parts x
+                                       # this drops nothing)
     host_seconds: float = 0.0          # host-side staging time
     wall_seconds: float = 0.0
     busy_logical: Optional[np.ndarray] = None
@@ -286,6 +312,48 @@ class StreamMetrics:
     def throughput(self) -> float:
         return (self.emitted_total / self.wall_seconds if self.wall_seconds
                 else 0.0)
+
+
+_OCC = {c: i for i, c in enumerate(TRACE_DEVICE_COLS)}
+
+
+def _ingest_counts(edges, feats, queries, labels):
+    """One tick's (edges, feats, queries, labels) ingest counts."""
+    return (len(edges) if edges is not None else 0,
+            len(feats) if feats else 0, len(queries) if queries else 0,
+            len(labels) if labels else 0)
+
+
+def _occ_row(stats_all, qstats, ts, router):
+    """The telemetry plane's per-tick device occupancy row: int64
+    [len(TRACE_DEVICE_COLS)] in `telemetry/trace.py`'s column order. The
+    TickStats scalars are reduced over the ranks already; the training
+    table's two populations take one more psum (with training on)."""
+    z = torch.zeros((), dtype=torch.int64, device=stats_all[0].busy.device)
+    fsum = lambda f: sum(getattr(s, f) for s in stats_all)
+    fmax = lambda vals: torch.stack(vals).max()
+    if ts is not None:
+        labeled, dirty = router.psum(torch.stack([
+            ts.label_mask.sum(), (ts.dirty & ts.label_mask).sum()]))
+    else:
+        labeled = dirty = z
+    q = (lambda f: getattr(qstats, f)) if qstats is not None else \
+        (lambda f: z)
+    row = (
+        stats_all[-1].emitted,                          # emitted_final
+        fsum("emitted"),                                # emitted_sum
+        fsum("reduce_msgs"), fsum("broadcast_msgs"), fsum("wire_rows"),
+        fsum("route_deferred"), fsum("route_dropped"), fsum("dropped"),
+        fsum("n_suppressed"),                           # suppressed
+        fsum("occ_bc_defer"), fsum("occ_rmi_defer"),
+        fmax([s.route_peak for s in stats_all]),        # route_peak
+        fmax([s.emitted + s.dropped for s in stats_all]),  # outbox_demand
+        fmax([s.outbox_part_peak for s in stats_all]),  # outbox_part_peak
+        q("held_ticks"),                                # query_pending
+        q("wire_backlog"),                              # query_backlog
+        labeled, dirty,                                 # train_labeled/dirty
+        q("admitted"), q("answered"), q("dropped"))
+    return torch.stack([torch.as_tensor(v).to(torch.int64) for v in row])
 
 
 def _sink_update_body(sink, seen, fb: ev.FeatBatch, part0=0):
@@ -341,7 +409,8 @@ class D3Pipeline:
         self.train_cfg = train
         self._head = model.head if train is not None else None
         self.router = (MeshRouter(cfg.n_parts, mesh, route_cap=cfg.route_cap,
-                                  pack_backend=cfg.delivery_backend)
+                                  pack_backend=cfg.delivery_backend,
+                                  telemetry=cfg.telemetry)
                        if mesh is not None else LocalRouter(cfg.n_parts))
         self.delivery = make_delivery(cfg.delivery_backend)
         self.part = StreamingPartitioner(
@@ -391,6 +460,117 @@ class D3Pipeline:
             k: np.zeros(0, np.int64) for k in
             ("part", "edge_slot", "src_slot", "dst_slot",
              "dst_master_part", "dst_master_slot")}
+        # telemetry plane: the trace recorder and the straggler feed. The
+        # lane list and the all_to_all multiplier let the cost model
+        # re-price the wire at other route_caps (the constants of
+        # _static_wire_bytes)
+        if cfg.telemetry:
+            lanes = self._wire_lane_list(dims, n_dev)
+            a2a_mult = 4 * n_dev * n_dev if lanes else 0
+            a2a = a2a_mult * sum(self.router.lane_cap(c) * w
+                                 for c, w in lanes)
+            self.trace = TraceRecorder(meta={
+                "n_parts": cfg.n_parts, "n_devices": n_dev, "n_stages": 1,
+                "n_layers": len(self.layers), "dims": list(dims),
+                "window": cfg.window.kind,
+                "delivery_backend": cfg.delivery_backend,
+                "delta_eps": cfg.delta_eps,
+                "route_cap": cfg.route_cap,
+                "route_defer_cap": cfg.route_defer_cap,
+                "node_cap": cfg.node_cap, "edge_cap": cfg.edge_cap,
+                "repl_cap": cfg.repl_cap, "feat_cap": cfg.feat_cap,
+                "edge_tick_cap": cfg.edge_tick_cap,
+                "query_cap": cfg.query_cap,
+                "query_tick_cap": cfg.query_tick_cap,
+                "train_cap": cfg.train_cap,
+                "caps": asdict(caps),
+                "wire_bytes_per_tick": self._wire_bytes_per_tick,
+                "wire_lanes": [list(l) for l in lanes],
+                "a2a_mult": a2a_mult,
+                "fixed_wire_bytes": self._wire_bytes_per_tick - a2a})
+            self.straggler = StragglerMitigator(n_shards=n_dev)
+        else:
+            self.trace = None
+            self.straggler = None
+
+    def _wire_lane_list(self, dims, n_dev: int):
+        """The capped-exchange lanes of one tick as (local emission
+        capacity, wire width) pairs: the constants `_static_wire_bytes`
+        prices (its all_to_all term is 4 D^2 * sum lane_cap(c) * w),
+        recorded in the trace meta so the cost model can replay the wire
+        at another route_cap. Empty without a mesh."""
+        if self.mesh is None or n_dev <= 1:
+            return []
+        cfg = self.cfg
+        p_loc = cfg.n_parts // n_dev
+        lanes = []
+        for li in range(len(self.layers)):
+            lanes.append((p_loc * cfg.repl_cap, dims[li] + 5))
+            lanes.append((cfg.edge_tick_cap + p_loc * cfg.edge_cap,
+                          dims[li] + 5))
+        if cfg.query_cap > 0:
+            lanes.append((p_loc * cfg.query_cap, wire_width(dims[-1])))
+        return lanes
+
+    def save_trace(self, path) -> None:
+        """Write the recorded telemetry trace (needs cfg.telemetry)."""
+        if self.trace is None:
+            raise ValueError("telemetry plane disabled "
+                             "(PipelineConfig.telemetry=False)")
+        self.trace.save(path)
+
+    def reshard(self, new_mesh, cfg: Optional[PipelineConfig] = None):
+        """Install `cfg` (default: the current config) on a LOCAL
+        pipeline, as the reference's `reshard(None, cfg)` does: validate
+        it, keep the carry where it is on the same device, rebuild the
+        router and the wire constants, and (with telemetry) record the
+        reshard in the trace meta and restart the straggler feed. The
+        previous config object is never mutated. Returns the installed
+        config. A live reshard onto another mesh, or of a meshed
+        pipeline, is not ported (ROADMAP Queue 1 item 13)."""
+        if new_mesh is not None or self.mesh is not None:
+            raise NotImplementedError(
+                "D3Pipeline.reshard onto or off a mesh (the live elastic "
+                "reshard) is not ported to repro_torch yet (ROADMAP Queue "
+                "1 item 13)")
+        if cfg is None:
+            cfg = replace(self.cfg, n_stages=1)
+        cfg.validate(n_devices=1)
+        if (self.train_state is not None) != (cfg.train_cap > 0):
+            raise ValueError(
+                "reshard cannot turn the training plane on or off: "
+                f"train_state is "
+                f"{'set' if self.train_state is not None else 'None'} "
+                f"but cfg.train_cap={cfg.train_cap}")
+        if cfg.telemetry != self.cfg.telemetry:
+            raise ValueError("reshard cannot turn the telemetry plane on "
+                             "or off")
+        dims = [l.in_dim for l in self.layers] + [self.layers[-1].out_dim]
+        self.cfg = cfg
+        self.router = LocalRouter(cfg.n_parts)
+        self._wire_bytes_per_tick = self._static_wire_bytes(dims, 1)
+        if self.trace is not None:
+            self.trace.meta["n_devices"] = 1
+            self.trace.meta["n_stages"] = 1
+            self.trace.meta.setdefault("reshards", []).append(
+                {"tick": int(self.now), "n_devices": 1, "n_stages": 1})
+            self.straggler = StragglerMitigator(n_shards=1)
+        return cfg
+
+    def mitigate_stragglers(self):
+        """Consume the straggler mitigator's persistent flags: a shard
+        flagged past `patience` is treated as fail-stop and the pipeline
+        reshards onto fewer ranks. Returns None when there is nothing to
+        do (no mitigator, no mesh, or one rank), as the reference does;
+        the reshard itself is not ported (ROADMAP Queue 1 item 13)."""
+        if (self.straggler is None or self.mesh is None
+                or self.router.n_devices <= 1):
+            return None
+        if not self.straggler.persistent_stragglers():
+            return None
+        raise NotImplementedError(
+            "mitigate_stragglers' live reshard onto the surviving ranks is "
+            "not ported to repro_torch yet (ROADMAP Queue 1 item 13)")
 
     def parts_per_shard(self) -> list:
         """Logical parts owned by each rank (block sharding)."""
@@ -426,21 +606,28 @@ class D3Pipeline:
                 * (dims[li] + 5) * 4 for li in range(len(self.layers)))
         return total
 
-    def _stats_to_host(self, stats_all, *extra, answers=None):
+    def _stats_to_host(self, stats_all, *extra, answers=None, occ=None):
         """Per-layer TickStats (+ extra 0-d int64 tensors, + the answer
-        rows of one or T ticks) to the host in ONE device-to-host copy; on
-        a mesh the ranks' busy vectors and answers are gathered first (one
+        rows of one or T ticks, + the telemetry occupancy rows of one or T
+        ticks) to the host in ONE device-to-host copy; on a mesh the
+        ranks' busy vectors and answers are gathered first (one
         all_gather). answers: a list of per-tick AnswerBatches; they ride
         the copy packed as f32 wire rows (`dist/wire.py`, ints exact below
-        2**24) whose bits fill int64 words.
+        2**24) whose bits fill int64 words. occ: a list of per-tick int64
+        occupancy rows (already reduced over the ranks).
         Returns (list of host TickStats, extra ints, host AnswerBatch
-        rows tick by tick then rank by rank, or None)."""
+        rows tick by tick then rank by rank or None, [T, C] numpy
+        occupancy rows or None)."""
         L = len(stats_all)
         P = stats_all[0].busy.shape[0]
         parts = [torch.stack([getattr(s, f) for f in SCALAR_FIELDS])
                  for s in stats_all] + [s.busy for s in stats_all]
         if extra:
             parts.append(torch.stack(list(extra)))
+        n_occ = 0
+        if occ:
+            parts.append(torch.stack(occ).reshape(-1))
+            n_occ = parts[-1].numel()
         n_int = sum(p.numel() for p in parts)
         if answers:
             words = torch.stack([pack_lane(a) for a in answers]).reshape(-1)
@@ -460,15 +647,18 @@ class D3Pipeline:
             sc = rows[0, li * F:(li + 1) * F]
             busy = rows[:, L * F + li * P: L * F + (li + 1) * P].reshape(-1)
             out.append(TickStats(**dict(zip(SCALAR_FIELDS, sc)), busy=busy))
-        host_extra = [int(v) for v in rows[0, L * (F + P):n_int]]
+        host_extra = [int(v) for v in rows[0, L * (F + P):n_int - n_occ]]
+        host_occ = (rows[0, n_int - n_occ:n_int].numpy().reshape(
+            len(occ), -1) if occ else None)
         if not answers:
-            return out, host_extra, None
+            return out, host_extra, None, host_occ
         proto = answers[0]
         A, W = proto.valid.shape[0], lane_width(proto)
         buf = rows[:, n_int:].contiguous().view(torch.float32)[:, :n_words]
         # [ranks, T, A, W] -> tick by tick, then rank by rank
         buf = buf.reshape(rows.shape[0], len(answers), A, W).transpose(0, 1)
-        return out, host_extra, unpack_lane(buf.reshape(-1, W), proto)
+        return (out, host_extra, unpack_lane(buf.reshape(-1, W), proto),
+                host_occ)
 
     # ------------------------------------------------------------ host side
     def _resolve_queries(self, queries, issue_tick: int) -> dict:
@@ -605,8 +795,10 @@ class D3Pipeline:
         Apart from a mesh's collectives, never reads a value back to the
         host. At query_cap=0 / train_cap=0 a plane's stages are skipped
         and the program is the one without it.
+        With telemetry on, the tick's occupancy row (`_occ_row`) is built
+        on the device too.
         Returns (topo, states, sink, sink_seen, queries, stats_all,
-        answers or None, QueryStats or None)."""
+        answers or None, QueryStats or None, occupancy row or None)."""
         outbox_cap = self.cfg.capacities().outbox
         part0 = self.router.part0()
         topo = st.apply_vertex_batch(topo, vb, part0)
@@ -629,7 +821,7 @@ class D3Pipeline:
             ls, inbox, stats, extra_out = layer_tick_body(
                 layer, topo, states[li], inbox, eb, rb, now, wconf,
                 outbox_cap, self.router, self.delivery, extra_lane=extra,
-                delta_eps=self.cfg.delta_eps)
+                delta_eps=self.cfg.delta_eps, telemetry=self.cfg.telemetry)
             if extra_out is not None:
                 wire_d, (wdb, wdo) = extra_out
                 queries = replace(queries, wire_defer=wdb, wire_defer_ok=wdo)
@@ -654,8 +846,10 @@ class D3Pipeline:
                 sink, sink_seen, ts, lb, inbox, now, moved, self.router,
                 part0, self.delivery)
             self._sync_params_from_train()
+        occ = (_occ_row(stats_all, qstats, self.train_state, self.router)
+               if self.cfg.telemetry else None)
         return (topo, new_states, sink, sink_seen, queries, stats_all,
-                answers, qstats)
+                answers, qstats, occ)
 
     def _sync_params_from_train(self) -> None:
         """Mirror the live trained parameters into the model's modules, so
@@ -713,19 +907,23 @@ class D3Pipeline:
             edges, feats, self.device, queries=queries, labels=labels)
         host_s = time.perf_counter() - t0
         now = torch.tensor(self.now, dtype=torch.int64, device=self.device)
+        tick0 = self.now
         (self.topo, self.states, self.sink, self.sink_seen, self.queries,
-         stats_all, answers, qstats) = self._tick_program(
+         stats_all, answers, qstats, occ) = self._tick_program(
             self.topo, self.states, self.sink, self.sink_seen, self.queries,
             fb, eb, rb, vb, qb, lb, now, wconf)
         self.now += 1
         on = answers is not None
         qx = [getattr(qstats, f) for f in QSTAT_FIELDS] if on else []
-        host_stats, host_q, host_ans = self._stats_to_host(
-            stats_all, *qx, answers=[answers] if on else None)
+        host_stats, host_q, host_ans, host_occ = self._stats_to_host(
+            stats_all, *qx, answers=[answers] if on else None,
+            occ=[occ] if occ is not None else None)
         self._harvest_answers(host_ans)
         self.metrics.host_seconds += host_s
-        self._accumulate(host_stats, time.perf_counter() - t0,
-                         qstats=host_q)
+        dt = time.perf_counter() - t0
+        self._accumulate(host_stats, dt, qstats=host_q, occ_rows=host_occ)
+        self._trace_ticks(host_occ, tick0, dt, host_s, [_ingest_counts(
+            edges, feats, queries, labels)], host_stats)
         return host_stats
 
     def _harvest_answers(self, ans) -> None:
@@ -758,10 +956,13 @@ class D3Pipeline:
         return {k: np.concatenate([chunk[k] for chunk in log])
                 for k in log[0]}
 
-    def _accumulate(self, stats_all, dt, ticks: int = 1, qstats=None):
+    def _accumulate(self, stats_all, dt, ticks: int = 1, qstats=None,
+                    occ_rows=None):
         """Fold per-layer host stats (one tick, or a super-tick's sums)
         and the query counters (host ints in QSTAT_FIELDS order, or an
-        empty list) into StreamMetrics."""
+        empty list) into StreamMetrics. occ_rows (telemetry): [ticks, C]
+        occupancy rows; the peak gauges fold with max (their sum over a
+        super-tick means nothing)."""
         m = self.metrics
         m.ticks += ticks
         m.wall_seconds += dt
@@ -775,14 +976,47 @@ class D3Pipeline:
             m.wire_rows += int(s.wire_rows)
             m.route_deferred += int(s.route_deferred)
             m.route_dropped += int(s.route_dropped)
+            m.occ_defer_ticks += int(s.occ_bc_defer) + int(s.occ_rmi_defer)
             m.busy_logical += s.busy.numpy().astype(np.int64)
         m.emitted_total += int(stats_all[-1].emitted)
+        if occ_rows is not None and occ_rows.size:
+            m.route_peak = max(m.route_peak,
+                               int(occ_rows[:, _OCC["route_peak"]].max()))
+            m.outbox_peak = max(m.outbox_peak, int(
+                occ_rows[:, _OCC["outbox_demand"]].max()))
+            m.outbox_part_peak = max(m.outbox_part_peak, int(
+                occ_rows[:, _OCC["outbox_part_peak"]].max()))
         if qstats:
             q = dict(zip(QSTAT_FIELDS, qstats))
             m.queries_admitted += q["admitted"]
             m.queries_answered += q["answered"]
             m.queries_dropped += q["dropped"]
             m.query_hold_ticks += q["held_ticks"]
+
+    def _trace_ticks(self, occ_rows, tick0, wall_s, host_s, counts,
+                     stats_all, amortized: int = 0):
+        """Telemetry plane, host side: one trace row per tick and the
+        straggler feed; a no-op with telemetry off. occ_rows: [ticks, C]
+        host occupancy rows (from the drivers' one read); counts: per-tick
+        (edges, feats, queries, labels) ingest counts; the wall time is
+        spread evenly over the ticks (amortized=1 on the super-tick
+        driver, whose staging time is not split per tick)."""
+        if self.trace is None:
+            return
+        ticks = len(counts)
+        per = wall_s / ticks
+        for i, (e, f, q, lab) in enumerate(counts):
+            self.trace.append(
+                {"tick": tick0 + i, "ticks": 1, "wall_s": per,
+                 "host_s": host_s, "amortized": amortized,
+                 "wire_bytes": self._wire_bytes_per_tick,
+                 "edges_in": e, "feats_in": f, "queries_in": q,
+                 "labels_in": lab}, occ_rows[i])
+        # straggler feed: the per-part busy proxies (gathered over the
+        # ranks by the same read) folded to their shard
+        busy = sum(s.busy.numpy().astype(np.int64) for s in stats_all)
+        self.straggler.observe_tick(
+            per, busy.reshape(self.router.n_devices, -1).sum(axis=1))
 
     def chunk_stream(self, edges, feats, tick_edges: int,
                      feat_with_first_edge: bool = True, seen=None):
@@ -883,10 +1117,11 @@ class D3Pipeline:
         ssum = [zero_stats(self.states[0].feat.shape[0], dev)
                 for _ in self.layers]
         qsum = zero_query_stats(dev)
-        answers = []
+        answers, occ = [], []
+        tick0 = self.now
         for t in range(T):
             (self.topo, self.states, self.sink, self.sink_seen, self.queries,
-             stats_t, ans_t, qstats_t) = self._tick_program(
+             stats_t, ans_t, qstats_t, occ_t) = self._tick_program(
                 self.topo, self.states, self.sink, self.sink_seen,
                 self.queries, ev.batch_at(fb, t), ev.batch_at(eb, t),
                 ev.batch_at(rb, t), ev.batch_at(vb, t),
@@ -899,16 +1134,26 @@ class D3Pipeline:
             if ans_t is not None:
                 answers.append(ans_t)
                 qsum = add_query_stats(qsum, qstats_t)
+            if occ_t is not None:
+                occ.append(occ_t)
             now = now + 1
         self.now += T
         # the one host sync of the super-tick: summed stats + quiet counter
-        # (+ the summed query counters and the T ticks' answers)
+        # (+ the summed query counters and the T ticks' answers, + the T
+        # ticks' occupancy rows)
         qx = [getattr(qsum, f) for f in QSTAT_FIELDS] if answers else []
-        host_stats, (quiet_ticks, *host_q), host_ans = self._stats_to_host(
-            ssum, quiet, *qx, answers=answers or None)
+        (host_stats, (quiet_ticks, *host_q), host_ans,
+         host_occ) = self._stats_to_host(ssum, quiet, *qx,
+                                         answers=answers or None,
+                                         occ=occ or None)
         self._harvest_answers(host_ans)
-        self._accumulate(host_stats, time.perf_counter() - t0, ticks=T,
-                         qstats=host_q)
+        dt = time.perf_counter() - t0
+        self._accumulate(host_stats, dt, ticks=T, qstats=host_q,
+                         occ_rows=host_occ)
+        self._trace_ticks(host_occ, tick0, dt, 0.0, [
+            _ingest_counts(*c) for c in zip(edge_chunks, feat_chunks,
+                                            query_chunks, label_chunks)],
+            host_stats, amortized=1)
         return host_stats, quiet_ticks
 
     def run_stream_super(self, edges: np.ndarray, feats: dict,

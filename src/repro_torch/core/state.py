@@ -184,3 +184,10 @@ def apply_vertex_batch(topo: TopoState, vb, part0=0) -> TopoState:
                            vb.part).reshape(P, N),
         m_slot=scatter_set(topo.m_slot.reshape(P * N), idx_m,
                            vb.slot).reshape(P, N))
+
+
+def defer_occupancy(ls: LayerState):
+    """Exact occupied-slot counts of a layer's routing defer rings as
+    (broadcast_rows, rmi_rows) 0-d int64 tensors: the oracle the telemetry
+    plane's `occ_bc_defer` / `occ_rmi_defer` gauges must reproduce."""
+    return ls.bc_defer_ok.sum(), ls.rmi_defer_ok.sum()

@@ -66,8 +66,12 @@ class TickStats:
     """Per-layer tick counters: 0-d int64 tensors (reduced over the mesh)
     plus the rank's [P_loc] busy vector. Field meanings as in the JAX
     package; the wire counters are zero under the LocalRouter, the
-    suppression counter zero in exact mode, the telemetry gauges zero on
-    the port (telemetry off)."""
+    suppression counter zero in exact mode. The four occupancy gauges
+    (occ_bc_defer, occ_rmi_defer, route_peak, outbox_part_peak) carry
+    exact values only with the telemetry plane on, zeros otherwise: the
+    end-of-tick defer-ring populations summed over the ranks, the peak
+    per-destination route demand before the cap and the peak per-part
+    outbox demand before the quota, maxed over the ranks."""
     broadcast_msgs: torch.Tensor     # round-A replica messages
     reduce_msgs: torch.Tensor        # round-B aggregator RMIs routed
     cross_part_msgs: torch.Tensor    # messages leaving their part
@@ -288,12 +292,15 @@ def apply_rmis(ls: LayerState, rmis_d: MsgBatch, part0, busy, delivery):
 def forward_psi(layer, topo: TopoState, ls: LayerState, feat_flat, has_feat,
                 agg_flat, cnt_flat, agg_dirty, changed, now,
                 wconf: win.WindowConfig, outbox_cap_pp: int, part0, busy,
-                freq, delivery):
+                freq, delivery, demand: bool = False):
     """Forward/update phase (psi) under the intra-layer window, with a
     PER-PART capacity-limited outbox (the first `outbox_cap_pp` evicted
     slots per part emit; the rest stay pending -> backpressure).
 
-    Returns (fwd_pending, fwd_deadline, outbox, busy, n_emit, n_drop)."""
+    Returns (fwd_pending, fwd_deadline, outbox, busy, n_emit, n_drop,
+    n_demand_pp): n_demand_pp is the max per-part eviction demand before
+    the quota (the telemetry gauge), computed only when `demand`, else
+    None."""
     P, N, _ = ls.feat.shape
     dev = feat_flat.device
     is_m = topo.is_master.reshape(P * N)
@@ -306,6 +313,8 @@ def forward_psi(layer, topo: TopoState, ls: LayerState, feat_flat, has_feat,
     evict = fwd_pending if wconf.kind == win.STREAMING else \
         fwd_pending & (fwd_deadline <= now)
 
+    n_demand_pp = (evict.reshape(P, N).sum(dim=1).max() if demand
+                   else None)
     slots = torch.arange(N, device=dev)[None, :]
     order = torch.where(evict.reshape(P, N), slots, N)             # [P,N]
     k = max(1, min(outbox_cap_pp, N))
@@ -333,7 +342,8 @@ def forward_psi(layer, topo: TopoState, ls: LayerState, feat_flat, has_feat,
                        feat=x_out, valid=picked_valid.reshape(-1))
     fwd_pending = fwd_pending & ~emitted_mask
     busy = busy + picked_valid.sum(dim=1)
-    return fwd_pending, fwd_deadline, outbox, busy, n_emit, n_drop
+    return (fwd_pending, fwd_deadline, outbox, busy, n_emit, n_drop,
+            n_demand_pp)
 
 
 # ======================================================== the full tick body
@@ -342,7 +352,8 @@ def forward_psi(layer, topo: TopoState, ls: LayerState, feat_flat, has_feat,
 def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
                     new_edges: EdgeBatch, new_repl: ReplBatch, now,
                     wconf: win.WindowConfig, outbox_cap: int, router=None,
-                    delivery=None, extra_lane=None, delta_eps: float = 0.0):
+                    delivery=None, extra_lane=None, delta_eps: float = 0.0,
+                    telemetry: bool = False):
     """Advance one GNN layer by one tick.
 
     `layer` supplies message/update (phi/psi), e.g. graph/sage.SAGELayer;
@@ -362,6 +373,11 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
     (> 0) the RMIs are also coalesced per destination before the routing
     plane (after the stats count them); coalescing reorders f32 sums,
     which is why exact mode (0) skips it and keeps its program.
+
+    telemetry: the TickStats occupancy gauges carry exact values (the
+    rings' populations join the one psum of the counters, the two peaks
+    take one more max-reduction over the ranks); off, they are zeros and
+    the tick launches nothing for them.
 
     Returns (new LayerState, outbox FeatBatch, TickStats, extra_out):
     extra_out is None, or (delivered extra lane, its new defer ring).
@@ -411,9 +427,11 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
                                                      busy, delivery)
 
     # ---- forward/update phase (psi), intra-layer window
-    fwd_pending, fwd_deadline, outbox, busy, n_emit, n_drop = forward_psi(
+    (fwd_pending, fwd_deadline, outbox, busy, n_emit, n_drop,
+     n_demand_pp) = forward_psi(
         layer, topo, ls, feat_flat, has_feat, agg_flat, cnt_flat, agg_dirty,
-        changed, now, wconf, cap_pp, part0, busy, freq, delivery)
+        changed, now, wconf, cap_pp, part0, busy, freq, delivery,
+        demand=telemetry)
 
     # ---- adaptive-session CMS update
     cms = ls.cms
@@ -437,17 +455,27 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
                                ls.last_touch.reshape(P * N)).reshape(P, N),
         bc_defer=bc_defer[0], bc_defer_ok=bc_defer[1],
         rmi_defer=rmi_defer[0], rmi_defer_ok=rmi_defer[1])
-    # the scalar counters reduced over the ranks in ONE collective
-    g = router.psum(torch.stack([
-        n_bcast, n_reduce, bcast_cross + red_cross, n_emit, n_drop,
-        rcpt.rows, rcpt.deferred, rcpt.dropped, n_supp]).to(torch.int64))
-    z = torch.zeros((), dtype=torch.int64, device=dev)
+    # the scalar counters reduced over the ranks in ONE collective (with
+    # telemetry, the end-of-tick ring populations ride it)
+    counters = [n_bcast, n_reduce, bcast_cross + red_cross, n_emit, n_drop,
+                rcpt.rows, rcpt.deferred, rcpt.dropped, n_supp]
+    if telemetry:
+        counters += [bc_defer[1].sum(), rmi_defer[1].sum()]
+    g = router.psum(torch.stack(counters).to(torch.int64))
+    if telemetry:
+        occ_bc, occ_rmi = g[9], g[10]
+        route_peak, outbox_pp = router.pmax(torch.stack(
+            [rcpt.peak, n_demand_pp]).to(torch.int64))
+    else:
+        occ_bc = occ_rmi = route_peak = outbox_pp = torch.zeros(
+            (), dtype=torch.int64, device=dev)
     stats = TickStats(broadcast_msgs=g[0], reduce_msgs=g[1],
                       cross_part_msgs=g[2], emitted=g[3], dropped=g[4],
                       wire_rows=g[5], route_deferred=g[6],
                       route_dropped=g[7], n_suppressed=g[8],
-                      occ_bc_defer=z, occ_rmi_defer=z, route_peak=z,
-                      outbox_part_peak=z, busy=busy)
+                      occ_bc_defer=occ_bc, occ_rmi_defer=occ_rmi,
+                      route_peak=route_peak, outbox_part_peak=outbox_pp,
+                      busy=busy)
     return new_ls, outbox, stats, extra_out
 
 

@@ -152,9 +152,10 @@ def init_train_state(n_parts: int, node_cap: int, layer_params: dict,
 # --------------------------------------------------------------- backward
 def _dense(router):
     """Gradient lanes never defer or drop: they ride the dense exchange
-    whatever the data plane's route_cap."""
-    if isinstance(router, MeshRouter) and router.route_cap is not None:
-        return dataclasses.replace(router, route_cap=None)
+    whatever the data plane's route_cap (and report no telemetry peak)."""
+    if isinstance(router, MeshRouter) and (router.route_cap is not None
+                                           or router.telemetry):
+        return dataclasses.replace(router, route_cap=None, telemetry=False)
     return router
 
 

@@ -22,9 +22,13 @@ order. Only a full ring drops rows, counted in RouteReceipt.dropped.
 Invalid destinations are masked out of the exchange, never clipped onto
 the last rank.
 
-The telemetry peak gauge (ROADMAP Queue 1 item 11) and the stage-axis
-methods of the 2-D mesh (item 13) are not ported: `peak` stays 0, as in
-JAX with telemetry off.
+With the telemetry plane on (`MeshRouter(telemetry=True)`), a receipt's
+`peak` is the largest per-destination demand of any of the call's lanes
+before the cap (ring rows included): the route_cap at which the call
+would defer nothing. It is read off the plan's destination run starts,
+so it costs no pass over the rows. Off, and under the LocalRouter, it is
+0, as in JAX. The stage-axis methods of the 2-D mesh are not ported
+(ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ class RouteReceipt:
     """Measured wire telemetry of one route_lanes call (0-d int64, local
     to the calling rank — the tick body psums them into TickStats):
     rows shipped, rows deferred into rings, rows lost to a full ring, and
-    the peak gauge (0 on this port)."""
+    the peak gauge (the largest per-destination demand before the cap,
+    with telemetry on; 0 otherwise)."""
     rows: torch.Tensor
     deferred: torch.Tensor
     dropped: torch.Tensor
@@ -89,6 +94,9 @@ class LocalRouter:
         """A quiescence / silence vote over every rank: the identity."""
         return x
 
+    def pmax(self, x):
+        return x
+
 
 @dataclass(frozen=True)
 class MeshRouter:
@@ -102,11 +110,13 @@ class MeshRouter:
                   "scatter" (its plain chain, ref.route_lane_ref: pack,
                   concatenate, place, gather the ring); follows
                   PipelineConfig's delivery_backend.
+    telemetry   : fill the receipt's peak gauge (PipelineConfig.telemetry).
     """
     n_parts: int
     mesh: object
     route_cap: Optional[int] = None
     pack_backend: str = "kernel"
+    telemetry: bool = False
 
     @property
     def n_devices(self) -> int:
@@ -126,6 +136,10 @@ class MeshRouter:
         """A quiescence / silence vote over every rank (the 1-D mesh's
         one axis: `psum`)."""
         return self.psum(x)
+
+    def pmax(self, x):
+        """Elementwise maximum over the ranks (the telemetry gauges)."""
+        return self.mesh.all_reduce(x, op=dist.ReduceOp.MAX)
 
     def lane_cap(self, capacity: int) -> int:
         """Resolved per-destination bucket rows for a lane of the given
@@ -153,7 +167,7 @@ class MeshRouter:
         Pl = self.n_local_parts
         lane_step = (route_ops.route_lane if self.pack_backend == "kernel"
                      else route_lane_ref)
-        sends, metas, new_defers, counts = [], [], [], []
+        sends, metas, new_defers, counts, peaks = [], [], [], [], []
         for lane, (dbuf, dok) in zip(lanes, defers):
             C, W = lane.part.shape[0], lane_width(lane)
             K = dbuf.shape[0]
@@ -172,6 +186,10 @@ class MeshRouter:
             dst = torch.where(ok, torch.div(parts, Pl, rounding_mode="floor"),
                               D)
             plan = route_ops.route_plan(dst, ok, D, cap)
+            if self.telemetry:
+                # each destination's demand before the cap: its run in
+                # the plan's sorted order
+                peaks.append((plan[4][1:] - plan[4][:-1]).max())
             send, nbuf = lane_step(dbuf, lane, plan, D, cap)
             sends.append(send.reshape(D, cap * W))
             metas.append((lane, cap, W))
@@ -193,6 +211,8 @@ class MeshRouter:
             off += cap * W
             outs.append(unpack_lane(blk, proto))
         n = torch.stack(counts).sum(dim=0)
+        peak = (torch.stack(peaks).max() if peaks
+                else torch.zeros_like(n[0]))
         receipt = RouteReceipt(rows=n[0], deferred=n[1], dropped=n[2],
-                               peak=torch.zeros_like(n[0]))
+                               peak=peak)
         return tuple(outs), tuple(new_defers), receipt

@@ -15,8 +15,8 @@ The session keeps the host-side truth the device never sees: wall-clock
 enqueue times per qid. Every harvested answer gets an end-to-end
 enqueue->answer latency (submission to host-visible result, including the
 super-tick batching delay) plus tick-domain staleness (answer_tick -
-issue_tick). `latency_stats()` reports p50/p95/p99 summaries (the trace
-annotation of the telemetry plane is ROADMAP Queue 1 item 11).
+issue_tick). `latency_stats()` reports p50/p95/p99 summaries and, with the telemetry
+plane on, stamps them into the pipeline's trace meta.
 
 Degraded-mode serving: under overload or mid-recovery the session sheds
 instead of stalling —
@@ -353,4 +353,11 @@ class ServeSession:
             "staleness_ticks_p50": float(np.percentile(stale, 50)),
             "staleness_ticks_max": int(stale.max()),
         }
+        # telemetry plane: the serving percentiles ride the trace meta, so
+        # a saved trace carries them next to the occupancy rows
+        if getattr(self.pipe, "trace", None) is not None:
+            self.pipe.trace.annotate(
+                serving_p50_ms=out["p50_ms"], serving_p95_ms=out["p95_ms"],
+                serving_p99_ms=out["p99_ms"],
+                serving_answered=out["answered"])
         return out

@@ -790,3 +790,88 @@ def test_train_plane_on_the_card_matches_the_cpu(cuda, driver, backend):
         assert bool(((a - b).abs() <= 1e-4 * (1 + b.abs())).all())
     if backend == "kernel":
         assert sr_ops.LAUNCHES["segment_sum_rows"] > 0
+
+
+# the telemetry plane and consistent-cut checkpoints on the card
+def _tel_run(device, driver, backend, telemetry=True):
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    edges, feats = _golden_stream()
+    pipe = D3Pipeline(GraphSAGE((8, 12, 12), seed=0), PipelineConfig(
+        n_parts=4, node_cap=32, edge_cap=128, repl_cap=128, feat_cap=128,
+        edge_tick_cap=32, max_nodes=32, query_cap=8, telemetry=telemetry,
+        delivery_backend=backend,
+        window=win.WindowConfig(kind=win.SESSION, interval=3)),
+        device=device)
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 24)
+    q = [(1, 0, int(edges[0, 0]), True), (2, 0, 5, False)]
+    if driver == "tick":
+        stats = [pipe.tick(e, f, queries=q if i == 1 else None)
+                 for i, (e, f) in enumerate(zip(e_chunks, f_chunks))]
+        stats += [pipe.tick() for _ in range(8)]
+    else:
+        stats = [pipe.run_super_tick(e_chunks, f_chunks, T=len(e_chunks),
+                                     query_chunks=[None, q])[0],
+                 pipe.run_super_tick(T=8)[0]]
+    return pipe, stats
+
+
+@pytest.mark.parametrize("backend", ["kernel", "scatter"])
+@pytest.mark.parametrize("driver", ["tick", "super"])
+def test_telemetry_gauges_on_the_card_match_the_cpu(cuda, driver, backend):
+    """Every occupancy row and integer trace column card = CPU; with
+    telemetry off the card's stats other than the gauges and its sink are
+    bit-equal to the telemetry-on run."""
+    from repro_torch.core.tick import SCALAR_FIELDS
+    from repro_torch.telemetry.trace import TRACE_DEVICE_COLS
+    got, _ = _tel_run(cuda, driver, backend)
+    want, _ = _tel_run(torch.device("cpu"), driver, backend)
+    a, b = got.trace.columns(), want.trace.columns()
+    for c in TRACE_DEVICE_COLS + ["tick", "edges_in", "feats_in",
+                                  "queries_in", "amortized"]:
+        np.testing.assert_array_equal(a[c], b[c], err_msg=c)
+    assert a["q_admitted"].sum() == 2 and a["emitted_sum"].sum() > 0
+    on, s_on = _tel_run(cuda, driver, backend)
+    off, s_off = _tel_run(cuda, driver, backend, telemetry=False)
+    for x, y in zip(s_on, s_off):
+        for sx, sy in zip(x, y):
+            for f in SCALAR_FIELDS:
+                if f not in ("occ_bc_defer", "occ_rmi_defer", "route_peak",
+                             "outbox_part_peak"):
+                    assert int(getattr(sx, f)) == int(getattr(sy, f)), f
+    assert torch.equal(on.sink, off.sink)
+
+
+@pytest.mark.parametrize("direction", ["card-to-cpu", "cpu-to-card"])
+def test_checkpoint_moves_between_the_card_and_the_cpu(cuda, tmp_path,
+                                                       direction):
+    """A checkpoint written on one device restores on the other; the
+    continuation's answers and integer stats equal the writer's."""
+    from repro_torch.ft.checkpoint import CheckpointManager
+    cpu = torch.device("cpu")
+    src_dev, dst_dev = ((cuda, cpu) if direction == "card-to-cpu"
+                        else (cpu, cuda))
+    edges, feats = _golden_stream()
+    src, _ = _tel_run(src_dev, "tick", "kernel")
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_pipeline(1, src)
+    dst, _ = _tel_run(dst_dev, "tick", "kernel")
+    assert mgr.restore_pipeline(dst) == 1
+    assert dst.sink.device.type == dst_dev.type
+    assert torch.equal(dst.sink.cpu(), src.sink.cpu())
+    more = edges[:30][:, ::-1].copy()
+    cut = [(p.metrics.reduce_msgs, p.metrics.emitted_total)
+           for p in (src, dst)]
+    for p in (src, dst):
+        p.drain_answers()
+        p.tick(more, [(int(v), feats[int(v)]) for v in np.unique(more)],
+               queries=[(7, 0, int(more[0, 0]), True)])
+        p.flush(max_ticks=64)
+    a, b = src.drain_answers(), dst.drain_answers()
+    for k in ("qid", "ok", "tick"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert (np.abs(a["vec"] - b["vec"]) <= 1e-5 * (1 + np.abs(b["vec"]))).all()
+    deltas = [(p.metrics.reduce_msgs - r, p.metrics.emitted_total - e)
+              for p, (r, e) in zip((src, dst), cut)]
+    assert deltas[0] == deltas[1] and deltas[0][0] > 0

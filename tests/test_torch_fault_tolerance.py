@@ -1,0 +1,622 @@
+"""The port's fault tolerance (checkpoint, elastic rescale, stragglers,
+chaos drills) against the JAX package's, on the CPU.
+
+The counterparts of tests/test_fault_tolerance.py and the local drills of
+tests/test_chaos.py, on the same numpy streams and JAX-initialised
+weights (40 nodes, dims (6, 12, 12), 4 parts, a session(4) window):
+
+  * restart mid-stream with windows pending: the restored continuation is
+    bit-equal to the uninterrupted run (both drivers, both write modes)
+    and within 1e-4 of the static oracle; held consistent queries answer
+    identically after a restore; gc / latest; async; CRC corruption;
+  * cross-package checkpoints: JAX writes at tick k, the port restores and
+    continues, and the other way round, with the query plane and with the
+    training plane (Adam); the continuation equals the writer's own
+    (integer stats and answers exactly, floats within 1e-5);
+  * the port's msgpack bytes equal `msgpack.packb`'s; zlib blobs written
+    without zstandard restore in both packages; a zstd blob without
+    zstandard raises JAX's RuntimeError;
+  * the rescale plan, shard views, the ring re-blocking helpers and the
+    local recovery drill (step, plan and config equal JAX's);
+  * straggler detection and steal, the drivers feeding the mitigator,
+    speculative chunks;
+  * the chaos drills: the truncated checkpoint and the admission storm
+    return JAX's report (the wall-clock percentiles aside; the drills'
+    counts do not depend on the weights, which each package draws from
+    the seed);
+  * every part owed to ROADMAP Queue 1 item 13 raises NotImplementedError
+    naming it.
+
+Held-query and checkpoint cases on the 4-rank mesh run in
+tests/test_torch_mesh.py.
+"""
+from dataclasses import asdict
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import optim as jopt
+from repro.core import windowing as jwin
+from repro.core.pipeline import D3Pipeline as JaxPipeline
+from repro.core.pipeline import PipelineConfig as JaxConfig
+from repro.core.train_plane import TrainConfig as JaxTrainConfig
+from repro.ft import checkpoint as jck
+from repro.ft import chaos as jchaos
+from repro.ft import elastic as jel
+from repro.ft import stragglers as jstr
+from repro.graph.sage import GraphSAGE as JaxSAGE
+from repro_torch import optim as topt
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import windowing as win
+from repro_torch.core.oracle import build_snapshot, oracle_embeddings
+from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+from repro_torch.core.train_plane import TrainConfig
+from repro_torch.ft import chaos as tchaos
+from repro_torch.ft import checkpoint as tck
+from repro_torch.ft import elastic as tel
+from repro_torch.ft.checkpoint import CheckpointCorruptError, CheckpointManager
+from repro_torch.ft.stragglers import StragglerMitigator, speculative_chunks
+from repro_torch.graph.sage import GraphSAGE
+from repro_torch.serve.query import KIND_EMBED, KIND_LINK
+
+N_NODES, D, DIMS = 40, 6, (6, 12, 12)
+CAPS = dict(n_parts=4, node_cap=64, edge_cap=256, repl_cap=256,
+            feat_cap=256, edge_tick_cap=64, max_nodes=N_NODES)
+N_CLS = 4
+
+
+def make_stream(seed=0, n_edges=120):
+    """test_fault_tolerance.make_stream."""
+    rng = np.random.default_rng(seed)
+    edges = np.stack([rng.integers(0, N_NODES, n_edges),
+                      rng.integers(0, N_NODES, n_edges)], 1)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    feats = {v: rng.normal(size=D).astype(np.float32)
+             for v in range(N_NODES)}
+    return edges, feats
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return JaxSAGE(DIMS).init(jax.random.key(0))
+
+
+@pytest.fixture(scope="module")
+def jtparams():
+    return JaxSAGE(DIMS, n_classes=N_CLS).init(jax.random.key(0))
+
+
+def port_model(jparams, n_classes=0):
+    model = GraphSAGE(DIMS, n_classes=n_classes)
+    model.load_state_dict(params_from_numpy(jax.tree.map(np.asarray,
+                                                         jparams)))
+    return model
+
+
+def port_pipe(jparams, kind="session", train=None, **kw):
+    n_cls = N_CLS if train is not None else 0
+    return D3Pipeline(port_model(jparams, n_cls), PipelineConfig(
+        **dict(CAPS, **kw), window=win.WindowConfig(kind=kind, interval=4)),
+        device="cpu", train=train)
+
+
+def jax_pipe(jparams, kind="session", train=None, **kw):
+    n_cls = N_CLS if train is not None else 0
+    return JaxPipeline(JaxSAGE(DIMS, n_classes=n_cls), jparams, JaxConfig(
+        **dict(CAPS, **kw), window=jwin.WindowConfig(kind=kind,
+                                                     interval=4)),
+        train=train)
+
+
+def state_arrays(pipe) -> list:
+    """Every leaf of the pipeline's checkpoint tree as numpy (either
+    package), in the checkpoint's order."""
+    if isinstance(pipe, D3Pipeline):
+        return [np.asarray(l.cpu()) for _, l in
+                tck.tree_flatten(tck.pipeline_tree(pipe))]
+    tree = {"topo": pipe.topo, "layers": pipe.states, "sink": pipe.sink,
+            "sink_seen": pipe.sink_seen, "queries": pipe.queries,
+            "params": pipe.params, "stage_ring": None,
+            "train": pipe.train_state}
+    return [np.asarray(l) for l in jax.tree.leaves(tree)]
+
+
+def assert_states_equal(a, b, exact=True):
+    la, lb = state_arrays(a), state_arrays(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.shape == y.shape
+        if exact or x.dtype.kind in "biu":
+            np.testing.assert_array_equal(x, y.astype(x.dtype))
+        else:
+            np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-5)
+
+
+def sorted_answers(pipe):
+    ans = pipe.drain_answers()
+    order = np.argsort(ans["qid"], kind="stable")
+    return {k: np.asarray(v)[order] for k, v in ans.items()}
+
+
+# --------------------------------------------------- restart mid-stream
+
+@pytest.mark.parametrize("async_write", [False, True])
+@pytest.mark.parametrize("driver", ["tick", "super"])
+def test_checkpoint_restart_mid_stream(jparams, tmp_path, driver,
+                                       async_write):
+    """Kill the pipeline mid-stream (windows pending = in-flight events),
+    restore into a FRESH pipeline: the continuation is bit-equal to the
+    uninterrupted run and within 1e-4 of the static oracle."""
+    edges, feats = make_stream()
+    half = len(edges) // 2
+
+    def run(pipe, part):
+        if driver == "tick":
+            pipe.run_stream(part, feats, tick_edges=16)
+        else:
+            pipe.run_stream_super(part, feats, tick_edges=16,
+                                  super_ticks=2)
+
+    pipe = port_pipe(jparams)
+    run(pipe, edges[:half])
+    assert any(bool(ls.red_pending.any() | ls.fwd_pending.any())
+               for ls in pipe.states), "the cut must hold pending windows"
+    mgr = CheckpointManager(tmp_path / "ckpt", async_write=async_write)
+    mgr.save_pipeline(step=1, pipe=pipe)
+    mgr.wait()
+    pipe2 = port_pipe(jparams)
+    assert mgr.restore_pipeline(pipe2) == 1
+    assert_states_equal(pipe2, pipe)
+    for p in (pipe, pipe2):
+        run(p, edges[half:])
+        p.flush(max_ticks=128)
+    assert_states_equal(pipe2, pipe)
+    g, _ = build_snapshot(edges, feats, D, N_NODES, "cpu")
+    ref = oracle_embeddings(port_model(jparams), g).numpy()
+    emb = pipe2.embeddings()
+    assert len(emb) == len(set(np.unique(edges).tolist()))
+    for vid, vec in emb.items():
+        np.testing.assert_allclose(vec, ref[vid], rtol=1e-4, atol=1e-4)
+
+
+def test_checkpoint_restores_pending_consistent_queries(jparams, tmp_path):
+    """Held consistent queries ride the checkpoint and answer identically
+    (qids, answer ticks, bit-equal payloads) after a restore."""
+    edges, feats = make_stream()
+    u, v = int(edges[0, 0]), int(edges[0, 1])
+    pipe = port_pipe(jparams, "tumbling", query_cap=8)
+    pipe.run_stream(edges[:80], feats, tick_edges=16)
+    pipe.tick(edges[80:], queries=[(1, KIND_EMBED, u, True),
+                                   (2, KIND_LINK, u, v, True),
+                                   (3, KIND_EMBED, v, False)])
+    pipe.drain_answers()
+    held = int(pipe.queries.pending.sum())
+    assert held > 0, "test needs queries still pending at the cut"
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    mgr.save_pipeline(step=1, pipe=pipe)
+    pipe2 = port_pipe(jparams, "tumbling", query_cap=8)
+    assert mgr.restore_pipeline(pipe2) == 1
+    assert torch.equal(pipe2.queries.pending, pipe.queries.pending)
+    for p in (pipe, pipe2):
+        p.flush(max_ticks=128)
+    a, b = sorted_answers(pipe), sorted_answers(pipe2)
+    assert a["qid"].size == held
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+
+
+def test_checkpoint_gc_and_latest(tmp_path):
+    mgr = CheckpointManager(tmp_path, keep=2)
+    for s in (1, 2, 3, 4):
+        mgr.save(s, {"a": np.arange(4)})
+    assert mgr.latest().step == 4
+    assert len(list(tmp_path.glob("*.ckpt"))) == 2
+    tree, step = mgr.restore({"a": np.zeros(4, np.int64)})
+    assert step == 4
+    np.testing.assert_array_equal(np.asarray(tree["a"]), np.arange(4))
+    tree, _ = mgr.restore({"a": torch.zeros(4, dtype=torch.int32)})
+    assert tree["a"].dtype == torch.int32
+    assert torch.equal(tree["a"], torch.arange(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="shape"):
+        mgr.restore({"a": np.zeros(5, np.int64)})
+
+
+def test_checkpoint_async_snapshots_on_the_callers_thread(tmp_path):
+    """The snapshot is taken in save(): a tensor changed after save()
+    returns does not reach the blob the writer thread writes."""
+    mgr = CheckpointManager(tmp_path, async_write=True)
+    x = torch.ones(8, 8)
+    mgr.save(7, {"x": x})
+    x.add_(1.0)
+    mgr.wait()
+    tree, step = mgr.restore({"x": torch.zeros(8, 8)})
+    assert step == 7 and torch.equal(tree["x"], torch.ones(8, 8))
+
+
+def test_checkpoint_crc_detects_corruption(tmp_path):
+    mgr = CheckpointManager(tmp_path, keep=3)
+    x1 = np.arange(64, dtype=np.float32).reshape(8, 8)
+    mgr.save(1, {"x": x1})
+    mgr.save(2, {"x": x1 + 1.0})
+    info = mgr.latest()
+    blob = bytearray(info.path.read_bytes())
+    blob[len(blob) // 2] ^= 0xFF
+    info.path.write_bytes(bytes(blob))
+    with pytest.raises(CheckpointCorruptError, match=r"step 2"):
+        mgr.restore({"x": np.zeros((8, 8), np.float32)}, step=2)
+    with pytest.warns(UserWarning, match="falling back"):
+        tree, step = mgr.restore({"x": np.zeros((8, 8), np.float32)})
+    assert step == 1
+    np.testing.assert_array_equal(np.asarray(tree["x"]), x1)
+    # the JAX manager reads the same directory the same way
+    with pytest.raises(jck.CheckpointCorruptError, match=r"step 2"):
+        jck.CheckpointManager(tmp_path).restore(
+            {"x": np.zeros((8, 8), np.float32)}, step=2)
+
+
+# ------------------------------------------------- the codec and format
+
+def test_msgpack_bytes_equal_msgpack_packb(jparams):
+    msgpack = pytest.importorskip("msgpack")
+    payloads = [
+        {"treedef": "t" * 40, "leaves": [
+            {"dtype": "float32", "shape": [3, 4, 0, 300, 70000, 2 ** 33],
+             "data": b"\x00" * 300}, {"dtype": "bool", "shape": [],
+                                      "data": b"y" * 70000}]},
+        [-1, -32, -33, -128, -129, -32768, -32769, -2 ** 31, -2 ** 31 - 1,
+         -2 ** 63, 0, 127, 128, 255, 256, 65535, 65536, 2 ** 32 - 1,
+         2 ** 32, 2 ** 64 - 1],
+        {str(i): i for i in range(20)}, list(range(70000)), "é" * 300,
+        "a" * 70000, {}, []]
+    edges, feats = make_stream()
+    pipe = port_pipe(jparams, query_cap=8)
+    pipe.run_stream(edges[:60], feats, tick_edges=16)
+    pairs = tck.tree_flatten(tck.pipeline_tree(pipe))
+    arrays = [tck._to_host(l) for _, l in pairs]
+    payloads.append({"treedef": tck._treedef(pairs), "leaves": [
+        {"dtype": str(a.dtype), "shape": list(a.shape),
+         "data": a.tobytes()} for a in arrays]})
+    for obj in payloads:
+        raw = tck.packb(obj)
+        assert raw == msgpack.packb(obj, use_bin_type=True)
+        assert msgpack.unpackb(raw, raw=False) == jax.tree.map(
+            lambda x: bytes(x) if isinstance(x, memoryview) else x,
+            tck.unpackb(raw))
+    with pytest.raises(TypeError, match="subset"):
+        tck.packb({"x": 1.5})
+
+
+@pytest.mark.parametrize("codec", ["zlib", "zstd"])
+def test_codecs_restore_in_both_packages(tmp_path, monkeypatch, codec):
+    """Without zstandard both packages write \\x04 (zlib) blobs that both
+    restore; with it, \\x03 blobs; a zstd blob read without the package
+    raises JAX's RuntimeError."""
+    if codec == "zlib":
+        monkeypatch.setattr(tck, "zstandard", None)
+        monkeypatch.setattr(jck, "zstandard", None)
+    else:
+        pytest.importorskip("zstandard")
+    tag = b"\x04" if codec == "zlib" else b"\x03"
+    x = np.arange(24, dtype=np.int32).reshape(4, 6)
+    CheckpointManager(tmp_path / "p").save(1, {"x": torch.as_tensor(x)})
+    jck.CheckpointManager(tmp_path / "j").save(1, {"x": x})
+    for d in ("p", "j"):
+        assert (tmp_path / d / "0000000001.ckpt").read_bytes()[:1] == tag
+        for mgr in (CheckpointManager(tmp_path / d),
+                    jck.CheckpointManager(tmp_path / d)):
+            tree, _ = mgr.restore({"x": np.zeros((4, 6), np.int64)})
+            np.testing.assert_array_equal(np.asarray(tree["x"]), x)
+    if codec == "zstd":
+        monkeypatch.setattr(tck, "zstandard", None)
+        with pytest.raises(RuntimeError, match="'zstandard' package is "
+                                               "not installed"):
+            CheckpointManager(tmp_path / "j").restore(
+                {"x": np.zeros((4, 6), np.int64)})
+
+
+# ------------------------------------------------ cross-package restores
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_cross_package_checkpoint_with_held_queries(jparams, tmp_path,
+                                                    writer):
+    """One package writes mid-stream (windows pending, consistent queries
+    held), the other restores into a fresh pipeline and continues: the
+    state, the answers and the integer stats equal the writer's own
+    continuation."""
+    edges, feats = make_stream()
+    half = len(edges) // 2
+    u, v = int(edges[0, 0]), int(edges[0, 1])
+    q = [(1, KIND_EMBED, u, True), (2, KIND_LINK, u, v, True)]
+    make = {"jax": jax_pipe, "port": port_pipe}
+    reader = "port" if writer == "jax" else "jax"
+    src = make[writer](jparams, query_cap=8)
+    src.run_stream(edges[:half], feats, tick_edges=16)
+    src.tick(edges[half:half + 8], queries=q)
+    src.drain_answers()
+    mgrs = {"jax": jck.CheckpointManager, "port": CheckpointManager}
+    mgrs[writer](tmp_path / "c").save_pipeline(3, src)
+    dst = make[reader](jparams, query_cap=8)
+    assert mgrs[reader](tmp_path / "c").restore_pipeline(dst) == 3
+    assert dst.now == src.now
+    assert_states_equal(dst, src)
+    keys = ("ticks", "reduce_msgs", "broadcast_msgs", "cross_part_msgs",
+            "emitted_total", "dropped", "queries_answered")
+    at_cut = {k: getattr(src.metrics, k) for k in keys}
+    for p in (src, dst):
+        p.run_stream(edges[half + 8:], feats, tick_edges=16)
+        p.flush(max_ticks=128)
+    assert_states_equal(dst, src, exact=False)
+    for k in keys:                   # the continuation's counters
+        assert getattr(dst.metrics, k) == getattr(src.metrics, k) - \
+            at_cut[k], k
+    a, b = sorted_answers(src), sorted_answers(dst)
+    assert list(a["qid"]) == [1, 2]
+    for k in ("qid", "kind", "ok", "tick", "issue"):
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    np.testing.assert_allclose(b["vec"], a["vec"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(b["score"], a["score"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_cross_package_checkpoint_with_training(jtparams, tmp_path, writer):
+    """The training state (labels, Adam moments and step counters, live
+    parameters) rides the cut: a restore in the other package continues
+    the online plane with the same fired steps and parameters within
+    1e-5; restoring re-mirrors the live parameters into the model."""
+    edges, feats = make_stream()
+    labels = [(v, v % N_CLS) for v in range(N_NODES)]
+    jtrain = JaxTrainConfig(optimizer=jopt.adam(), lr=0.02,
+                            batch_threshold=4)
+    ttrain = TrainConfig(optimizer=topt.adam(), lr=0.02, batch_threshold=4)
+    make = {"jax": lambda: jax_pipe(jtparams, "streaming", train=jtrain,
+                                    train_cap=64),
+            "port": lambda: port_pipe(jtparams, "streaming", train=ttrain,
+                                      train_cap=64)}
+    mgrs = {"jax": jck.CheckpointManager, "port": CheckpointManager}
+    reader = "port" if writer == "jax" else "jax"
+    chunks = [edges[i:i + 16] for i in range(0, len(edges), 16)]
+
+    def tick(p, i):
+        p.tick(chunks[i], [(int(x), feats[int(x)]) for x in
+                           np.unique(chunks[i])],
+               labels=labels[4 * i:4 * i + 4])
+
+    src = make[writer]()
+    for i in range(4):
+        tick(src, i)
+    steps = src.train_stats()["steps"]
+    assert int(steps) > 0, "the cut must hold optimizer state"
+    mgrs[writer](tmp_path / "c").save_pipeline(4, src)
+    dst = make[reader]()
+    assert mgrs[reader](tmp_path / "c").restore_pipeline(dst) == 4
+    assert_states_equal(dst, src)
+    if reader == "port":
+        for i, layer in enumerate(dst.layers):
+            assert torch.equal(layer.w_self.w,
+                               dst.train_state.params[f"l{i}"]["self"]["w"])
+    for i in range(4, len(chunks)):
+        tick(src, i)
+        tick(dst, i)
+    assert int(dst.train_stats()["steps"]) == \
+        int(src.train_stats()["steps"]) > int(steps)
+    assert_states_equal(dst, src, exact=False)
+
+
+# ------------------------------------------------------ elastic rescale
+
+def test_rescale_plan_and_shard_views_equal_jax():
+    for old, new, mx in ((8, 16, 64), (2, 1, 4), (4, 3, 64), (16, 5, 64)):
+        plan, jplan = tel.rescale_parts(old, new, mx), \
+            jel.rescale_parts(old, new, mx)
+        assert asdict(plan) == asdict(jplan)
+        assert plan.moved_fraction == jplan.moved_fraction
+        for lp, _, n in plan.moves:
+            assert 0 <= n < new
+    for par in (16, 5):
+        views = tel.shard_views(64, par, 64)
+        assert all(len(v) > 0 for v in views)
+        assert sum(len(v) for v in views) == 64
+        for a, b in zip(views, jel.shard_views(64, par, 64)):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="max_parallelism"):
+        tel.shard_views(32, 4, 64)
+
+
+@pytest.mark.parametrize("new_rows", [12, 5, 3])
+def test_repack_defer_ring_equals_jax(new_rows):
+    rng = np.random.default_rng(new_rows)
+    rows = rng.normal(size=(8, 7)).astype(np.float32)
+    ok = rng.random(8) < 0.5
+    got = tel.repack_defer_ring(torch.as_tensor(rows), torch.as_tensor(ok),
+                                new_rows)
+    want = jel.repack_defer_ring(jax.numpy.asarray(rows),
+                                 jax.numpy.asarray(ok), new_rows)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_repack_stage_slab_equals_jax():
+    rng = np.random.default_rng(3)
+    rows = rng.normal(size=(24, 9)).astype(np.float32)
+    rows[:, 2] = rng.integers(0, 8, 24)                 # part column
+    rows[:, 8] = (rng.random(24) < 0.6).astype(np.float32)   # valid
+    for p_loc, d, cap in ((2, 4, 6), (4, 2, 3), (1, 8, 2)):
+        got = tel.repack_stage_slab(torch.as_tensor(rows), 2, 8, p_loc, d,
+                                    cap)
+        want = jel.repack_stage_slab(jax.numpy.asarray(rows), 2, 8, p_loc,
+                                     d, cap)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_failure_recovery_rescale_equals_jax(jparams, tmp_path):
+    """Checkpoint, "lose a machine" (parallelism 2 -> 1), restore: the
+    returned (step, plan, config) equal JAX's, the caller's config is not
+    mutated, and the continuation matches the static oracle."""
+    edges, feats = make_stream(seed=2)
+    pipes = {"port": port_pipe(jparams, seed=2, base_parallelism=2),
+             "jax": jax_pipe(jparams, seed=2, base_parallelism=2)}
+    out = {}
+    for name, pipe in pipes.items():
+        pipe.run_stream(edges[:60], feats, tick_edges=16)
+        mgr = (CheckpointManager if name == "port"
+               else jck.CheckpointManager)(tmp_path / name)
+        mgr.save_pipeline(step=5, pipe=pipe)
+        fresh = (port_pipe if name == "port" else jax_pipe)(
+            jparams, seed=2, base_parallelism=2)
+        before = fresh.cfg
+        rec = (tel if name == "port" else jel).simulate_failure_and_recover(
+            fresh, mgr, 5, new_parallelism=1)
+        assert rec[2] is fresh.cfg and rec[2] is not before
+        assert before.base_parallelism == 2
+        out[name] = (rec, fresh)
+    (step, plan, cfg), pipe2 = out["port"]
+    (jstep, jplan, jcfg), _ = out["jax"]
+    assert step == jstep == 5 and asdict(plan) == asdict(jplan)
+    assert cfg.base_parallelism == jcfg.base_parallelism == 1
+    pipe2.run_stream(edges[60:], feats, tick_edges=16)
+    pipe2.flush(max_ticks=128)
+    g, _ = build_snapshot(edges, feats, D, N_NODES, "cpu")
+    ref = oracle_embeddings(port_model(jparams), g).numpy()
+    for vid, vec in pipe2.embeddings().items():
+        np.testing.assert_allclose(vec, ref[vid], rtol=1e-4, atol=1e-4)
+
+
+def test_local_reshard_records_itself_in_the_trace(jparams):
+    pipe = port_pipe(jparams, telemetry=True)
+    edges, feats = make_stream()
+    pipe.run_stream(edges[:32], feats, tick_edges=16)
+    old = pipe.straggler
+    cfg = pipe.reshard(None)
+    assert cfg is pipe.cfg and pipe.straggler is not old
+    assert pipe.trace.meta["reshards"] == [
+        {"tick": 2, "n_devices": 1, "n_stages": 1}]
+
+
+# ----------------------------------------------------------- stragglers
+
+def test_straggler_detection_and_steal_equal_jax():
+    for cls in (StragglerMitigator, jstr.StragglerMitigator):
+        m = cls(n_shards=4, patience=2)
+        busy = np.array([10, 10, 10, 100])
+        m.observe_tick(1.0, busy)
+        for _ in range(3):
+            m.observe_tick(5.0, busy)
+        assert 3 in m.persistent_stragglers()
+        parts = [np.arange(i * 16, (i + 1) * 16) for i in range(4)]
+        overrides = m.plan_work_steal(parts, busy)
+        assert overrides and all(v != 3 for v in overrides.values())
+        if cls is StragglerMitigator:
+            port = (overrides, m._ewma, m._flags.tolist())
+    assert port == (overrides, m._ewma, m._flags.tolist())
+
+
+def test_drivers_feed_straggler_mitigator(jparams):
+    """With telemetry on both drivers feed observe_tick, once a tick, as
+    JAX's do; off, there is no mitigator."""
+    edges, feats = make_stream()
+    pipe = port_pipe(jparams, telemetry=True)
+    jp = jax_pipe(jparams, telemetry=True)
+    for p in (pipe, jp):
+        assert p.straggler is not None and p.straggler.ticks_observed == 0
+        p.run_stream(edges[:48], feats, tick_edges=16)
+        assert p.straggler.ticks_observed == 3 and p.straggler._ewma > 0
+        p.run_super_tick(T=4)
+    assert pipe.straggler.ticks_observed == jp.straggler.ticks_observed
+    assert port_pipe(jparams).straggler is None
+    assert pipe.mitigate_stragglers() is None      # no mesh: nothing to do
+    m = StragglerMitigator(n_shards=4, patience=2)
+    parts = [np.arange(d, 16, 4) for d in range(4)]
+    busy = np.array([5, 5, 80, 5])
+    m.observe_tick(0.01, np.array([20, 20, 20, 20]))
+    for _ in range(3):
+        assert m.observe_tick(0.05, busy) == [2]
+    assert m.persistent_stragglers() == [2]
+    overrides = m.plan_work_steal(parts, busy)
+    assert overrides and set(overrides).issubset(set(parts[2].tolist()))
+    assert all(tgt != 2 for tgt in overrides.values())
+
+
+def test_speculative_chunks():
+    started = {0: 0.0, 1: 5.0, 2: 9.0}
+    assert speculative_chunks([0, 1, 2], started, now_s=10.0,
+                              timeout_s=4.0) == [0, 1] == \
+        jstr.speculative_chunks([0, 1, 2], started, 10.0, 4.0)
+
+
+# ---------------------------------------------------------------- chaos
+
+def test_chaos_truncated_checkpoint_equals_jax(tmp_path):
+    rep = tchaos.scenario_truncated_checkpoint(
+        tchaos.ChaosConfig(), tmp_path / "p", device="cpu")
+    want = jchaos.scenario_truncated_checkpoint(jchaos.ChaosConfig(),
+                                                tmp_path / "j")
+    assert f"step {rep['torn_step']}" in rep["explicit_error"]
+    assert ".ckpt" in rep["explicit_error"]
+    for k in ("torn_step", "restored_step", "fallback_warned"):
+        assert rep[k] == want[k], k
+    assert rep["restored_step"] == rep["torn_step"] - 1
+    assert rep["fallback_warned"]
+
+
+@pytest.mark.parametrize("driver", ["tick", "super"])
+def test_chaos_admission_storm_equals_jax(driver):
+    rep = tchaos.scenario_admission_storm(
+        tchaos.ChaosConfig(driver=driver), device="cpu")
+    want = jchaos.scenario_admission_storm(jchaos.ChaosConfig(driver=driver))
+    st = rep["stats"]
+    assert st["shed"] > 0 and st["retried"] > 0
+    assert rep["storm_resolved"] == rep["n_storm"]
+    assert rep["late_ok"] and all(rep["late_ok"].values())
+    assert rep["outstanding"] == 0 and rep["dropped"] == 0
+    assert set(rep) == set(want) and set(st) == set(want["stats"])
+    for k in rep:
+        if k != "stats":
+            assert rep[k] == want[k], k
+    for k in st:                     # wall-clock percentiles aside
+        if not k.endswith("_ms"):
+            assert st[k] == want["stats"][k], k
+
+
+# ------------------------------------------------ item 13's refusals
+
+def test_every_item_13_part_raises_naming_it(jparams, tmp_path):
+    pipe = port_pipe(jparams)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        pipe.reshard(object())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tel.simulate_failure_and_recover(pipe, CheckpointManager(tmp_path),
+                                         1, 1, new_mesh=object())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tchaos.scenario_failstop(tchaos.ChaosConfig(), tmp_path)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tchaos.scenario_slow_shard(tchaos.ChaosConfig())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        PipelineConfig(**CAPS, n_stages=2).validate(n_devices=2)
+
+
+def test_the_port_needs_no_msgpack_and_zstandard_only_optionally():
+    """No module of the port imports msgpack; zstandard is imported in
+    one place, inside a try that falls back to zlib."""
+    import ast
+    from pathlib import Path
+    root = Path(tck.__file__).resolve().parents[1]
+    hits = {}
+    for path in sorted(root.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        guarded = {id(n) for t in ast.walk(tree) if isinstance(t, ast.Try)
+                   for b in t.body for n in ast.walk(b)}
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("msgpack", "zstandard"):
+                    hits.setdefault(top, []).append(
+                        (path.name, id(node) in guarded))
+    assert "msgpack" not in hits
+    assert hits["zstandard"] == [("checkpoint.py", True)]

@@ -36,6 +36,18 @@ the flush; dims (8, 16, 16), 4 classes) at route_cap 2, where the
 gradient lanes stay dense — steps exactly equal, loss and every
 last_grad leaf within rtol 1e-5, atol 1e-6 of JAX's 4-device run, and
 the same within the port between the 4-rank run and a one-rank run.
+
+The telemetry plane (TELCASES): the query stream at route_cap 2 with
+telemetry on, per-tick and super-tick — every device column and integer
+host column of the trace equal JAX's 4-device trace, the ring gauges
+equal the summed per-rank ring populations after every tick, the straggler
+feed fed once a tick, and the stats other than the gauges equal the
+telemetry-free case; a persistent straggler makes `mitigate_stragglers`
+raise NotImplementedError naming item 13. Checkpoints (CKCASES): held
+consistent queries cut on the 4 ranks (rank 0 writes the gathered global
+layout) restore into fresh ranks and answer as the uninterrupted run does;
+the same blob restores into a local port pipeline and a local JAX pipeline,
+which answer the same (qid, tick, ok exactly; vec within 1e-5).
 """
 import hashlib
 import os
@@ -96,6 +108,14 @@ GATE_EPS = 1e-3
 # the gradient lanes are dense)
 TCASES = {"train-cap2-super": 2}
 T_DIMS, T_CLS = (8, 16, 16), 4
+# the telemetry plane on the mesh: name -> (driver, route_cap)
+TELCASES = {"tel-cap2-tick": ("tick", 2), "tel-cap2-super": ("super", 2)}
+TEL_GAUGES = ("occ_bc_defer", "occ_rmi_defer", "route_peak",
+              "outbox_part_peak")
+# held consistent queries through a checkpoint on the mesh
+CKPT_QUERIES = lambda u, v: [(1, KIND_EMBED, u, True),
+                             (2, KIND_LINK, u, v, True),
+                             (3, KIND_EMBED, v, False)]
 
 
 def hub_stream(seed=0, n_edges=120):
@@ -213,6 +233,64 @@ def train_labels():
     return {v: (v * 7 + 3) % T_CLS for v in range(N_NODES)}
 
 
+def tel_config(cap, telemetry=True):
+    return dict(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+                feat_cap=128, edge_tick_cap=32, max_nodes=N_NODES,
+                route_cap=cap, telemetry=telemetry,
+                window=win.WindowConfig(kind=win.STREAMING))
+
+
+def drive_tel(pipe, name, edges, feats, record, rings=None):
+    """Stream + flush a telemetry case, recording every call's integer
+    TickStats (gauges included) and, per tick, this rank's ring
+    populations into `rings`."""
+    driver = TELCASES[name][0]
+    fields = STAT_FIELDS + TEL_GAUGES
+    tick, sup = pipe.tick, pipe.run_super_tick
+
+    def rec(stats):
+        record.append([[int(getattr(s, f)) for f in fields] for s in stats])
+
+    def tick_rec(*a, **k):
+        out = tick(*a, **k)
+        rec(out)
+        if rings is not None:
+            rings.append([[int(ls.bc_defer_ok.sum()),
+                           int(ls.rmi_defer_ok.sum())]
+                          for ls in pipe.states])
+        return out
+
+    def sup_rec(*a, **k):
+        out = sup(*a, **k)
+        rec(out[0])
+        return out
+
+    pipe.tick, pipe.run_super_tick = tick_rec, sup_rec
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, 24)
+    if driver == "tick":
+        for e, f in zip(e_chunks, f_chunks):
+            pipe.tick(e, f)
+        for _ in range(16):
+            pipe.tick()
+    else:
+        pipe.run_super_tick(e_chunks, f_chunks, T=len(e_chunks))
+        pipe.run_super_tick(T=16)
+    return pipe
+
+
+def tel_summary(pipe, record):
+    cols = pipe.trace.columns()
+    from repro_torch.telemetry.trace import TRACE_DEVICE_COLS
+    keys = TRACE_DEVICE_COLS + ["tick", "ticks", "amortized", "wire_bytes",
+                                "edges_in", "feats_in"]
+    m = pipe.metrics
+    return {"cols": {k: np.asarray(cols[k]) for k in keys},
+            "stats": record, "ticks_observed": pipe.straggler.ticks_observed,
+            "peaks": [int(m.route_peak), int(m.outbox_peak),
+                      int(m.outbox_part_peak), int(m.occ_defer_ticks)],
+            "metrics": {k: int(getattr(m, k)) for k in METRICS}}
+
+
 def _record_calls(pipe, record):
     """Record the integer TickStats of every tick / super-tick call."""
     tick, sup = pipe.tick, pipe.run_super_tick
@@ -272,7 +350,47 @@ def summary(pipe, record, keys=METRICS):
 
 # ------------------------------------------------------------ port side
 
-def _port_rank(mesh, params, tparams):
+def _ckpt_rank(mesh, params, ckpt_dir):
+    """Held consistent queries through a checkpoint on the mesh: cut,
+    restore into fresh ranks, finish both; the blob is kept for the
+    local restores of the test."""
+    from repro_torch.ft.checkpoint import CheckpointManager
+
+    def make():
+        model = GraphSAGE(DIMS)
+        model.load_state_dict(params)
+        return D3Pipeline(model, PipelineConfig(
+            n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+            feat_cap=128, edge_tick_cap=32, max_nodes=N_NODES, query_cap=8,
+            window=win.WindowConfig(kind=win.TUMBLING, interval=4)),
+            mesh=mesh)
+
+    edges, feats = q_stream()
+    u, v = int(edges[0, 0]), int(edges[0, 1])
+    pipe = make()
+    pipe.run_stream(edges[:72], feats, tick_edges=24)
+    pipe.tick(edges[72:], queries=CKPT_QUERIES(u, v))
+    pipe.drain_answers()
+    held = int(mesh.all_reduce(pipe.queries.pending.sum()))
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save_pipeline(step=1, pipe=pipe)
+    pipe2 = make()
+    step = mgr.restore_pipeline(pipe2)
+    same = all(torch.equal(a, b) for a, b in zip(
+        (pipe.queries.pending, pipe.sink, pipe.states[0].agg),
+        (pipe2.queries.pending, pipe2.sink, pipe2.states[0].agg)))
+    out = {"held": held, "step": step, "same_at_cut": same,
+           "dir": ckpt_dir}
+    for key, p in (("uninterrupted", pipe), ("restored", pipe2)):
+        p.flush(max_ticks=128)
+        ans = p.drain_answers()
+        order = np.argsort(ans["qid"], kind="stable")
+        out[key] = {k: np.asarray(val)[order] for k, val in ans.items()}
+    out["emb"] = pipe2.embeddings()
+    return out
+
+
+def _port_rank(mesh, params, tparams, ckpt_dir):
     """One rank: every case, on CPU tensors. Returns per case the rank's
     aggregator-count blocks, a digest of the host batches it built and
     (all ranks alike) the summary."""
@@ -349,6 +467,30 @@ def _port_rank(mesh, params, tparams):
                                             tree_leaves(grads)],
                      "metrics": {k: int(getattr(pipe.metrics, k))
                                  for k in METRICS}}
+    for name, (_, cap) in TELCASES.items():
+        edges, feats = q_stream()
+        res = {}
+        for tel in (True, False):
+            model = GraphSAGE(DIMS)
+            model.load_state_dict(params)
+            pipe = D3Pipeline(model, PipelineConfig(**tel_config(cap, tel)),
+                              mesh=mesh)
+            record, rings = [], []
+            drive_tel(pipe, name, edges, feats, record, rings)
+            if tel:
+                res = tel_summary(pipe, record)
+                res["rings"] = rings
+                # a persistent straggler: the reshard branch is item 13's
+                pipe.straggler._flags[:] = pipe.straggler.patience
+                try:
+                    pipe.mitigate_stragglers()
+                    res["mitigate"] = None
+                except NotImplementedError as e:
+                    res["mitigate"] = str(e)
+            else:
+                res["off_stats"] = record
+        out[name] = res
+    out["ckpt-held"] = _ckpt_rank(mesh, params, ckpt_dir)
     return out
 
 
@@ -419,6 +561,15 @@ def jax_reference(path):
                      "metrics": {k: int(getattr(pipe.metrics, k))
                                  for k in METRICS},
                      "params": jax.tree.map(np.asarray, jp)}
+    for name, (_, cap) in TELCASES.items():
+        edges, feats = q_stream()
+        jm = JaxSAGE(DIMS)
+        pipe = JaxPipeline(jm, jm.init(jax.random.key(0)), JaxConfig(
+            **dict(tel_config(cap), window=jwin.WindowConfig(
+                kind=jwin.STREAMING))), mesh=mesh)
+        record = []
+        drive_tel(pipe, name, edges, feats, record)
+        out[name] = tel_summary(pipe, record)
     with open(path, "wb") as f:
         pickle.dump(out, f)
 
@@ -433,6 +584,7 @@ def runs(tmp_path_factory):
     from repro.graph.sage import GraphSAGE as JaxSAGE
     from repro_torch.convert import params_from_numpy
     out = tmp_path_factory.mktemp("jax_mesh") / "ref.pkl"
+    ckpt_dir = tmp_path_factory.mktemp("mesh_ckpt")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={N_RANKS} "
                          "--xla_backend_optimization_level=0 "
@@ -448,7 +600,8 @@ def runs(tmp_path_factory):
             np.asarray, JaxSAGE(T_DIMS, n_classes=T_CLS).init(
                 jax.random.key(0))))
         port = spawn_stream_mesh(N_RANKS, _port_rank, backend="gloo",
-                                 device="cpu", args=(params, tparams),
+                                 device="cpu",
+                                 args=(params, tparams, str(ckpt_dir)),
                                  timeout=TIMEOUT)
         log, _ = proc.communicate(timeout=TIMEOUT)
     finally:
@@ -621,6 +774,93 @@ def test_mesh_config_validation():
         4).rmi_defer_rows == 0
     assert PipelineConfig(n_parts=4, route_cap=2, feat_cap=8).capacities(
         1).rmi_defer_rows == 0
+
+
+@pytest.mark.parametrize("name", list(TELCASES))
+def test_mesh_telemetry_matches_jax_mesh(runs, name):
+    """The trace of 4 gloo ranks at route_cap 2 equals JAX's 4-device
+    trace column for column; the ring gauges equal the ranks' summed
+    ring populations; telemetry changes no other stat."""
+    ref, port, *_ = runs
+    want = ref[name]
+    ranks = [p[name] for p in port]
+    for r in ranks:
+        for k, col in want["cols"].items():
+            np.testing.assert_array_equal(r["cols"][k], col, err_msg=k)
+        assert r["stats"] == want["stats"]
+        assert r["peaks"] == want["peaks"]
+        assert r["metrics"] == want["metrics"]
+        assert r["ticks_observed"] == want["ticks_observed"]
+        assert "item 13" in r["mitigate"]
+        n = len(STAT_FIELDS)
+        for call, off in zip(r["stats"], r["off_stats"]):
+            for s_on, s_off in zip(call, off):
+                assert s_on[:n] == s_off[:n]
+                assert s_off[n:] == [0] * len(TEL_GAUGES)
+    cols = ranks[0]["cols"]
+    assert cols["route_peak"].max() > 2, "demand must pass the cap"
+    assert cols["occ_rmi_defer"].max() > 0
+    assert (cols["route_peak"] <= cols["wire_rows"] + cols["route_deferred"]
+            + cols["route_dropped"]).all()
+    if name.endswith("-tick"):
+        rings = np.asarray([r["rings"] for r in ranks]).sum(axis=0)
+        np.testing.assert_array_equal(cols["occ_bc_defer"],
+                                      rings[:, :, 0].sum(axis=1))
+        np.testing.assert_array_equal(cols["occ_rmi_defer"],
+                                      rings[:, :, 1].sum(axis=1))
+
+
+def test_mesh_checkpoint_restores_held_queries(runs):
+    """Held consistent queries cut on 4 ranks answer identically after a
+    restore into fresh ranks; the blob (rank 0's gathered global layout)
+    restores into a local port pipeline and a local JAX pipeline, which
+    answer the same."""
+    from repro.ft.checkpoint import CheckpointManager as JaxManager
+    from repro_torch.ft.checkpoint import CheckpointManager
+    ref, port, params, _ = runs
+    ranks = [p["ckpt-held"] for p in port]
+    assert ranks[0]["held"] > 0
+    for r in ranks:
+        assert r["step"] == 1 and r["same_at_cut"]
+        assert r["held"] == ranks[0]["held"]
+        for k, col in ranks[0]["uninterrupted"].items():
+            np.testing.assert_array_equal(r["restored"][k], col, err_msg=k)
+            np.testing.assert_array_equal(r["uninterrupted"][k], col)
+    want = ranks[0]["uninterrupted"]
+    assert list(want["qid"]) == [1, 2]
+    import jax
+    from repro.core import windowing as jwin
+    from repro.core.pipeline import D3Pipeline as JaxPipeline
+    from repro.core.pipeline import PipelineConfig as JaxConfig
+    from repro.graph.sage import GraphSAGE as JaxSAGE
+    caps = dict(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+                feat_cap=128, edge_tick_cap=32, max_nodes=N_NODES,
+                query_cap=8)
+    model = GraphSAGE(DIMS)
+    model.load_state_dict(params)
+    local = D3Pipeline(model, PipelineConfig(
+        **caps, window=win.WindowConfig(kind=win.TUMBLING, interval=4)),
+        device="cpu")
+    jm = JaxSAGE(DIMS)
+    jlocal = JaxPipeline(jm, jm.init(jax.random.key(0)), JaxConfig(
+        **caps, window=jwin.WindowConfig(kind=jwin.TUMBLING, interval=4)))
+    assert CheckpointManager(ranks[0]["dir"]).restore_pipeline(local) == 1
+    assert JaxManager(ranks[0]["dir"]).restore_pipeline(jlocal) == 1
+    for p in (local, jlocal):
+        p.flush(max_ticks=128)
+        ans = p.drain_answers()
+        order = np.argsort(ans["qid"], kind="stable")
+        got = {k: np.asarray(val)[order] for k, val in ans.items()}
+        for k in ("qid", "kind", "ok", "tick", "issue"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_allclose(got["vec"], want["vec"], rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got["score"], want["score"], rtol=1e-4,
+                                   atol=1e-5)
+    emb = local.embeddings()
+    assert set(emb) == set(ranks[0]["emb"])
+    for vid, vec in ranks[0]["emb"].items():
+        np.testing.assert_allclose(emb[vid], vec, rtol=1e-5, atol=1e-5)
 
 
 def _failing_rank(mesh):

@@ -141,15 +141,18 @@ def test_serve_cli_mesh_pinned_counts(driver, rmis, cross):
     ("train_cap", 4, 10), ("telemetry", True, 11)])
 def test_unported_planes_raise(field, value, item):
     """Planes not ported raise NotImplementedError naming their ROADMAP
-    item; items 8 (delta gating) and 10 (the training plane) are ported
-    now: delta_eps > 0 runs, and train_cap > 0 without train= is the
+    item; items 8 (delta gating), 10 (the training plane) and 11 (the
+    telemetry plane) are ported now: delta_eps > 0 and telemetry=True
+    run (one trace row a tick), and train_cap > 0 without train= is the
     ValueError JAX raises."""
     cfg = PipelineConfig(**CAPS, **{field: value})
-    if item == 8:
+    if item in (8, 11):
         edges, feats = _stream()
         pipe = D3Pipeline(GraphSAGE(DIMS), cfg, device="cpu")
         pipe.run_stream(edges[:48], feats, tick_edges=24)
         assert pipe.metrics.ticks == 2
+        if item == 11:
+            assert len(pipe.trace) == 2
         return
     if item == 10:
         with pytest.raises(ValueError, match="train_cap"):
