@@ -170,6 +170,40 @@ built before any rank starts):
      route_pack kernel + the ring gather), with the bytes of each; and
      the fused lane step at the QueryBatch wire lane (512 rows, W = 74).
 
+Then the 2-D ("stage", "data") pipeline and the live reshard, on four
+gloo ranks that share the card:
+
+  [stage-parity] tests/test_pipeline_stage.py's golden small stream (32
+     nodes, dims (8, 8, 8), 4 parts) on a stage 2 x data 1 grid (ranks 0
+     and 1) and a 2 x 2 grid, both drivers, plus the query plane and an
+     lr 0 training case at 2 x 2, each on the card and on the CPU over
+     the same groups: every integer stat of every call, the stage_idle
+     counters, the rows in flight after the stream (and none after the
+     flush) and the answers exactly equal; the sink within SINK_TOL of
+     the float64 oracle; the training case's grads card = CPU = a
+     one-rank run within MESH_TOL; kernels 1-3 launched on every rank;
+  [stage-full] GraphSAGE (602, 602, 602) (the staged program needs
+     in_dim == out_dim, so the published input width is kept at every
+     layer) at FULL's caps, route_cap 4096, 100,000 power-law edges, at
+     stage 2 x data 2 and stage 1 x data 4: edges/s a rank, the bubble
+     fraction, host seconds blocked in each collective kind, collectives
+     a super-tick, peak memory a rank, and both sinks within SINK_TOL of
+     the float64 oracle;
+  [reshard-full] [mesh-full]'s configuration and stream: a live 4 -> 2
+     reshard mid-stream (its seconds, the bytes each rank sent into the
+     relay, edges/s on the 2 survivors after it), and a fail-stop drill
+     (a consistent-cut checkpoint with 16 held consistent queries, data
+     shards 1 and 3 lost, restore, reshard onto ranks 0 and 2, replay):
+     nothing dropped, both sinks within SINK_TOL of [mesh-full]'s
+     uninterrupted run, the held queries answered; then
+     tests/test_chaos.py's small reshard goldens (4 -> 2, 2 -> 4, to a
+     local pipeline, onto survivors, capped, 2 x 2 -> 2 x 1) card = CPU,
+     the uncapped 1-D ones bit-equal to the local run;
+  [decode-partial] mistral-nemo-12b's decode head layout (32 query heads
+     over 8 KV heads, D 128, bf16) over a 32,768-token cache in 4
+     shards: the log-sum-exp-combined partials within DECODE_TOL of the
+     whole-cache decode, both against float64.
+
 Then the LM serve path (mistral-nemo-12b), after the phases above free
 their memory:
 
@@ -2722,14 +2756,13 @@ def _mesh_tel_run(mesh, dev):
     """[mesh-parity]'s telemetry case: the golden small stream (32 nodes,
     dims (8, 12, 12), 4 parts, one a rank) at route_cap 2, super-tick
     driver, with telemetry and without."""
-    import dataclasses
     from repro_torch.core import windowing as win
     from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
     from repro_torch.graph.sage import GraphSAGE
     edges, feats = golden_small_stream()
     out = {}
     for tel in (True, False):
-        view = dataclasses.replace(mesh, device=dev, calls={})
+        view = mesh.on(dev)
         pipe = D3Pipeline(GraphSAGE((8, 12, 12), seed=SEED), PipelineConfig(
             n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
             feat_cap=128, edge_tick_cap=32, max_nodes=32, route_cap=2,
@@ -3037,7 +3070,6 @@ def _tick_recorder(record):
 def _mesh_parity_rank(mesh, m):
     """One rank of [mesh-parity]: the serve CLI's stream at each route_cap
     on this rank's card and on the CPU, over the same gloo group."""
-    import dataclasses
     import torch
     from repro_torch.core.pipeline import D3Pipeline
     from repro_torch.launch import serve
@@ -3045,7 +3077,7 @@ def _mesh_parity_rank(mesh, m):
     out = {}
     for cap in m["parity_caps"]:
         for dev in (mesh.device, torch.device("cpu")):
-            view = dataclasses.replace(mesh, device=dev, calls={})
+            view = mesh.on(dev)
             record = []
             args = serve.parse_args(["--edges", str(m["parity_edges"])])
             with mock.patch.object(D3Pipeline, "run_super_tick",
@@ -3093,11 +3125,10 @@ def _mesh_gate_run(mesh, dev, m):
     """[mesh-parity]'s gated case: the serve stream at route_cap 16, then
     two waves of feature updates on 64 vertices, eps their median
     layer-0 norm; super-tick driver."""
-    import dataclasses
     from repro_torch.core.pipeline import D3Pipeline
     from repro_torch.graph.sage import GraphSAGE
     from repro_torch.kernels.segment_reduce import ops as sr
-    view = dataclasses.replace(mesh, device=dev, calls={})
+    view = mesh.on(dev)
     _, edges, feats, _ = _serve_stream_setup(m)
     waves, _, norms = gate_waves(np.random.default_rng(SEED + 8), feats,
                                  np.unique(edges),
@@ -3137,7 +3168,7 @@ def _mesh_train_run(mesh, dev, m):
     dims, edges, feats, cfg = _serve_stream_setup(m, train_cap=512)
     cfg = dataclasses.replace(cfg, route_cap=m["parity_caps"][0])
     kw = (dict(device=dev) if mesh is None else
-          dict(mesh=dataclasses.replace(mesh, device=dev, calls={})))
+          dict(mesh=mesh.on(dev)))
     pipe = D3Pipeline(GraphSAGE(dims, seed=SEED, n_classes=4), cfg,
                       train=TrainConfig(optimizer=sgd(), lr=0.0,
                                         batch_threshold=1), **kw)
@@ -3171,13 +3202,12 @@ def _mesh_query_run(mesh, dev, m, q=QUERY):
     """The serve CLI's stream (serve_stream's configuration) with the
     query plane on, through the super-tick driver, on `dev` over the
     mesh's gloo group."""
-    import dataclasses
     from repro_torch.core import windowing as win
     from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
     from repro_torch.graph.graphs import powerlaw_edges
     from repro_torch.graph.sage import GraphSAGE
     from repro_torch.kernels.route_pack import ops as rp
-    view = dataclasses.replace(mesh, device=dev, calls={})
+    view = mesh.on(dev)
     rng = np.random.default_rng(0)
     dims, n_nodes = (16, 64, 64), 400
     edges = powerlaw_edges(rng, n_nodes, m["parity_edges"])
@@ -3595,7 +3625,7 @@ def phase_mesh_full(device, full=FULL, m=MESH, card=""):
           f"card, rank 0): {a2a[2]} bytes in {a2a[1]:.3f}s blocked = "
           f"{rate:.1f} bytes/s on {card}")
     free_cuda()
-    return sum(r["launches"]["route_lane"] for r in ranks), rate
+    return sum(r["launches"]["route_lane"] for r in ranks), rate, emb
 
 
 def lane_row_bytes(lane):
@@ -3756,6 +3786,729 @@ def phase_mesh_time(device, launches, max_err, full=FULL, m=MESH):
 
 
 # ------------------------------------------------------------- LM phases
+# ------------------------------------------------- the 2-D stage pipeline
+# [stage-parity]: test_pipeline_stage.py's golden small stream (32 nodes,
+# dims (8, 8, 8), 4 parts, streaming window, 24 edges a tick) on 2 x 1 and
+# 2 x 2 grids of gloo ranks, card against CPU over the same groups. The
+# query case adds test_query_plane.py's golden mix; the training case a
+# 4-class head at lr 0 (quiescent grads, one label tick after the flush).
+# [stage-full]: GraphSAGE (602, 602, 602) — the reference's uniform-stack
+# contract (in_dim == out_dim on every layer) rules out the published
+# (602, 64, 64), so the staged run keeps the 602-wide input at every
+# layer — at FULL's caps, route_cap 4096 and 100,000 power-law edges,
+# stage 2 x data 2 beside stage 1 x data 4, both on 4 gloo ranks sharing
+# the card. route_defer_cap 131,072 ring rows a lane a rank: at 2 x 2 a
+# rank's bucket rows per call halve (2 destinations x 4096) while its
+# lanes double (32 parts), and [mesh-full]'s 32,768 overflowed (14,393
+# rows dropped in a trial run on the card).
+STAGE = dict(ranks=4, dims=(602, 602, 602), n_edges=100_000,
+             route_cap=4096, route_defer_cap=131072, timeout=900,
+             golden=dict(n_nodes=32, n_edges=100, d=8, tick_edges=24,
+                         super_ticks=4, n_classes=4))
+# [reshard-full]: [mesh-full]'s configuration and stream. The live
+# reshard moves 4 -> 2 ranks after `live_at` of the stream's launches; the
+# fail-stop drill cuts a checkpoint after `cut_at` launches (with
+# `consistent` held queries), loses data shards 1 and 3 before `fail_at`,
+# restores, reshards onto ranks 0 and 2 and replays. route_defer_cap
+# 131,072 ring rows a lane a rank: on 2 ranks a call ships 2 x 4096 rows
+# a rank where 4 ranks shipped 4 x 4096, and [mesh-full]'s 32,768 dropped
+# 16,235 rows after the move in a trial run on the card. The ring's size
+# changes nothing while no row drops, so [mesh-full]'s sink stays the
+# reference.
+RESHARD = dict(live_at=0.5, cut_at=0.25, fail_at=0.375, consistent=16,
+               query_cap=32, query_tick_cap=256, lose=(1, 3),
+               route_defer_cap=131072)
+# [decode-partial]: mistral-nemo-12b's decode head layout (32 query heads
+# over 8 KV heads, head dim 128, bf16 cache) over a 32,768-token cache
+# split 4 ways; combined partials vs the whole-cache decode, both against
+# float64: |combined - decode| <= DECODE_TOL x max(1, |float64|) (the
+# whole-cache decode rounds its softmax weights and its output to bf16;
+# the partials keep f32 past the logits).
+DECODE = dict(batch=4, heads=32, kv_heads=8, head_dim=128, seq=32768,
+              shards=4, masked_tail=1000)
+DECODE_TOL = 2.0 ** -8
+
+
+def _stage_stream(g):
+    return golden_small_stream(SEED, g["n_nodes"], g["n_edges"], g["d"])
+
+
+def _stage_golden_run(mesh, driver, g, query=False, train=False):
+    """One golden case on `mesh` (a rank of a 2-D grid): every call's
+    integer TickStats, the metrics, the bubble count, the embeddings, and
+    the answers or the training plane's stats and grads."""
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.core.train_plane import TrainConfig
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.optim import sgd
+    from repro_torch.optim.optimizers import tree_leaves
+    edges, feats = _stage_stream(g)
+    d = g["d"]
+    cfg = PipelineConfig(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+                         feat_cap=128, edge_tick_cap=32,
+                         max_nodes=g["n_nodes"], n_stages=mesh.n_stages,
+                         query_cap=8 if query else 0,
+                         train_cap=64 if train else 0,
+                         window=win.WindowConfig(kind=win.STREAMING))
+    model = GraphSAGE((d, d, d), seed=SEED,
+                      n_classes=g["n_classes"] if train else 0)
+    pipe = D3Pipeline(model, cfg, mesh=mesh, train=TrainConfig(
+        optimizer=sgd(), lr=0.0, batch_threshold=1) if train else None)
+    record = []
+    tick, sup = pipe.tick, pipe.run_super_tick
+
+    def tick_rec(*a, **k):
+        stats = tick(*a, **k)
+        record.append(stats_row(stats))
+        return stats
+
+    def sup_rec(*a, **k):
+        stats, quiet = sup(*a, **k)
+        record.append(stats_row(stats))
+        return stats, quiet
+
+    pipe.tick, pipe.run_super_tick = tick_rec, sup_rec
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, g["tick_edges"])
+    q = golden_query_mix(edges) if query else None
+    if driver == "tick":
+        for i, (ch, fe) in enumerate(zip(e_chunks, f_chunks)):
+            pipe.tick(ch, fe, queries=q if i == len(e_chunks) - 1 else None)
+        in_flight = pipe._ring_occupancy_host()
+        pipe.flush(max_ticks=160)
+    else:
+        pipe.run_super_tick(e_chunks, f_chunks, T=len(e_chunks),
+                            query_chunks=[None] * (len(e_chunks) - 1) + [q])
+        in_flight = pipe._ring_occupancy_host()
+        pipe.flush_super(max_ticks=160, T=g["super_ticks"])
+    out = {"stats": record, "in_flight": in_flight,
+           "drained": pipe._ring_occupancy_host(),
+           "metrics": {k: v for k, v in vars(pipe.metrics).items()
+                       if isinstance(v, int)},
+           "emb": pipe.embeddings(),
+           "calls": {k: c[0] for k, c in mesh.calls.items()}}
+    if query:
+        out["answers"] = sorted_answers(pipe)
+    if train:
+        gold = {v: (v * 7 + 3) % g["n_classes"] for v in range(g["n_nodes"])}
+        pipe.run_super_tick(T=1, label_chunks=[list(gold.items())])
+        out["train"] = pipe.train_stats()
+        out["grads"] = [x.cpu().numpy() for x in tree_leaves(
+            pipe.train_state.last_grad)]
+    return out
+
+
+def _stage_parity_rank(world, g):
+    """One rank of [stage-parity]: every golden case on the card, then on
+    the CPU over the same groups (2 x 1 on ranks 0 and 1; 2 x 2 on all)."""
+    import torch
+    from repro_torch.kernels.route_pack import ops as rp
+    from repro_torch.kernels.segment_reduce import ops as sr
+    from repro_torch.launch.mesh import make_stream_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grids = {"2x1": make_stream_mesh(world.device, stage=2, ranks=[0, 1]),
+             "2x2": make_stream_mesh(world.device, stage=2)}
+    out = {}
+    for dev in (world.device, torch.device("cpu")):
+        rp.reset_launches()
+        sr.reset_launches()
+        for name, mesh in grids.items():
+            if not mesh.member:
+                continue
+            for driver in ("tick", "super"):
+                out[name, driver, dev.type] = _stage_golden_run(
+                    mesh.on(dev), driver, g)
+        out["query", dev.type] = _stage_golden_run(grids["2x2"].on(dev),
+                                                   "super", g, query=True)
+        out["train", dev.type] = _stage_golden_run(grids["2x2"].on(dev),
+                                                   "super", g, train=True)
+        out["launches", dev.type] = {**rp.LAUNCHES, **sr.LAUNCHES}
+    return out
+
+
+def phase_stage_parity(device, s=STAGE):
+    """The 2-D program's golden cases, card = CPU on every integer stat of
+    every call, the bubble counts and the answers; the sink within
+    SINK_TOL of the float64 oracle; kernels 1-3 launched on the card."""
+    import torch
+    from repro_torch.core.oracle import build_snapshot, oracle_embeddings
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.core.train_plane import TrainConfig
+    from repro_torch.core import windowing as win
+    from repro_torch.optim import sgd
+    from repro_torch.optim.optimizers import tree_leaves
+    free_cuda()
+    g = s["golden"]
+    t0 = time.perf_counter()
+    ranks = spawn_stream_mesh(s["ranks"], _stage_parity_rank, backend="gloo",
+                              device=device, args=(g,), timeout=s["timeout"])
+    secs = time.perf_counter() - t0
+    edges, feats = _stage_stream(g)
+    d = g["d"]
+    model64 = GraphSAGE((d, d, d), seed=SEED).double()
+    snap, _ = build_snapshot(edges, feats, d, g["n_nodes"], "cpu",
+                             dtype=torch.float64)
+    ref = oracle_embeddings(model64, snap)
+    worst, worst_oracle = 0.0, 0.0
+    keys = [k for k in ranks[0] if len(k) == 3 and k[2] == device.type]
+    for k in sorted(keys):
+        name, driver, _ = k
+        for r, res in enumerate(ranks):
+            if k not in res:
+                continue
+            a, b = res[k], res[name, driver, "cpu"]
+            for key in ("stats", "metrics", "in_flight", "drained"):
+                check(a[key] == b[key], f"[stage-parity] {name} {driver} "
+                                        f"rank {r}: {key} differ, card vs CPU")
+            check(a["drained"] == 0 and a["in_flight"] > 0
+                  and a["metrics"]["stage_idle"] > 0
+                  and a["metrics"]["route_dropped"] == 0,
+                  f"[stage-parity] {name} {driver} rank {r}: in flight "
+                  f"{a['in_flight']}, left {a['drained']}, metrics "
+                  f"{a['metrics']}")
+            check(set(a["emb"]) == set(b["emb"]) == set(range(g["n_nodes"])),
+                  f"[stage-parity] {name} {driver}: materialized sets")
+            worst = max(worst, close_rows(
+                "stage-parity", np.stack([a["emb"][v] for v in sorted(a["emb"])]),
+                np.stack([b["emb"][v] for v in sorted(b["emb"])]), MESH_TOL))
+            err, vid = sink_error(a["emb"], lambda vids: ref[vids])
+            worst_oracle = max(worst_oracle, err)
+            check(err <= SINK_TOL, f"[stage-parity] {name} {driver}: sink vs "
+                                   f"oracle {err:.3e} at vid {vid}")
+        mt = ranks[0][k]["metrics"]
+        print(f"[stage-parity] {name} {driver}: card = CPU on "
+              f"{len(ranks[0][k]['stats'])} calls of integer TickStats and "
+              f"every metric (ticks {mt['ticks']}, RMIs {mt['reduce_msgs']}, "
+              f"emitted {mt['emitted_total']}, stage_idle "
+              f"{mt['stage_idle']}, wire_rows {mt['wire_rows']}); "
+              f"{ranks[0][k]['in_flight']} rows in flight after the stream, "
+              f"0 after the flush; collectives {ranks[0][k]['calls']}")
+    for r, res in enumerate(ranks):
+        a, b = res["query", device.type], res["query", "cpu"]
+        for key in ("stats", "metrics"):
+            check(a[key] == b[key], f"[stage-parity] query rank {r}: {key} "
+                                    "differ, card vs CPU")
+        answers_check("stage-parity", a["answers"], b["answers"], MESH_TOL)
+        check(sorted(a["answers"]["qid"].tolist()) == [1, 2, 3, 4]
+              and a["answers"]["ok"].all(),
+              f"[stage-parity] query rank {r}: answers {a['answers']['qid']}")
+    # training: card = CPU, and = a one-rank run at the same fixed point
+    t = g["n_classes"]
+    one = D3Pipeline(GraphSAGE((d, d, d), seed=SEED, n_classes=t),
+                     PipelineConfig(n_parts=4, node_cap=32, edge_cap=128,
+                                    repl_cap=128, feat_cap=128,
+                                    edge_tick_cap=32, max_nodes=g["n_nodes"],
+                                    train_cap=64,
+                                    window=win.WindowConfig(
+                                        kind=win.STREAMING)),
+                     device="cpu", train=TrainConfig(
+                         optimizer=sgd(), lr=0.0, batch_threshold=1))
+    one.run_stream_super(edges, feats, tick_edges=g["tick_edges"],
+                         super_ticks=g["super_ticks"])
+    one.flush_super(max_ticks=160, T=g["super_ticks"])
+    gold = {v: (v * 7 + 3) % t for v in range(g["n_nodes"])}
+    one.run_super_tick(T=1, label_chunks=[list(gold.items())])
+    one_grads = [x.numpy() for x in tree_leaves(one.train_state.last_grad)]
+    t_err = 0.0
+    for r, res in enumerate(ranks):
+        a, b = res["train", device.type], res["train", "cpu"]
+        check(a["stats"] == b["stats"] and a["train"]["steps"]
+              == b["train"]["steps"] == 1,
+              f"[stage-parity] training rank {r}: {a['train']} vs "
+              f"{b['train']}")
+        for x, y, z in zip(a["grads"], b["grads"], one_grads):
+            t_err = max(t_err, close_rows("stage-parity", x, y, MESH_TOL),
+                        close_rows("stage-parity", x, z, MESH_TOL))
+    la = ranks[0]["launches", device.type]
+    if device.type == "cuda":
+        for r, res in enumerate(ranks):
+            lr = res["launches", device.type]
+            check(all(lr.get(k, 0) > 0 for k in (
+                "route_lane", "segment_sum_rows", "mean_rows_gather")),
+                  f"[stage-parity] rank {r}: a kernel never launched: {lr}")
+    print(f"[stage-parity] query plane (2 x 2, super): card = CPU on the "
+          f"golden mix's 4 answers and every stat; training (2 x 2, lr 0, "
+          f"one fire): card vs CPU and vs a one-rank run, last_grad max err "
+          f"{t_err:.3e}; sink vs the float64 oracle max "
+          f"{worst_oracle:.3e} (tolerance {SINK_TOL}); card vs CPU "
+          f"embeddings max {worst:.3e}; rank 0's card launches {la}; "
+          f"{secs:.1f}s with the ranks' start")
+
+
+def _stage_full_rank(world, full, s):
+    """One rank of [stage-full]: the (602, 602, 602) stream at stage 2 x
+    data 2, then at stage 1 x data 4; measurements of each."""
+    import torch
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.kernels.route_pack import ops as rp
+    from repro_torch.kernels.segment_reduce import ops as sr
+    from repro_torch.launch.mesh import make_stream_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    edges, feats = make_stream(full["n_nodes"], s["n_edges"], s["dims"][0])
+    cuda = world.device.type == "cuda"
+    out = {}
+    for S in (2, 1):
+        mesh = make_stream_mesh(world.device, stage=S)
+        cfg = PipelineConfig(**full["caps"], max_nodes=full["n_nodes"],
+                             n_stages=S, route_cap=s["route_cap"],
+                             route_defer_cap=s["route_defer_cap"],
+                             window=win.WindowConfig(kind=win.SESSION,
+                                                     interval=4))
+        pipe = D3Pipeline(GraphSAGE(s["dims"], seed=SEED), cfg, mesh=mesh)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        rp.reset_launches()
+        sr.reset_launches()
+        t0 = time.perf_counter()
+        pipe.run_stream_super(edges, feats, tick_edges=full["tick_edges"],
+                              super_ticks=full["super_ticks"])
+        pipe.flush_super(max_ticks=256, T=full["super_ticks"])
+        if cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[S] = {"secs": secs, "launches": {**rp.LAUNCHES, **sr.LAUNCHES},
+                  "calls": {k: list(v) for k, v in mesh.calls.items()},
+                  "peak": torch.cuda.max_memory_allocated() if cuda else 0,
+                  "host_seconds": pipe.metrics.host_seconds,
+                  "bubble": pipe.bubble_fraction(),
+                  "metrics": {k: v for k, v in vars(pipe.metrics).items()
+                              if isinstance(v, int)}}
+        emb = pipe.embeddings()
+        out[S]["emb"] = emb if mesh.rank == 0 else None
+        del pipe
+        free_cuda()
+    return out
+
+
+def phase_stage_full(device, full=FULL, s=STAGE, card=""):
+    """GraphSAGE (602, 602, 602) at FULL's caps on 4 gloo ranks sharing
+    the card, stage 2 x data 2 and stage 1 x data 4: edges/s a rank, the
+    bubble fraction, host seconds blocked in each collective kind,
+    collectives a super-tick, peak memory a rank, and the sink of both
+    against the float64 oracle."""
+    import torch
+    from repro_torch.core.oracle import build_snapshot, oracle_embeddings
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    free_cuda()
+    t0 = time.perf_counter()
+    ranks = spawn_stream_mesh(s["ranks"], _stage_full_rank, backend="gloo",
+                              device=device, args=(full, s),
+                              timeout=s["timeout"])
+    spawn_secs = time.perf_counter() - t0
+    T = full["super_ticks"]
+    print(f"[stage-full] GraphSAGE {s['dims']} (the published (602, 64, 64) "
+          f"kept 602 wide at every layer: the staged program needs in_dim "
+          f"== out_dim), caps {full['caps']}, route_cap {s['route_cap']}, "
+          f"route_defer_cap {s['route_defer_cap']}, window session(4), "
+          f"driver super(T={T}), {s['n_edges']} power-law edges; 4 gloo "
+          f"ranks on one card; {spawn_secs:.1f}s with the ranks' start")
+    edges, feats = make_stream(full["n_nodes"], s["n_edges"], s["dims"][0])
+    model64 = GraphSAGE(s["dims"], seed=SEED).to(device).double()
+    g, _ = build_snapshot(edges, feats, s["dims"][0], full["n_nodes"],
+                          device, dtype=torch.float64)
+    ref = oracle_embeddings(model64, g).cpu()
+    del model64, g
+    rates = {}
+    for S in (2, 1):
+        D = s["ranks"] // S
+        mt = ranks[0][S]["metrics"]
+        n_super = max(mt["ticks"] // T, 1)
+        for r, res in enumerate(ranks):
+            x = res[S]
+            check(x["metrics"] == mt, f"[stage-full] {S} x {D}: rank {r}'s "
+                                      "metrics differ from rank 0's")
+            blocked = {k: round(c[1], 3) for k, c in x["calls"].items()}
+            n_calls = sum(c[0] for c in x["calls"].values())
+            print(f"[stage-full] stage {S} x data {D} rank {r}: "
+                  f"{x['secs']:.3f}s = {s['n_edges'] / x['secs']:.1f} "
+                  f"edges/s; host staging {x['host_seconds']:.3f}s; host "
+                  f"seconds blocked by kind {blocked}; collectives "
+                  f"{ {k: c[0] for k, c in x['calls'].items()} } = "
+                  f"{n_calls / n_super:.1f} per super-tick; launches "
+                  f"{x['launches']}; peak memory {x['peak']} bytes "
+                  f"({x['peak'] / 2**30:.2f} GiB)")
+            if device.type == "cuda":
+                check(all(x["launches"].get(k, 0) > 0 for k in (
+                    "route_lane", "segment_sum_rows", "mean_rows_gather")),
+                      f"[stage-full] {S} x {D} rank {r}: a kernel never "
+                      f"launched: {x['launches']}")
+        check(mt["route_dropped"] == 0, f"[stage-full] {S} x {D}: "
+                                        f"{mt['route_dropped']} rows dropped")
+        emb = ranks[0][S]["emb"]
+        check(len(emb) > 0 and all(np.isfinite(v).all()
+                                   and v.shape == (s["dims"][-1],)
+                                   for v in emb.values()),
+              f"[stage-full] {S} x {D}: non-finite, misshapen or no "
+              "embeddings")
+        err, vid = sink_error(emb, lambda vids: ref[vids])
+        rates[S] = s["n_edges"] / ranks[0][S]["secs"]
+        print(f"[stage-full] stage {S} x data {D}: ticks {mt['ticks']}, "
+              f"RMIs {mt['reduce_msgs']}, wire_rows {mt['wire_rows']}, "
+              f"wire_bytes {mt['wire_bytes']}, route_deferred "
+              f"{mt['route_deferred']}, stage_idle {mt['stage_idle']}, "
+              f"bubble_fraction {ranks[0][S]['bubble']:.4f}; sink vs the "
+              f"float64 oracle max |diff|/max(1,|ref|) {err:.3e} at vid "
+              f"{vid} (tolerance {SINK_TOL}); materialized {len(emb)}")
+        check(err <= SINK_TOL, f"[stage-full] {S} x {D}: sink vs oracle "
+                               f"{err:.3e} > {SINK_TOL}")
+    print(f"[stage-full] edges/s rank 0: stage 2 x data 2 {rates[2]:.1f}, "
+          f"stage 1 x data 4 {rates[1]:.1f} (ratio {rates[2] / rates[1]:.3f})"
+          f" on {card}; four gloo ranks share ONE card: not multi-GPU "
+          f"scaling")
+    free_cuda()
+    return rates
+
+
+# ------------------------------------------------------- the live reshard
+def _reshard_golden(dev, case):
+    """test_chaos.py's small reshard goldens on this process's `dev`
+    (stream half, reshard, stream the rest, flush): the global sink and
+    the logical stats, or None on a rank the reshard removes."""
+    from dataclasses import asdict
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.launch.mesh import make_stream_mesh, survivor_mesh
+    name, driver, S, old, new, kw = case
+    rng = np.random.default_rng(0)
+    edges = np.stack([rng.integers(0, 32, 150), rng.integers(0, 32, 150)], 1)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    feats = {v: rng.normal(size=8).astype(np.float32) for v in range(32)}
+    mk = lambda ranks, stage=1: (None if ranks is None else make_stream_mesh(
+        dev, stage=stage, ranks=ranks))
+    mesh = mk(old, S)
+    cfg = PipelineConfig(n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+                         feat_cap=128, edge_tick_cap=32, max_nodes=32,
+                         n_stages=S, window=win.WindowConfig(
+                             kind=win.SESSION, interval=3), **kw)
+    pipe = D3Pipeline(GraphSAGE((8, 8, 8), seed=SEED), cfg, mesh=mesh,
+                      device=None if mesh is not None else dev)
+    chunks = [edges[i:i + 16] for i in range(0, len(edges), 16)]
+    rows = [[(int(v), feats[int(v)]) for e in c for v in set(map(int, e))]
+            for c in chunks]
+    half = len(edges) // 32
+
+    def feed(lo, hi):
+        if not pipe.active:
+            return
+        if driver == "tick":
+            for c, r in zip(chunks[lo:hi], rows[lo:hi]):
+                pipe.tick(c, r)
+        else:
+            pipe.run_super_tick(chunks[lo:hi], rows[lo:hi])
+
+    feed(0, half)
+    if new == "local":
+        pipe.reshard(None)
+    elif new == "survivors":
+        pipe.reshard(survivor_mesh(mesh, [1, 3]))
+    elif new is not None:
+        pipe.reshard(mk(new, S))
+    feed(half, len(chunks))
+    if not pipe.active:
+        return None
+    pipe.flush(max_ticks=128)
+    m = asdict(pipe.metrics)
+    return {"sink": pipe.sink_global().cpu().numpy(),
+            "stats": {k: m[k] for k in (
+                "ticks", "emitted_total", "reduce_msgs", "broadcast_msgs",
+                "cross_part_msgs", "dropped", "route_dropped")}}
+
+
+RESHARD_GOLDENS = (
+    ("local run", "tick", 1, None, None, {}),
+    ("4 -> 2 tick", "tick", 1, [0, 1, 2, 3], [0, 1], {}),
+    ("2 -> 4 super", "super", 1, [0, 1], [0, 1, 2, 3], {}),
+    ("4 -> local", "tick", 1, [0, 1, 2, 3], "local", {}),
+    ("4 -> survivors 0, 2", "tick", 1, [0, 1, 2, 3], "survivors", {}),
+    ("4 -> 2 capped", "tick", 1, [0, 1, 2, 3], [0, 1], dict(route_cap=8)),
+    ("2 x 2 -> 2 x 1 super", "super", 2, [0, 1, 2, 3], [0, 1], {}),
+)
+
+
+def _reshard_full_rank(world, full, m, r, ckpt_dir):
+    """One rank of [reshard-full]: the live 4 -> 2 reshard mid-stream and
+    the fail-stop drill, at [mesh-full]'s configuration; then the small
+    goldens on the card and on the CPU."""
+    import torch
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.launch.mesh import make_stream_mesh, survivor_mesh
+    from repro_torch.serve.query import KIND_EMBED
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = world.device
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    edges, feats = make_stream(full["n_nodes"], m["n_edges"],
+                               full["dims"][0])
+    T = full["super_ticks"]
+
+    def build(mesh, **kw):
+        cfg = PipelineConfig(**full["caps"], max_nodes=full["n_nodes"],
+                             route_cap=m["route_cap"],
+                             route_defer_cap=r["route_defer_cap"],
+                             window=win.WindowConfig(kind=win.SESSION,
+                                                     interval=4), **kw)
+        return D3Pipeline(GraphSAGE(full["dims"], seed=SEED), cfg, mesh=mesh)
+
+    out = {}
+    # (a) the live reshard, 4 -> 2 ranks, mid-stream
+    pipe = build(make_stream_mesh(dev))
+    e_chunks, f_chunks = pipe.chunk_stream(edges, feats, full["tick_edges"])
+    launches = [(e_chunks[i:i + T], f_chunks[i:i + T])
+                for i in range(0, len(e_chunks), T)]
+    k = max(1, int(len(launches) * r["live_at"]))
+    for e, f in launches[:k]:
+        pipe.run_super_tick(e, f, T=T)
+    two = make_stream_mesh(dev, ranks=[0, 1])
+    sync()
+    pipe.reshard(two)
+    sync()
+    out["live"] = dict(pipe.last_reshard, launches=len(launches), at=k)
+    if pipe.active:
+        t0 = time.perf_counter()
+        n_after = sum(len(x) for e, _ in launches[k:] for x in e)
+        for e, f in launches[k:]:
+            pipe.run_super_tick(e, f, T=T)
+        pipe.flush_super(max_ticks=256, T=T)
+        sync()
+        secs = time.perf_counter() - t0
+        emb = pipe.embeddings()
+        out["live"].update(secs_after=secs, edges_after=n_after,
+                           metrics={k2: v for k2, v in vars(
+                               pipe.metrics).items() if isinstance(v, int)},
+                           emb=emb if two.rank == 0 else None)
+    del pipe
+    free_cuda()
+    # (b) the fail-stop drill: cut, lose shards 1 and 3, restore, reshard
+    # onto the survivors, replay
+    mesh = make_stream_mesh(dev)
+    pipe = build(mesh, query_cap=r["query_cap"],
+                 query_tick_cap=r["query_tick_cap"])
+    cut = max(1, int(len(launches) * r["cut_at"]))
+    fail = min(max(cut + 1, int(len(launches) * r["fail_at"])),
+               len(launches))
+    deg = np.bincount(edges[:, 1], minlength=full["n_nodes"])
+    hubs = [int(v) for v in np.argsort(-deg, kind="stable")[:r["consistent"]]]
+    held = [(10_000 + i, KIND_EMBED, v, True) for i, v in enumerate(hubs)]
+    mgr = CheckpointManager(ckpt_dir, keep=2)
+    save_s = None
+    for i, (e, f) in enumerate(launches[:fail]):
+        pipe.run_super_tick(e, f, T=T, query_chunks=[held] if i == cut - 1
+                            else None)
+        if i == cut - 1:
+            t0 = time.perf_counter()
+            mgr.save_pipeline(cut, pipe)
+            save_s = time.perf_counter() - t0
+    surv = survivor_mesh(mesh, r["lose"], n_data=2)
+    sync()
+    t0 = time.perf_counter()
+    step = mgr.restore_pipeline(pipe)
+    sync()
+    restore_s = time.perf_counter() - t0
+    pipe.reshard(surv)
+    sync()
+    out["failstop"] = dict(pipe.last_reshard, restore_s=restore_s,
+                           save_s=save_s, step=step, cut=cut, fail=fail,
+                           hubs=hubs)
+    if pipe.active:
+        t0 = time.perf_counter()
+        for e, f in launches[step:]:
+            pipe.run_super_tick(e, f, T=T)
+        pipe.flush_super(max_ticks=256, T=T)
+        sync()
+        out["failstop"].update(
+            secs_after=time.perf_counter() - t0,
+            metrics={k2: v for k2, v in vars(pipe.metrics).items()
+                     if isinstance(v, int)},
+            answers=sorted_answers(pipe), emb=pipe.embeddings())
+        if surv.rank != 0:
+            out["failstop"]["emb"] = None
+    del pipe
+    free_cuda()
+    # (c) the small goldens, card and CPU
+    for dev_g in (dev, torch.device("cpu")):
+        for case in RESHARD_GOLDENS:
+            if case[3] is None and world.rank != 0:
+                continue
+            out["golden", case[0], dev_g.type] = _reshard_golden(dev_g,
+                                                                 case)
+    return out
+
+
+def phase_reshard_full(device, mesh_emb, full=FULL, m=MESH, r=RESHARD,
+                       card=""):
+    """[mesh-full]'s configuration on 4 gloo ranks: a live 4 -> 2 reshard
+    mid-stream and a fail-stop drill onto the survivors; both sinks
+    within SINK_TOL of [mesh-full]'s uninterrupted run, nothing dropped,
+    the held consistent queries answered; then the small reshard goldens
+    card = CPU."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    free_cuda()
+    ckpt = tempfile.mkdtemp(prefix="reshard_full-")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_stream_mesh(m["ranks"], _reshard_full_rank,
+                                  backend="gloo", device=device,
+                                  args=(full, m, r, ckpt),
+                                  timeout=m["timeout"])
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    ref = lambda vids: torch.as_tensor(np.stack([mesh_emb[v] for v in vids]),
+                                       dtype=torch.float64)
+    print(f"[reshard-full] [mesh-full]'s configuration (GraphSAGE "
+          f"{full['dims']}, caps {full['caps']}, route_cap "
+          f"{m['route_cap']}, route_defer_cap {r['route_defer_cap']}, "
+          f"{m['n_edges']} edges, super T={full['super_ticks']}) on 4 gloo "
+          f"ranks on {card}; {secs:.1f}s with the ranks' start")
+    for what in ("live", "failstop"):
+        mine = [res[what] for res in ranks]
+        a = mine[0]
+        for i, x in enumerate(mine):
+            print(f"[reshard-full] {what} rank {i}: reshard "
+                  f"{x['seconds']:.3f}s, {x['sent_bytes']} bytes sent into "
+                  f"the relay" + (f"; {x['edges_after']} edges after it in "
+                                  f"{x['secs_after']:.3f}s = "
+                                  f"{x['edges_after'] / x['secs_after']:.1f}"
+                                  f" edges/s on 2 ranks"
+                                  if what == "live" and "secs_after" in x
+                                  else "") +
+                  ("" if "metrics" in x else " (removed: owns nothing)"))
+        check([("metrics" in x) for x in mine] == (
+            [True, True, False, False] if what == "live"
+            else [True, False, True, False]),
+              f"[reshard-full] {what}: the wrong ranks survived")
+        mt = a["metrics"]
+        check(mt["route_dropped"] == 0 and mt["dropped"] == 0,
+              f"[reshard-full] {what}: rows dropped: {mt}")
+        err, vid = sink_error(a["emb"], ref)
+        check(set(a["emb"]) == set(mesh_emb) and err <= SINK_TOL,
+              f"[reshard-full] {what}: sink vs the uninterrupted run "
+              f"{err:.3e} at vid {vid} (materialized {len(a['emb'])} vs "
+              f"{len(mesh_emb)})")
+        extra = ""
+        if what == "failstop":
+            ans = a["answers"]
+            held = sorted(ans["qid"][ans["qid"] >= 10_000].tolist())
+            check(held == list(range(10_000, 10_000 + r["consistent"]))
+                  and ans["ok"][ans["qid"] >= 10_000].all(),
+                  f"[reshard-full] failstop: held consistent answers {held}")
+            got = {a["hubs"][int(q) - 10_000]: v
+                   for q, v in zip(ans["qid"], ans["vec"]) if q >= 10_000}
+            vec_err, _ = sink_error(got, ref)
+            check(vec_err <= SINK_TOL, f"[reshard-full] failstop: held "
+                                       f"answers vs the uninterrupted sink "
+                                       f"{vec_err:.3e}")
+            extra = (f"; cut after {a['cut']} launches (save "
+                     f"{a['save_s']:.3f}s), fail before launch {a['fail']}, "
+                     f"restore {a['restore_s']:.3f}s, time to recover "
+                     f"(restore + reshard) "
+                     f"{a['restore_s'] + a['seconds']:.3f}s, replay and "
+                     f"finish {a['secs_after']:.3f}s; {len(held)} held "
+                     f"consistent queries answered ok, within {vec_err:.3e} of the "
+                     f"uninterrupted sink")
+        print(f"[reshard-full] {what}: ticks {mt['ticks']}, RMIs "
+              f"{mt['reduce_msgs']}, route_deferred {mt['route_deferred']},"
+              f" route_dropped {mt['route_dropped']}; sink vs [mesh-full]'s "
+              f"uninterrupted run max |diff|/max(1,|ref|) {err:.3e} "
+              f"(tolerance {SINK_TOL}){extra}")
+    worst = 0.0
+    base = ranks[0]["golden", RESHARD_GOLDENS[0][0], device.type]
+    for case in RESHARD_GOLDENS:
+        for i, res in enumerate(ranks):
+            a = res.get(("golden", case[0], device.type))
+            b = res.get(("golden", case[0], "cpu"))
+            if a is None:
+                check(b is None, f"[reshard-full] golden {case[0]} rank "
+                                 f"{i}: card and CPU disagree on who holds")
+                continue
+            check(a["stats"] == b["stats"] and a["stats"]["route_dropped"]
+                  == 0, f"[reshard-full] golden {case[0]} rank {i}: stats "
+                        f"{a['stats']} vs CPU {b['stats']}")
+            worst = max(worst, close_rows("reshard-full", a["sink"],
+                                          b["sink"], MESH_TOL))
+            tol = 0.0 if case[2] == 1 and "cap" not in case[0] else 1e-5
+            diff = float(np.abs(a["sink"] - base["sink"]).max())
+            check(diff <= tol, f"[reshard-full] golden {case[0]} rank {i}: "
+                               f"sink vs the local run {diff:.3e} > {tol}")
+            if tol == 0.0:
+                check(a["stats"] == base["stats"],
+                      f"[reshard-full] golden {case[0]}: stats differ from "
+                      "the local run")
+    print(f"[reshard-full] test_chaos.py's reshard goldens on the card "
+          f"({', '.join(c[0] for c in RESHARD_GOLDENS)}): card = CPU on the "
+          f"logical stats, sinks within {worst:.3e}; the uncapped 1-D ones "
+          f"bit-equal to the local run, the capped and staged ones within "
+          f"1e-5")
+    free_cuda()
+
+
+def phase_decode_partial(device, dc=DECODE):
+    """The sequence-sharded decode at mistral-nemo-12b's head layout: each
+    of 4 shards of a 32,768-token bf16 cache attended in part, combined by
+    log-sum-exp, against the whole-cache decode and float64."""
+    import torch
+    from repro_torch.nn.attention import (combine_partial_decodes,
+                                          decode_attend,
+                                          decode_attend_partial)
+    B, H, Kh, D, T = (dc["batch"], dc["heads"], dc["kv_heads"],
+                      dc["head_dim"], dc["seq"])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q = torch.randn((B, 1, H, D), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    k = torch.randn((B, T, Kh, D), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    v = torch.randn((B, T, Kh, D), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    valid = torch.ones((B, T), dtype=torch.bool, device=device)
+    valid[0, T - dc["masked_tail"]:] = False    # a short sequence
+    n = T // dc["shards"]
+    full = decode_attend(q, k, v, valid).float()
+    t0 = time.perf_counter()
+    parts = [decode_attend_partial(q, k[:, i * n:(i + 1) * n],
+                                   v[:, i * n:(i + 1) * n],
+                                   valid[:, i * n:(i + 1) * n])
+             for i in range(dc["shards"])]
+    comb = combine_partial_decodes(*(torch.stack(x) for x in zip(*parts)))
+    sync(comb)
+    secs = time.perf_counter() - t0
+    G = H // Kh
+    qg = q.double().reshape(B, Kh, G, D)
+    logits = torch.einsum("bkgd,btkd->bkgt", qg, k.double()) / D ** 0.5
+    logits = torch.where(valid[:, None, None, :], logits, -float("inf"))
+    ref = torch.einsum("bkgt,btkd->bkgd", torch.softmax(logits, dim=-1),
+                       v.double()).reshape(B, 1, H, D)
+    scale = torch.clamp(ref.abs(), min=1.0)
+    e_cf = float(((comb - full).abs() / scale).max())
+    e_c64 = float(((comb.double() - ref).abs() / scale).max())
+    e_f64 = float(((full.double() - ref).abs() / scale).max())
+    check(comb.shape == (B, 1, H, D) and bool(torch.isfinite(comb).all()),
+          "[decode-partial] non-finite or misshapen output")
+    check(e_cf <= DECODE_TOL, f"[decode-partial] combined vs decode_attend "
+                              f"{e_cf:.3e} > {DECODE_TOL}")
+    print(f"[decode-partial] B {B}, {H} query heads over {Kh} KV heads, D "
+          f"{D}, bf16 cache of {T} tokens ({dc['masked_tail']} masked at "
+          f"the tail of sequence 0) in {dc['shards']} shards: combined vs "
+          f"decode_attend max |diff|/max(1,|ref|) {e_cf:.3e} (tolerance "
+          f"{DECODE_TOL}); vs float64: combined {e_c64:.3e}, whole-cache "
+          f"decode {e_f64:.3e}; partials + combine {secs * 1e3:.3f} ms "
+          f"(first call, host clock)")
+
+
 def free_cuda():
     import torch
     gc.collect()
@@ -4537,11 +5290,18 @@ def main():
     free_cuda()
     mesh_err = phase("mesh-kernel", phase_mesh_kernel, device)
     mesh_trace = phase("mesh-parity", phase_mesh_parity, device)
-    mesh_launches, rate = phase("mesh-full", phase_mesh_full, device,
-                                FULL, MESH, card)
+    mesh_launches, rate, mesh_emb = phase("mesh-full", phase_mesh_full,
+                                          device, FULL, MESH, card)
     phase("what-if", phase_what_if, mesh_trace, rate, card)
     result["kernels"].append(phase("mesh-time", phase_mesh_time, device,
                                    mesh_launches, mesh_err))
+    free_cuda()
+    phase("stage-parity", phase_stage_parity, device)
+    phase("stage-full", phase_stage_full, device, FULL, STAGE, card)
+    phase("reshard-full", phase_reshard_full, device, mesh_emb, FULL, MESH,
+          RESHARD, card)
+    del mesh_emb
+    phase("decode-partial", phase_decode_partial, device)
     free_cuda()
     fa_err = phase("lm-kernel", phase_lm_kernel, device)
     phase("lm-parity", phase_lm_parity, device)

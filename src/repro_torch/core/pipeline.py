@@ -1,6 +1,6 @@
 """The D3-GNN dataflow pipeline driver (paper Fig. 1).
 
-Counterpart of the 1-D subset of `repro/core/pipeline.py`:
+Counterpart of `repro/core/pipeline.py`:
 
 Dataset -> Partitioner -> Splitter -> GraphStorage_1 .. GraphStorage_L -> sink
 
@@ -16,6 +16,18 @@ the same seeded partitioner over the same stream, as JAX feeds its
 shard_map replicated inputs, and each rank's state tables hold only its
 [Pl, ...] rows. Every method that touches the device is then collective:
 all ranks call it, in the same order.
+
+Hybrid parallelism: a 2-D ("stage", "data") mesh
+(`launch/mesh.py:make_stream_mesh(stage=S)` with PipelineConfig.n_stages
+= S) also pipelines the LAYER axis. Layer l lives on stage l % S; each
+tick every stage runs its R = L // S rounds on data one hop behind, and
+the inter-stage hops ride a packed ring (`stage_ring`, [R, C_buf, W] on
+each rank) posted with one `stage_shift` right after each round's compute
+(`_tick_program_2d`). Per tick the schedule is skewed against the 1-D
+program, but the quiescent state after `flush` is the same fixed point.
+At n_stages = 1 none of this code runs: the 1-D program is unchanged.
+`reshard` moves a live pipeline onto another mesh (or off it); it is
+collective over the process group's world.
 
 Two drivers share ONE device program (`_tick_program`: topology apply + L
 layer ticks + sink update):
@@ -60,11 +72,6 @@ still syncs once a super-tick; `_trace_ticks` also feeds the
 every other stat and the state are bit-equal to a run without it.
 Checkpoints of the whole pipeline are `ft/checkpoint.py`'s
 (`CheckpointManager.save_pipeline` / `restore_pipeline`).
-
-Planes this port does not have yet raise NotImplementedError naming the
-ROADMAP item that will port them: n_stages > 1 (the 2-D stage program),
-a live reshard onto another mesh (`reshard`, and `mitigate_stragglers`'
-reshard branch), all item 13.
 """
 from __future__ import annotations
 
@@ -74,6 +81,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import events as ev
 from repro_torch.core import state as st
@@ -91,7 +99,8 @@ from repro_torch.core.train_plane import (TrainConfig, init_train_state,
 from repro_torch.device import resolve_device
 from repro_torch.dist.mesh import StreamMesh
 from repro_torch.dist.router import LocalRouter, MeshRouter
-from repro_torch.dist.wire import lane_width, pack_lane, unpack_lane
+from repro_torch.dist.wire import (field_col, lane_width, pack_lane,
+                                   pad_lane, unpack_lane)
 from repro_torch.ft.stragglers import StragglerMitigator
 from repro_torch.graph.sage import linear_tree, load_linear_tree
 from repro_torch.serve.query import (KIND_LINK, QSTAT_FIELDS,
@@ -148,7 +157,10 @@ class PipelineConfig:
                                       # exact; > 0 suppresses re-emissions
                                       # whose message moved <= eps
     delivery_backend: str = "kernel"  # "kernel" (CUDA kernels) | "scatter"
-    n_stages: int = 1                 # stage pipeline (not ported yet)
+    n_stages: int = 1                 # pipeline stages on a 2-D mesh
+                                      # (layer l on stage l % n_stages;
+                                      # must match make_stream_mesh(
+                                      # stage=...)); 1 = the 1-D program
     telemetry: bool = False           # telemetry plane: exact occupancy
                                       # gauges, the per-tick trace and the
                                       # straggler feed (telemetry/)
@@ -188,22 +200,39 @@ class PipelineConfig:
                    else self.route_defer_cap)
         return n_devices * per_dev
 
-    def _raise_unported(self, checks) -> None:
-        for hit, what, item in checks:
-            if hit:
-                raise NotImplementedError(
-                    f"PipelineConfig: {what} is not ported to repro_torch "
-                    f"yet (ROADMAP Queue 1 item {item})")
-
-    def validate(self, n_devices: int = 1) -> None:
-        """Fail fast with a clear message; n_devices is the mesh size (1
-        for the LocalRouter). Bad values raise ValueError, as the JAX
-        package's validate does; valid values of a plane that is not
-        ported yet raise NotImplementedError after them."""
+    def validate(self, n_devices: int = 1, n_layers: Optional[int] = None,
+                 local: bool = False) -> None:
+        """Fail fast with a clear message (ValueError, as the JAX
+        package's validate). n_devices counts the WHOLE mesh (stage x data
+        on a 2-D mesh; 1 for the LocalRouter); n_layers enables the
+        layer-placement check; local flags a pipeline without a mesh,
+        which cannot host pipeline stages."""
         if self.n_stages < 1:
             raise ValueError(
                 f"PipelineConfig.n_stages={self.n_stages} must be >= 1 "
                 "(1 = the layer-sequential 1-D program)")
+        if self.n_stages > 1:
+            if local:
+                raise ValueError(
+                    f"PipelineConfig.n_stages={self.n_stages} needs a 2-D "
+                    "('stage','data') mesh (make_stream_mesh(stage=...)): "
+                    "the LocalRouter has no stage axis to place layers on "
+                    "and would silently run them layer-sequentially — "
+                    "pass mesh= or set n_stages=1")
+            if n_devices % self.n_stages:
+                raise ValueError(
+                    f"n_devices={n_devices} is not divisible by "
+                    f"n_stages={self.n_stages}: the mesh factors as "
+                    "(stage, data) = (n_stages, n_devices // n_stages), "
+                    "so pick a device count that is a multiple of the "
+                    "stage count")
+            if n_layers is not None and n_layers % self.n_stages:
+                raise ValueError(
+                    f"n_layers={n_layers} is not divisible by "
+                    f"n_stages={self.n_stages}: layers are placed "
+                    "round-robin on stages (layer l on stage l % S) and "
+                    "every stage must carry the same number of rounds — "
+                    "use a stage count that divides the layer count")
         caps = {"n_parts": self.n_parts, "node_cap": self.node_cap,
                 "edge_cap": self.edge_cap, "repl_cap": self.repl_cap,
                 "feat_cap": self.feat_cap,
@@ -241,9 +270,13 @@ class PipelineConfig:
                 f"PipelineConfig.route_defer_cap={self.route_defer_cap} "
                 "must be >= 0 (0 disables deferral: bucket overflow then "
                 "drops, counted in TickStats.route_dropped)")
+        # parts shard over the DATA axis only: on a 2-D mesh each stage
+        # row holds the same part blocks over n_devices // n_stages ranks
+        data_devs = (n_devices // self.n_stages if self.n_stages > 1
+                     else n_devices)
         if (self.route_defer_cap == 0 and self.query_cap > 0
-                and self.route_cap is not None and n_devices > 1
-                and self.route_cap < (self.n_parts // n_devices)
+                and self.route_cap is not None and data_devs > 1
+                and self.route_cap < (self.n_parts // data_devs)
                 * self.query_cap):
             raise ValueError(
                 "route_defer_cap=0 with a capped query wire lane "
@@ -263,15 +296,12 @@ class PipelineConfig:
                 f"the emission budget capacities().outbox="
                 f"{self.capacities().outbox} must be a multiple of "
                 f"n_parts={self.n_parts}")
-        if n_devices > 1 and self.n_parts % n_devices:
+        if data_devs > 1 and self.n_parts % data_devs:
             raise ValueError(
                 f"n_parts={self.n_parts} is not divisible by the mesh's "
-                f"{n_devices} devices: the part axis is block-sharded over "
+                f"{data_devs} devices: the part axis is block-sharded over "
                 "the ranks, so pick n_parts as a multiple of the device "
                 "count (each rank owns n_parts // n_devices parts)")
-        self._raise_unported((
-            (self.n_stages != 1, "n_stages > 1 (pipeline stages, and "
-             "training at n_stages > 1)", 13),))
 
 
 @dataclass
@@ -293,6 +323,10 @@ class StreamMetrics:
     wire_bytes: int = 0                # exchanged send-buffer bytes
     route_deferred: int = 0            # records carried by backpressure
     route_dropped: int = 0             # records lost to FULL defer rings
+    stage_idle: int = 0                # pipeline bubbles: device-rounds
+                                       # that saw an EMPTY inbox, summed
+                                       # over ticks (0 on a 1-D mesh;
+                                       # D3Pipeline.bubble_fraction())
     # telemetry plane (all 0 unless PipelineConfig.telemetry)
     occ_defer_ticks: int = 0           # defer-ring backlog integral
                                        # (end-of-tick ring rows, summed
@@ -324,11 +358,16 @@ def _ingest_counts(edges, feats, queries, labels):
             len(labels) if labels else 0)
 
 
-def _occ_row(stats_all, qstats, ts, router):
+def _occ_row(stats_all, qstats, ts, router, stage: bool = False):
     """The telemetry plane's per-tick device occupancy row: int64
     [len(TRACE_DEVICE_COLS)] in `telemetry/trace.py`'s column order. The
     TickStats scalars are reduced over the ranks already; the training
-    table's two populations take one more psum (with training on)."""
+    table's two populations take one more psum (with training on).
+    stage=True (the 2-D program) also folds each stage's partial stats
+    over the stage axis: the counters with one psum_stage, the peak
+    gauges with one pmax_stage, the final layer's emissions taken from
+    stage S - 1 (layer L - 1 lives there). The query and training entries
+    are stage-replicated already."""
     z = torch.zeros((), dtype=torch.int64, device=stats_all[0].busy.device)
     fsum = lambda f: sum(getattr(s, f) for s in stats_all)
     fmax = lambda vals: torch.stack(vals).max()
@@ -339,21 +378,28 @@ def _occ_row(stats_all, qstats, ts, router):
         labeled = dirty = z
     q = (lambda f: getattr(qstats, f)) if qstats is not None else \
         (lambda f: z)
-    row = (
-        stats_all[-1].emitted,                          # emitted_final
+    last = stats_all[-1].emitted
+    if stage:
+        last = last * int(router.stage_index() == router.n_stages - 1)
+    adds = torch.stack([torch.as_tensor(v).to(torch.int64) for v in (
+        last,                                           # emitted_final
         fsum("emitted"),                                # emitted_sum
         fsum("reduce_msgs"), fsum("broadcast_msgs"), fsum("wire_rows"),
         fsum("route_deferred"), fsum("route_dropped"), fsum("dropped"),
         fsum("n_suppressed"),                           # suppressed
-        fsum("occ_bc_defer"), fsum("occ_rmi_defer"),
+        fsum("occ_bc_defer"), fsum("occ_rmi_defer"))])
+    peaks = torch.stack([torch.as_tensor(v).to(torch.int64) for v in (
         fmax([s.route_peak for s in stats_all]),        # route_peak
         fmax([s.emitted + s.dropped for s in stats_all]),  # outbox_demand
-        fmax([s.outbox_part_peak for s in stats_all]),  # outbox_part_peak
+        fmax([s.outbox_part_peak for s in stats_all]))])  # outbox_part_peak
+    if stage:
+        adds, peaks = router.psum_stage(adds), router.pmax_stage(peaks)
+    rest = torch.stack([torch.as_tensor(v).to(torch.int64) for v in (
         q("held_ticks"),                                # query_pending
         q("wire_backlog"),                              # query_backlog
         labeled, dirty,                                 # train_labeled/dirty
-        q("admitted"), q("answered"), q("dropped"))
-    return torch.stack([torch.as_tensor(v).to(torch.int64) for v in row])
+        q("admitted"), q("answered"), q("dropped"))])
+    return torch.cat([adds, peaks, rest])
 
 
 def _sink_update_body(sink, seen, fb: ev.FeatBatch, part0=0):
@@ -364,6 +410,51 @@ def _sink_update_body(sink, seen, fb: ev.FeatBatch, part0=0):
     return sink.reshape(P, N, d), seen.reshape(P, N)
 
 
+def _tree_map(fn, *trees):
+    """fn over the leaves of same-shaped pipeline trees (dicts, lists,
+    dataclasses; the checkpoint's tree order)."""
+    from repro_torch.ft.checkpoint import tree_flatten, tree_unflatten
+    cols = [[l for _, l in tree_flatten(t)] for t in trees]
+    return tree_unflatten(trees[0], [fn(*xs) for xs in zip(*cols)])
+
+
+def _sent_bytes(mesh) -> int:
+    """Bytes this rank has sent into reshard relays over `mesh`."""
+    return mesh.calls.get("reshard", [0, 0.0, 0])[2] if mesh else 0
+
+
+def _tree_to(tree, device):
+    return None if tree is None else _tree_map(lambda a: a.to(device), tree)
+
+
+@dataclass(frozen=True)
+class StagedActLayer:
+    """One pipeline ROUND's layer on this rank's stage, in the reference's
+    SPMD-uniform form: GraphSAGE stacks put act=False on the final layer
+    only, and the staged layer carries that flag as data, a 0/1 float leaf
+    `params["act"]` beside the layer's parameter tree `params["p"]`, so
+    the relu rides a `torch.where` instead of a per-layer branch. `base`
+    supplies the arithmetic (its own act flag is not read); valid for any
+    layer whose activation is exactly a final relu (SAGELayer).
+    D3Pipeline enforces the rest of the uniformity contract
+    (`_check_uniform_layers`)."""
+    base: object
+    params: dict = None
+
+    def message(self, x):
+        return self.message_params(self.params, x)
+
+    def update(self, x, agg):
+        return self.update_params(self.params, x, agg)
+
+    def message_params(self, params, x):
+        return self.base.message_params(params["p"], x)
+
+    def update_params(self, params, x, agg):
+        h = self.base.linear_params(params["p"], x, agg)
+        return torch.where(params["act"] > 0, torch.relu(h), h)
+
+
 class D3Pipeline:
     """L chained GraphStorage operators + the host driver."""
 
@@ -372,8 +463,12 @@ class D3Pipeline:
         """model: graph/sage.GraphSAGE (an nn.Module whose `layers` have
         message/update); it is moved to the pipeline's device.
         mesh: optional `dist/mesh.py:StreamMesh` — this process is one
-        rank of a 1-D mesh that shards the part axis (MeshRouter), and the
-        pipeline runs on the mesh's device.
+        rank of a 1-D mesh that shards the part axis (MeshRouter), or of a
+        2-D ("stage", "data") mesh that also pipelines the layer axis
+        (cfg.n_stages must equal mesh.n_stages); the pipeline runs on the
+        mesh's device. On a process outside the mesh (rank -1) the
+        pipeline is DORMANT: it holds the host side only and takes part
+        in `reshard` alone.
         train: optional TrainConfig — the online training plane (needs
         cfg.train_cap > 0 and a model with a head, n_classes > 0).
         device: where a pipeline without a mesh runs — CUDA unless given;
@@ -381,8 +476,15 @@ class D3Pipeline:
         if mesh is not None and not isinstance(mesh, StreamMesh):
             raise TypeError(f"mesh must be a dist.mesh.StreamMesh, got "
                             f"{type(mesh).__name__}")
-        n_dev = mesh.size if mesh is not None else 1
-        cfg.validate(n_devices=n_dev)
+        S = mesh.n_stages if mesh is not None else 1
+        n_dev = mesh.n_data if mesh is not None else 1
+        if mesh is not None and S != cfg.n_stages:
+            raise ValueError(
+                f"mesh has stage={S} but PipelineConfig.n_stages="
+                f"{cfg.n_stages}: the stage counts must agree — build the "
+                "mesh with make_stream_mesh(stage=n_stages)")
+        cfg.validate(n_devices=S * n_dev, n_layers=len(model.layers),
+                     local=mesh is None)
         if (train is not None) != (cfg.train_cap > 0):
             raise ValueError(
                 f"train={'set' if train is not None else 'None'} but "
@@ -402,75 +504,43 @@ class D3Pipeline:
             self.device = mesh.device
         else:
             self.device = resolve_device(device)
-        self.cfg = cfg
-        self.mesh = mesh
         self.model = model.to(self.device)
         self.layers = list(model.layers)
         self.train_cfg = train
         self._head = model.head if train is not None else None
-        self.router = (MeshRouter(cfg.n_parts, mesh, route_cap=cfg.route_cap,
-                                  pack_backend=cfg.delivery_backend,
-                                  telemetry=cfg.telemetry)
-                       if mesh is not None else LocalRouter(cfg.n_parts))
         self.delivery = make_delivery(cfg.delivery_backend)
         self.part = StreamingPartitioner(
             cfg.n_parts, cfg.max_nodes, method=cfg.partitioner,
             seed=cfg.seed, node_cap=cfg.node_cap, edge_cap=cfg.edge_cap,
             repl_cap=cfg.repl_cap)
-        dev = self.device
-        # this rank's block of parts; the defer rings are sized per lane
-        # from the rank's local emission capacities
-        p_loc = cfg.n_parts // n_dev
-        caps = cfg.capacities(n_dev)
-        self.topo = st.init_topo(p_loc, cfg.edge_cap, cfg.repl_cap,
-                                 cfg.node_cap, dev)
-        dims = [l.in_dim for l in self.layers] + [self.layers[-1].out_dim]
-        self.states = [st.init_layer(
-            p_loc, cfg.node_cap, dims[i], dims[i], dev,
-            bc_defer_rows=caps.bc_defer_rows // n_dev,
-            rmi_defer_rows=caps.rmi_defer_rows // n_dev)
-            for i in range(len(self.layers))]
+        dims = self._dims()
         self.d_in, self.d_out = dims[0], dims[-1]
-        self.sink = torch.zeros((p_loc, cfg.node_cap, self.d_out),
-                                dtype=torch.float32, device=dev)
-        self.sink_seen = torch.zeros((p_loc, cfg.node_cap),
-                                     dtype=torch.bool, device=dev)
-        # the query plane's pending table (and, on a capped mesh, its wire
-        # lane's defer ring); [p_loc, 0] tables when the plane is off
-        self.queries = init_query_state(
-            p_loc, cfg.query_cap, self.d_out, dev,
-            wire_defer_rows=caps.query_defer_rows // n_dev)
-        self._empty_queries = empty_query_batch(caps.query_admissions,
-                                                self.d_out, dev)
-        self._empty_queries_np = empty_query_batch(caps.query_admissions,
-                                                   self.d_out)
-        self._empty_labels = ev.empty_label_batch(cfg.train_cap, dev)
-        self._empty_labels_np = ev.empty_label_batch(cfg.train_cap)
-        # the training plane's device state: labels/dirty window, live
-        # params, per-part optimizer state (core/train_plane.py)
-        self.train_state = (init_train_state(
-            p_loc, cfg.node_cap, self.params, linear_tree(model.head),
-            train, dev) if train is not None else None)
+        # the per-layer 0/1 activation flags (the staged layers' act leaf)
+        self._acts = tuple(1.0 if getattr(l, "act", False) else 0.0
+                           for l in self.layers)
         self._answer_log: list = []    # host-side answered-row columns
         self.now = 0
-        self._wire_bytes_per_tick = self._static_wire_bytes(dims, n_dev)
         self.metrics = StreamMetrics(
             busy_logical=np.zeros(cfg.n_parts, np.int64))
         self._empty_edge_rows = {
             k: np.zeros(0, np.int64) for k in
             ("part", "edge_slot", "src_slot", "dst_slot",
              "dst_master_part", "dst_master_slot")}
+        self._set_grid(mesh, cfg)
+        if self.mesh is None or self.mesh.member:
+            self._alloc_state()
+        else:
+            self._drop_state()
         # telemetry plane: the trace recorder and the straggler feed. The
         # lane list and the all_to_all multiplier let the cost model
         # re-price the wire at other route_caps (the constants of
         # _static_wire_bytes)
         if cfg.telemetry:
-            lanes = self._wire_lane_list(dims, n_dev)
-            a2a_mult = 4 * n_dev * n_dev if lanes else 0
-            a2a = a2a_mult * sum(self.router.lane_cap(c) * w
-                                 for c, w in lanes)
+            lanes = self._wire_lane_list(dims, n_dev, S)
+            a2a_mult = 4 * S * n_dev * n_dev if lanes else 0
+            a2a = a2a_mult * sum(self._lane_cap(c) * w for c, w in lanes)
             self.trace = TraceRecorder(meta={
-                "n_parts": cfg.n_parts, "n_devices": n_dev, "n_stages": 1,
+                "n_parts": cfg.n_parts, "n_devices": n_dev, "n_stages": S,
                 "n_layers": len(self.layers), "dims": list(dims),
                 "window": cfg.window.kind,
                 "delivery_backend": cfg.delivery_backend,
@@ -483,7 +553,7 @@ class D3Pipeline:
                 "query_cap": cfg.query_cap,
                 "query_tick_cap": cfg.query_tick_cap,
                 "train_cap": cfg.train_cap,
-                "caps": asdict(caps),
+                "caps": asdict(cfg.capacities(n_dev)),
                 "wire_bytes_per_tick": self._wire_bytes_per_tick,
                 "wire_lanes": [list(l) for l in lanes],
                 "a2a_mult": a2a_mult,
@@ -493,21 +563,210 @@ class D3Pipeline:
             self.trace = None
             self.straggler = None
 
-    def _wire_lane_list(self, dims, n_dev: int):
+    # ------------------------------------------------- grid and layout
+    def _dims(self) -> list:
+        return [l.in_dim for l in self.layers] + [self.layers[-1].out_dim]
+
+    def _set_grid(self, mesh, cfg) -> None:
+        """Install (mesh, cfg): the router, the stage layout and every
+        constant derived from the grid (no state moves here)."""
+        S = mesh.n_stages if mesh is not None else 1
+        n_dev = mesh.n_data if mesh is not None else 1
+        dims = self._dims()
+        if S > 1:
+            self._check_uniform_layers(dims, S)
+        self.mesh, self.cfg = mesh, cfg
+        self.n_stages, self._n_data = S, n_dev
+        self._n_rounds = len(self.layers) // S
+        self.router = (MeshRouter(cfg.n_parts, mesh, route_cap=cfg.route_cap,
+                                  pack_backend=cfg.delivery_backend,
+                                  telemetry=cfg.telemetry)
+                       if mesh is not None and mesh.member
+                       else LocalRouter(cfg.n_parts))
+        caps = cfg.capacities(n_dev)
+        p_loc = cfg.n_parts // n_dev
+        # the inter-stage ring: one packed-FeatBatch slot shape carries
+        # both the host inbox (feat_cap rows) and any round's outbox
+        # (p_loc * cap_pp rows) between stages
+        self._ring_caps = (max(cfg.feat_cap, p_loc * caps.outbox_per_part),
+                           dims[0] + 3)
+        self._wire_bytes_per_tick = self._static_wire_bytes(dims, n_dev, S)
+        dev = self.device
+        self._act_leaves = [torch.tensor(a, dtype=torch.float32, device=dev)
+                            for a in self._acts]
+        self._empty_queries = empty_query_batch(caps.query_admissions,
+                                                self.d_out, dev)
+        self._empty_queries_np = empty_query_batch(caps.query_admissions,
+                                                   self.d_out)
+        self._empty_labels = ev.empty_label_batch(cfg.train_cap, dev)
+        self._empty_labels_np = ev.empty_label_batch(cfg.train_cap)
+
+    def _stage_layers(self) -> list:
+        """The layers this rank runs, round by round: l = r * S + s for
+        its stage s (every layer on a 1-D mesh)."""
+        S, s = self.n_stages, self.router.stage_index()
+        return [r * S + s for r in range(self._n_rounds)]
+
+    def _alloc_state(self) -> None:
+        """Fresh device state for this rank's block of parts and its
+        stage's layers; the defer rings are sized per lane from the
+        rank's local emission capacities."""
+        cfg, dev, n_dev = self.cfg, self.device, self._n_data
+        caps = cfg.capacities(n_dev)
+        p_loc = cfg.n_parts // n_dev
+        dims = self._dims()
+        self.topo = st.init_topo(p_loc, cfg.edge_cap, cfg.repl_cap,
+                                 cfg.node_cap, dev)
+        self.states = [st.init_layer(
+            p_loc, cfg.node_cap, dims[l], dims[l], dev,
+            bc_defer_rows=caps.bc_defer_rows // n_dev,
+            rmi_defer_rows=caps.rmi_defer_rows // n_dev)
+            for l in self._stage_layers()]
+        self.sink = torch.zeros((p_loc, cfg.node_cap, self.d_out),
+                                dtype=torch.float32, device=dev)
+        self.sink_seen = torch.zeros((p_loc, cfg.node_cap),
+                                     dtype=torch.bool, device=dev)
+        # the query plane's pending table (and, on a capped mesh, its wire
+        # lane's defer ring); [p_loc, 0] tables when the plane is off
+        self.queries = init_query_state(
+            p_loc, cfg.query_cap, self.d_out, dev,
+            wire_defer_rows=caps.query_defer_rows // n_dev)
+        # the training plane's device state: labels/dirty window, live
+        # params, per-part optimizer state (core/train_plane.py); on a 2-D
+        # mesh every stage holds the same copy
+        self.train_state = (init_train_state(
+            p_loc, cfg.node_cap, self.params, linear_tree(self.model.head),
+            self.train_cfg, dev) if self.train_cfg is not None else None)
+        self.stage_ring = (torch.zeros(
+            (self._n_rounds,) + self._ring_caps, dtype=torch.float32,
+            device=dev) if self.n_stages > 1 else None)
+
+    def _drop_state(self) -> None:
+        self.topo = self.states = self.sink = self.sink_seen = None
+        self.queries = self.train_state = self.stage_ring = None
+
+    @property
+    def active(self) -> bool:
+        """Does this process hold pipeline state (False: a dormant rank
+        outside the mesh)?"""
+        return self.states is not None
+
+    def _need_active(self) -> None:
+        if not self.active:
+            raise RuntimeError(
+                "this process is outside the pipeline's mesh (a dormant "
+                "rank): it holds no state and takes part only in reshard")
+
+    def _lane_cap(self, capacity: int) -> int:
+        route_cap = self.cfg.route_cap
+        return capacity if route_cap is None else max(1, min(route_cap,
+                                                             capacity))
+
+    def _check_uniform_layers(self, dims, n_stages: int) -> None:
+        """Stage parallelism runs one round body per stage, so the stack
+        must be SPMD-uniform: same layer class, same aggregator, and
+        in_dim == out_dim == d on every layer (one ring row width serves
+        all rounds). The activation flag is exempt: StagedActLayer turns
+        it into data."""
+        base = self.layers[0]
+        uniform = (len(set(dims)) == 1 and all(
+            type(l) is type(base) and hasattr(l, "act")
+            and getattr(l, "agg_kind", "mean")
+            == getattr(base, "agg_kind", "mean")
+            for l in self.layers))
+        if not uniform:
+            raise ValueError(
+                f"PipelineConfig.n_stages={n_stages} needs an "
+                "SPMD-uniform layer stack (same class/aggregator, in_dim "
+                "== out_dim on every layer, differing at most in the "
+                f"activation flag), got dims={dims} over "
+                f"{[type(l).__name__ for l in self.layers]} — pipeline "
+                "stages run one shared round body per stage")
+
+    def _staged_params(self) -> dict:
+        """This rank's stage slice of the reference's staged params: round
+        r's entry is {"p": the parameter tree of layer r * S + s, "act":
+        its 0/1 activation flag} (detached views of the modules' weights,
+        so the training plane's in-place updates show through)."""
+        return {f"r{r}": {"p": self.layers[l].param_tree(),
+                          "act": self._act_leaves[l]}
+                for r, l in enumerate(self._stage_layers())}
+
+    def _unstack_stats(self, rows, n_rounds: int):
+        """Gathered per-rank stats rows [ranks, X] (each rank's per-round
+        scalars, then its per-round busy vectors) -> the drivers'
+        per-LAYER host TickStats: layer l = r * S + s is round r on stage
+        s, its scalars read from the first rank of stage row s (reduced
+        over the row already), its busy vector the row's data shards'
+        blocks concatenated. The 1-D mesh is S = 1, one round a layer."""
+        S, D = self.n_stages, rows.shape[0] // self.n_stages
+        F = len(SCALAR_FIELDS)
+        P = self.cfg.n_parts // self._n_data
+        out = []
+        for l in range(len(self.layers)):
+            r, s = divmod(l, S)
+            sc = rows[s * D, r * F:(r + 1) * F]
+            busy = rows[s * D:(s + 1) * D, n_rounds * F + r * P:
+                        n_rounds * F + (r + 1) * P].reshape(-1)
+            out.append(TickStats(**dict(zip(SCALAR_FIELDS, sc)), busy=busy))
+        return out
+
+    def layer_state(self, l: int):
+        """Layer l's LayerState on this rank: the 1-D engine keeps one per
+        layer; on a 2-D mesh layer l = r * S + s lives at round r on the
+        ranks of stage s (other stages hold no copy, and raise)."""
+        r, s = divmod(l, self.n_stages)
+        if s != self.router.stage_index():
+            raise ValueError(f"layer {l} lives on stage {s}, not on this "
+                             f"rank's stage {self.router.stage_index()}")
+        return self.states[r]
+
+    def set_layer_state(self, l: int, ls) -> None:
+        """Write layer l's LayerState back (the coordinator's rebuild;
+        on a 2-D mesh, on a rank of the layer's stage)."""
+        self.layer_state(l)
+        self.states[l // self.n_stages] = ls
+
+    def _ring_occupancy(self) -> torch.Tensor:
+        """This rank's valid rows in flight between stages (0-d int64; 0
+        on a 1-D mesh). The valid flag packs LAST in a FeatBatch row."""
+        if self.stage_ring is None:
+            return torch.zeros((), dtype=torch.int64, device=self.device)
+        return (self.stage_ring[..., -1] > 0.5).sum()
+
+    def _ring_occupancy_host(self) -> int:
+        """Valid rows in flight between stages over the whole mesh (0 on
+        a 1-D mesh): the flush must not terminate over them. Collective on
+        a 2-D mesh."""
+        if self.stage_ring is None:
+            return 0
+        return int(self.router.psum_vote(self._ring_occupancy()))
+
+    def bubble_fraction(self) -> float:
+        """Measured pipeline-bubble fraction: device-rounds that saw an
+        empty inbox over all device-rounds (0.0 on a 1-D mesh)."""
+        total = self.metrics.ticks * len(self.layers) * self._n_data
+        if self.n_stages <= 1 or total == 0:
+            return 0.0
+        return self.metrics.stage_idle / total
+
+    def _wire_lane_list(self, dims, n_dev: int, n_stages: int = 1):
         """The capped-exchange lanes of one tick as (local emission
         capacity, wire width) pairs: the constants `_static_wire_bytes`
-        prices (its all_to_all term is 4 D^2 * sum lane_cap(c) * w),
+        prices (its all_to_all term is 4 S D^2 * sum lane_cap(c) * w),
         recorded in the trace meta so the cost model can replay the wire
-        at another route_cap. Empty without a mesh."""
+        at another route_cap. Empty without a mesh. On a 2-D mesh a stage
+        row runs R = L // S rounds of width dims[0]."""
         if self.mesh is None or n_dev <= 1:
             return []
         cfg = self.cfg
         p_loc = cfg.n_parts // n_dev
         lanes = []
-        for li in range(len(self.layers)):
-            lanes.append((p_loc * cfg.repl_cap, dims[li] + 5))
-            lanes.append((cfg.edge_tick_cap + p_loc * cfg.edge_cap,
-                          dims[li] + 5))
+        n_lay = self._n_rounds if n_stages > 1 else len(self.layers)
+        for li in range(n_lay):
+            d = dims[0] if n_stages > 1 else dims[li]
+            lanes.append((p_loc * cfg.repl_cap, d + 5))
+            lanes.append((cfg.edge_tick_cap + p_loc * cfg.edge_cap, d + 5))
         if cfg.query_cap > 0:
             lanes.append((p_loc * cfg.query_cap, wire_width(dims[-1])))
         return lanes
@@ -520,65 +779,257 @@ class D3Pipeline:
         self.trace.save(path)
 
     def reshard(self, new_mesh, cfg: Optional[PipelineConfig] = None):
-        """Install `cfg` (default: the current config) on a LOCAL
-        pipeline, as the reference's `reshard(None, cfg)` does: validate
-        it, keep the carry where it is on the same device, rebuild the
-        router and the wire constants, and (with telemetry) record the
-        reshard in the trace meta and restart the straggler feed. The
-        previous config object is never mutated. Returns the installed
-        config. A live reshard onto another mesh, or of a meshed
-        pipeline, is not ported (ROADMAP Queue 1 item 13)."""
-        if new_mesh is not None or self.mesh is not None:
-            raise NotImplementedError(
-                "D3Pipeline.reshard onto or off a mesh (the live elastic "
-                "reshard) is not ported to repro_torch yet (ROADMAP Queue "
-                "1 item 13)")
+        """LIVE elastic reshard (Alg. 5): relay the whole carry (layer
+        tables, defer rings, the inter-stage ring, QueryState, TrainState
+        with its optimizer state) from the current mesh onto `new_mesh`
+        (another D-shard or S' x D' grid of the same world, or None for a
+        local pipeline on the old mesh's rank 0) without dropping
+        in-flight work. Collective over the process group's WORLD when a
+        mesh is involved: every process calls it, with its own view of
+        `new_mesh` (members of the old mesh, of the new one, and dormant
+        ones). A process outside the new mesh keeps nothing (dormant).
+
+        State is keyed by LOGICAL part, so the [P, ...] tables move
+        between owners in the reference's global layout: the old mesh
+        gathers it (`ft/checkpoint.py:gather_tree`, as a checkpoint does)
+        and every new rank takes its block (`local_block`); a process
+        outside the old mesh receives the carry and the host side (the
+        partitioner's tables, the clock, the metrics and answer log) from
+        the old mesh's rank 0. Only the packed buffers whose LAYOUT
+        depends on the grid are re-blocked (ft/elastic.py): the defer
+        rings compact into the new global capacities (their rows are
+        destination-addressed), and the inter-stage ring's slabs re-block
+        by part ownership under the new p_loc. Held `consistent` queries
+        ride the QueryState tables and answer after the move as without
+        it.
+
+        `cfg` optionally replaces the config (default: the current one
+        with n_stages matched to the new mesh); it is validated against
+        the new grid and installed, and the previous config object is
+        never mutated. A stage-count change needs an empty inter-stage
+        ring (flush() first); a reshard that would overflow the new defer
+        capacities raises instead of dropping rows; the training and
+        telemetry planes cannot be switched on or off. Every process that
+        holds the carry checks these alike, before anything moves.
+        Returns the installed config; `last_reshard` records the seconds
+        and the bytes this rank sent."""
+        if new_mesh is not None and not isinstance(new_mesh, StreamMesh):
+            raise TypeError(f"new_mesh must be a dist.mesh.StreamMesh or "
+                            f"None, got {type(new_mesh).__name__}")
+        from repro_torch.ft.checkpoint import (_leaf_kind, gather_tree,
+                                               install_tree, local_block,
+                                               pipeline_tree, tree_flatten,
+                                               tree_unflatten)
+        from repro_torch.ft.elastic import repack_defer_ring, repack_stage_slab
+
+        t0 = time.perf_counter()
+        L = len(self.layers)
+        S = new_mesh.n_stages if new_mesh is not None else 1
+        n_dev = new_mesh.n_data if new_mesh is not None else 1
         if cfg is None:
-            cfg = replace(self.cfg, n_stages=1)
-        cfg.validate(n_devices=1)
-        if (self.train_state is not None) != (cfg.train_cap > 0):
+            cfg = replace(self.cfg, n_stages=S)
+        if new_mesh is not None and S != cfg.n_stages:
+            raise ValueError(
+                f"new mesh has stage={S} but cfg.n_stages={cfg.n_stages}: "
+                "the stage counts must agree")
+        cfg.validate(n_devices=S * n_dev, n_layers=L,
+                     local=new_mesh is None)
+        if (self.train_cfg is not None) != (cfg.train_cap > 0):
             raise ValueError(
                 "reshard cannot turn the training plane on or off: "
                 f"train_state is "
-                f"{'set' if self.train_state is not None else 'None'} "
+                f"{'set' if self.train_cfg is not None else 'None'} "
                 f"but cfg.train_cap={cfg.train_cap}")
         if cfg.telemetry != self.cfg.telemetry:
             raise ValueError("reshard cannot turn the telemetry plane on "
                              "or off")
-        dims = [l.in_dim for l in self.layers] + [self.layers[-1].out_dim]
-        self.cfg = cfg
-        self.router = LocalRouter(cfg.n_parts)
-        self._wire_bytes_per_tick = self._static_wire_bytes(dims, 1)
-        if self.trace is not None:
-            self.trace.meta["n_devices"] = 1
-            self.trace.meta["n_stages"] = 1
-            self.trace.meta.setdefault("reshards", []).append(
-                {"tick": int(self.now), "n_devices": 1, "n_stages": 1})
-            self.straggler = StragglerMitigator(n_shards=1)
+        dims = self._dims()
+        if S > 1:
+            self._check_uniform_layers(dims, S)
+        old = self.mesh
+        if old is None and new_mesh is None:
+            # local -> local: the carry stays where it is
+            self._set_grid(None, cfg)
+            self._after_reshard(t0, 0)
+            return cfg
+
+        # (1) the global carry and the host side where they are needed
+        sent0 = _sent_bytes(old)
+        if old is not None and old.member:
+            gtree = tree_unflatten(pipeline_tree(self), [
+                l for _, l in gather_tree(self, kind="reshard")])
+        else:
+            gtree = None
+        old_S, old_D = self.n_stages, self._n_data
+        old_ranks = set(old.world_ranks) if old is not None else None
+        new_ranks = (set(new_mesh.world_ranks) if new_mesh is not None
+                     else None)
+        if old is None:
+            # a local pipeline (or a dormant process after a reshard to
+            # local): the process holding the carry is the source
+            t = torch.tensor([dist.get_rank() if self.active
+                              else dist.get_world_size()])
+            dist.all_reduce(t, op=dist.ReduceOp.MIN)
+            src, relay = int(t[0]), True
+        else:
+            src = old.world_ranks[0]
+            relay = new_ranks is not None and not new_ranks <= old_ranks
+        if relay:
+            box = [None]
+            if dist.get_rank() == src:
+                box = [{"tree": _tree_to(gtree, "cpu"), "S": old_S,
+                        "D": old_D, "host": (self.part, self.now,
+                                             self.metrics, self._answer_log,
+                                             self.trace)}]
+            dist.broadcast_object_list(box, src=src)
+            got = box[0]
+            if gtree is None:
+                gtree, old_S, old_D = got["tree"], got["S"], got["D"]
+                (self.part, self.now, self.metrics, self._answer_log,
+                 self.trace) = got["host"]
+        stays = (new_mesh.member if new_mesh is not None
+                 else (old is None and self.active)
+                 or (old is not None and old.rank == 0))
+        if not stays:
+            self._set_grid(new_mesh, cfg)
+            self._drop_state()
+            self._after_reshard(t0, _sent_bytes(old) - sent0)
+            return cfg
+
+        # (2) re-block the global carry for the new grid (JAX's reshard on
+        # global arrays; every holder computes the same, refusals too)
+        dev = new_mesh.device if new_mesh is not None else self.device
+        caps = cfg.capacities(n_dev)
+        p_loc = cfg.n_parts // n_dev
+
+        def _lost(n, what):
+            if int(n):
+                raise RuntimeError(
+                    f"reshard would drop {int(n)} in-flight {what} rows — "
+                    "flush() to quiescence first or raise route_defer_cap")
+
+        if old_S > 1:
+            layer_states = [_tree_map(lambda a, s=l % old_S: a[s],
+                                      gtree["layers"][l // old_S])
+                            for l in range(L)]
+        else:
+            layer_states = list(gtree["layers"])
+        for i, ls in enumerate(layer_states):
+            b, bok, lb = repack_defer_ring(ls.bc_defer, ls.bc_defer_ok,
+                                           caps.bc_defer_rows)
+            r, rok, lr = repack_defer_ring(ls.rmi_defer, ls.rmi_defer_ok,
+                                           caps.rmi_defer_rows)
+            _lost(lb, f"layer {i} broadcast-defer")
+            _lost(lr, f"layer {i} RMI-defer")
+            layer_states[i] = replace(ls, bc_defer=b, bc_defer_ok=bok,
+                                      rmi_defer=r, rmi_defer_ok=rok)
+        q = gtree["queries"]
+        qw, qok, lq = repack_defer_ring(q.wire_defer, q.wire_defer_ok,
+                                        caps.query_defer_rows)
+        _lost(lq, "query-wire-defer")
+        queries = replace(q, wire_defer=qw, wire_defer_ok=qok)
+        # the inter-stage ring: a stage-count change cannot relabel rows'
+        # (stage, round) coordinates, so it needs an empty ring; a
+        # data-axis-only reshard re-blocks rows by part ownership
+        ring = gtree["stage_ring"]
+        in_flight = int((ring[..., -1] > 0.5).sum()) if ring is not None \
+            else 0
+        if S != old_S and in_flight:
+            raise RuntimeError(
+                f"reshard {old_S}->{S} stages with {in_flight} rows in the "
+                "inter-stage ring — flush() to quiescence first "
+                "(data-axis-only reshards keep in-flight rows)")
+        new_ring = None
+        if S > 1:
+            C = max(cfg.feat_cap, p_loc * caps.outbox_per_part)
+            R = L // S
+            new_ring = torch.zeros((S, R, n_dev * C, dims[0] + 3),
+                                   dtype=torch.float32, device=ring.device
+                                   if ring is not None else dev)
+            if old_S == S and ring is not None:
+                for s_i in range(S):
+                    for r_i in range(R):
+                        slab, lost = repack_stage_slab(
+                            ring[s_i, r_i], 0, dims[0] + 2, p_loc, n_dev, C)
+                        _lost(lost, f"stage-ring ({s_i},{r_i})")
+                        new_ring[s_i, r_i] = slab
+            rounds = [_tree_map(lambda *xs: torch.stack(xs),
+                                *[layer_states[r * S + s] for s in range(S)])
+                      for r in range(R)]
+        else:
+            rounds = layer_states
+        gnew = dict(gtree, layers=rounds, queries=queries,
+                    stage_ring=new_ring)
+        del gtree, layer_states
+
+        # (3) install the new grid and this rank's block
+        self.device = dev
+        self._set_grid(new_mesh, cfg)
+        grid = ((S, n_dev, new_mesh.stage_index, new_mesh.data_index)
+                if new_mesh is not None else (1, 1, 0, 0))
+        pairs = tree_flatten(gnew)
+        install_tree(self, tree_unflatten(gnew, [
+            local_block(_leaf_kind(p), x, *grid).to(dev).clone()
+            for p, x in pairs]))
+        self._after_reshard(t0, _sent_bytes(old) - sent0)
         return cfg
 
+    def _after_reshard(self, t0, sent) -> None:
+        """Telemetry bookkeeping of a reshard and its measurements."""
+        n_dev, S = self._n_data, self.n_stages
+        if self.trace is not None:
+            self.trace.meta["n_devices"] = n_dev
+            self.trace.meta["n_stages"] = S
+            self.trace.meta.setdefault("reshards", []).append(
+                {"tick": int(self.now), "n_devices": n_dev, "n_stages": S})
+        if self.cfg.telemetry:
+            self.straggler = StragglerMitigator(n_shards=n_dev)
+        self.last_reshard = {"seconds": time.perf_counter() - t0,
+                             "sent_bytes": sent}
+
     def mitigate_stragglers(self):
-        """Consume the straggler mitigator's persistent flags: a shard
-        flagged past `patience` is treated as fail-stop and the pipeline
-        reshards onto fewer ranks. Returns None when there is nothing to
-        do (no mitigator, no mesh, or one rank), as the reference does;
-        the reshard itself is not ported (ROADMAP Queue 1 item 13)."""
-        if (self.straggler is None or self.mesh is None
-                or self.router.n_devices <= 1):
+        """Consume the straggler mitigator's persistent flags (fed live by
+        the telemetry plane): a shard that stays flagged past `patience`
+        is treated as fail-slow == fail-stop and the pipeline LIVE-reshards
+        onto fewer data shards, re-mapping `parts_per_shard()` so the slow
+        shard owns nothing. Returns the RescalePlan when a reshard
+        happened, else None (no mitigator, no mesh, one data shard, no
+        persistent straggler).
+
+        Block sharding keeps parts contiguous, so the survivor count is
+        the largest divisor of n_parts below the current D that keeps the
+        stage grid. Collective over the world, as `reshard`: every process
+        calls it; a mesh narrower than the world takes the decision from
+        its rank 0."""
+        from repro_torch.ft.elastic import rescale_parts
+        from repro_torch.launch.mesh import survivor_mesh
+        if self.straggler is None or self.mesh is None:
             return None
-        if not self.straggler.persistent_stragglers():
+        slow = (self.straggler.persistent_stragglers()
+                if self.active and self._n_data > 1 else [])
+        if len(self.mesh.world_ranks) < dist.get_world_size():
+            box = [slow]
+            dist.broadcast_object_list(box, src=self.mesh.world_ranks[0])
+            slow = box[0]
+        if not slow or self._n_data <= 1:
             return None
-        raise NotImplementedError(
-            "mitigate_stragglers' live reshard onto the surviving ranks is "
-            "not ported to repro_torch yet (ROADMAP Queue 1 item 13)")
+        old_d = self._n_data
+        new_d = old_d - len(set(slow))
+        while new_d > 1 and self.cfg.n_parts % new_d:
+            new_d -= 1
+        new_d = max(new_d, 1)
+        new_mesh = survivor_mesh(self.mesh, slow, n_data=new_d)
+        plan = rescale_parts(old_d, new_d, self.cfg.n_parts)
+        self.reshard(new_mesh)
+        return plan
 
     def parts_per_shard(self) -> list:
-        """Logical parts owned by each rank (block sharding)."""
-        D = self.router.n_devices
+        """Logical parts owned by each data shard (block sharding)."""
+        D = self._n_data
         p_loc = self.cfg.n_parts // D
         return [np.arange(d * p_loc, (d + 1) * p_loc) for d in range(D)]
 
-    def _static_wire_bytes(self, dims, n_dev: int) -> int:
+    def _static_wire_bytes(self, dims, n_dev: int, n_stages: int = 1) -> int:
         """EXACT collective bytes per tick across the whole mesh: every
         rank ships a [D, cap * W] f32 send buffer per lane per route_lanes
         call, so a tick moves D * sum_lanes D * cap * W * 4 bytes (host
@@ -586,40 +1037,58 @@ class D3Pipeline:
         query wire lane (layer 0's round B) d_out + 10. The training plane
         adds two DENSE lanes a layer (hop A: repl_cap rows of dagg, hop B:
         node_cap rows of source gradients a part; route_cap does not apply
-        to gradient lanes)."""
-        if self.mesh is None or n_dev <= 1:
+        to gradient lanes).
+
+        On a 2-D mesh the data-axis exchange runs once per ROUND per stage
+        row, the query wire rides round 0 on every stage, and the stage
+        axis adds its own wires, priced as the reference prices them: one
+        [C_buf, W_fb] slot a round a rank (stage_shift) and the final
+        round's gather feeding the replicated sinks (S - 1 foreign slots
+        a rank); with training, the per-round stage gather of the layer
+        caches (feat, agg, agg_cnt)."""
+        if self.mesh is None:
             return 0
         cfg = self.cfg
         p_loc = cfg.n_parts // n_dev
-        lanes = []
-        for li in range(len(self.layers)):
-            lanes.append((p_loc * cfg.repl_cap, dims[li] + 5))
-            lanes.append((cfg.edge_tick_cap + p_loc * cfg.edge_cap,
-                          dims[li] + 5))
-        if cfg.query_cap > 0:
-            lanes.append((p_loc * cfg.query_cap, wire_width(dims[-1])))
-        total = n_dev * sum(n_dev * self.router.lane_cap(c) * w * 4
-                            for c, w in lanes)
-        if self.train_cfg is not None:
+        lanes = self._wire_lane_list(dims, n_dev, n_stages)
+        total = n_stages * n_dev * sum(n_dev * self._lane_cap(c) * w * 4
+                                       for c, w in lanes)
+        if n_stages > 1:
+            C_buf, W_fb = self._ring_caps
+            slot = C_buf * W_fb * 4
+            total += n_stages * n_dev * self._n_rounds * slot
+            total += n_stages * n_dev * (n_stages - 1) * slot
+            if self.train_cfg is not None:
+                d = dims[0]
+                if n_dev > 1:
+                    total += (n_stages * n_dev * len(self.layers) * n_dev
+                              * (p_loc * cfg.repl_cap + p_loc * cfg.node_cap)
+                              * (d + 5) * 4)
+                total += (n_stages * n_dev * (n_stages - 1) * self._n_rounds
+                          * p_loc * cfg.node_cap * (2 * d + 1) * 4)
+        elif self.train_cfg is not None and n_dev > 1:
             total += n_dev * sum(
                 n_dev * (p_loc * cfg.repl_cap + p_loc * cfg.node_cap)
                 * (dims[li] + 5) * 4 for li in range(len(self.layers)))
         return total
 
     def _stats_to_host(self, stats_all, *extra, answers=None, occ=None):
-        """Per-layer TickStats (+ extra 0-d int64 tensors, + the answer
+        """Per-round TickStats (+ extra 0-d int64 tensors, + the answer
         rows of one or T ticks, + the telemetry occupancy rows of one or T
-        ticks) to the host in ONE device-to-host copy; on a mesh the
-        ranks' busy vectors and answers are gathered first (one
-        all_gather). answers: a list of per-tick AnswerBatches; they ride
-        the copy packed as f32 wire rows (`dist/wire.py`, ints exact below
-        2**24) whose bits fill int64 words. occ: a list of per-tick int64
-        occupancy rows (already reduced over the ranks).
-        Returns (list of host TickStats, extra ints, host AnswerBatch
-        rows tick by tick then rank by rank or None, [T, C] numpy
-        occupancy rows or None)."""
-        L = len(stats_all)
-        P = stats_all[0].busy.shape[0]
+        ticks) to the host in ONE device-to-host copy; on a mesh every
+        rank's copy is gathered first (one all_gather over the mesh).
+        stats_all holds one entry a layer on a 1-D mesh, one a round on a
+        2-D mesh (`_unstack_stats` puts the layers back together).
+        answers: a list of per-tick AnswerBatches; they ride the copy
+        packed as f32 wire rows (`dist/wire.py`, ints exact below 2**24)
+        whose bits fill int64 words; on a 2-D mesh every stage answers
+        alike and stage 0's rows are read. occ: a list of per-tick int64
+        occupancy rows (already reduced over the mesh). Extras are read
+        from rank 0 (reduced already).
+        Returns (list of host TickStats a layer, extra ints, host
+        AnswerBatch rows tick by tick then rank by rank or None, [T, C]
+        numpy occupancy rows or None)."""
+        nR = len(stats_all)
         parts = [torch.stack([getattr(s, f) for f in SCALAR_FIELDS])
                  for s in stats_all] + [s.busy for s in stats_all]
         if extra:
@@ -636,24 +1105,20 @@ class D3Pipeline:
                 words = torch.cat([words, words.new_zeros(1)])
             parts.append(words.view(torch.int64))
         flat = torch.cat(parts)
-        F = len(SCALAR_FIELDS)
         if self.mesh is None:
             rows = flat.cpu()[None]
         else:
-            # scalars and extras are reduced already: any rank's copy
             rows = self.mesh.all_gather(flat).cpu()
-        out = []
-        for li in range(L):
-            sc = rows[0, li * F:(li + 1) * F]
-            busy = rows[:, L * F + li * P: L * F + (li + 1) * P].reshape(-1)
-            out.append(TickStats(**dict(zip(SCALAR_FIELDS, sc)), busy=busy))
-        host_extra = [int(v) for v in rows[0, L * (F + P):n_int - n_occ]]
+        out = self._unstack_stats(rows, nR)
+        F, P = len(SCALAR_FIELDS), stats_all[0].busy.shape[0]
+        host_extra = [int(v) for v in rows[0, nR * (F + P):n_int - n_occ]]
         host_occ = (rows[0, n_int - n_occ:n_int].numpy().reshape(
             len(occ), -1) if occ else None)
         if not answers:
             return out, host_extra, None, host_occ
         proto = answers[0]
         A, W = proto.valid.shape[0], lane_width(proto)
+        rows = rows[:self._n_data]                  # stage 0's row
         buf = rows[:, n_int:].contiguous().view(torch.float32)[:, :n_words]
         # [ranks, T, A, W] -> tick by tick, then rank by rank
         buf = buf.reshape(rows.shape[0], len(answers), A, W).transpose(0, 1)
@@ -851,6 +1316,137 @@ class D3Pipeline:
         return (topo, new_states, sink, sink_seen, queries, stats_all,
                 answers, qstats, occ)
 
+    @torch.no_grad()
+    def _tick_program_2d(self, topo, states, sink, sink_seen, queries, ring,
+                         fb, eb, rb, vb, qb, lb, now, wconf):
+        """ONE micro-tick of the LAYER-PIPELINED program on this rank of a
+        2-D ("stage", "data") mesh (the reference's `_tick_program_2d`).
+
+        Layer l = r * S + s lives on stage s and runs at round r; each
+        tick every stage runs its R = L // S rounds one hop behind: round
+        r's inbox is what the previous stage shifted into ring slot r
+        last tick, except on stage 0, whose round 0 reads the host
+        feature inbox and whose round r > 0 reads slot r - 1 (the wrap
+        hop from stage S - 1's round r - 1). Every round's outbox is
+        `stage_shift`ed right after its compute. The final layer's rows
+        reach the stage-replicated sink in the same tick through
+        `stage_last`; the wrap copy stage 0 receives in slot R - 1 has its
+        valid column zeroed (it is never a round input).
+
+        Topology batches apply identically on every stage; the query
+        plane runs identically per stage (its wire lane rides round 0's
+        exchange on every stage, so QueryState stays stage-replicated).
+        Per-round stats are reduced over the data axis only; the idle
+        counters (rounds that saw an empty inbox) over both axes. With
+        training on, every stage gathers all rounds' layer caches over the
+        stage axis and runs the same full-L backward, so TrainState stays
+        stage-replicated.
+        Returns (topo, states, sink, sink_seen, queries, ring, per-round
+        stats, idle [R], answers or None, QueryStats or None, occupancy
+        row or None)."""
+        cfg, router = self.cfg, self.router
+        outbox_cap = cfg.capacities().outbox
+        S, R = self.n_stages, self._n_rounds
+        s = router.stage_index()
+        part0 = router.part0()
+        topo = st.apply_vertex_batch(topo, vb, part0)
+        topo = st.apply_repl_batch(topo, rb, part0)
+        topo = st.apply_edge_batch(topo, eb, part0)
+        batch_work = (fb.valid.any() | eb.valid.any() | rb.valid.any()
+                      if cfg.query_cap else None)
+        C_buf = ring.shape[1]
+        vcol = field_col(fb, "valid")
+        occ0 = (ring[..., vcol] > 0.5).sum()
+        queries, wire, adm_drop, n_adm = query_admit_stage(
+            queries, qb, states, sink, sink_seen, router, batch_work,
+            extra_work=occ0)
+        staged = self._staged_params()
+        wire_d = None
+        new_states, stats_all, new_slots, idle = [], [], [], []
+        out_rows = None
+        for r in range(R):
+            if s == 0:
+                rows_in = pad_lane(pack_lane(fb), C_buf) if r == 0 \
+                    else ring[r - 1]
+            else:
+                rows_in = ring[r]
+            inbox = unpack_lane(rows_in, fb)
+            idle.append(~inbox.valid.any())
+            extra = ((wire, (queries.wire_defer, queries.wire_defer_ok))
+                     if r == 0 and wire is not None else None)
+            layer = StagedActLayer(self.layers[r * S + s], staged[f"r{r}"])
+            ls, outbox, stats, extra_out = layer_tick_body(
+                layer, topo, states[r], inbox, eb, rb, now, wconf,
+                outbox_cap, router, self.delivery, extra_lane=extra,
+                delta_eps=cfg.delta_eps, telemetry=cfg.telemetry)
+            if extra_out is not None:
+                wire_d, (wdb, wdo) = extra_out
+                queries = replace(queries, wire_defer=wdb, wire_defer_ok=wdo)
+            new_states.append(ls)
+            stats_all.append(stats)
+            out_rows = pad_lane(pack_lane(outbox), C_buf)
+            # post the hop now, right after the round's compute
+            new_slots.append(router.stage_shift(out_rows))
+        # same-tick sink feed: the LAST stage's final-round outbox, on
+        # every stage's replica of the sink
+        final_fb = unpack_lane(router.stage_last(out_rows), fb)
+        sink, sink_seen = _sink_update_body(sink, sink_seen, final_fb, part0)
+        if s == 0:
+            # the wrap copy of the final layer's outbox (materialized above)
+            new_slots[R - 1] = new_slots[R - 1].clone()
+            new_slots[R - 1][:, vcol] = 0.0
+        new_ring = torch.stack(new_slots)
+        occ1 = (new_ring[..., vcol] > 0.5).sum()
+        queries, answers, qstats = query_answer_stage(
+            queries, wire_d, qb, adm_drop, n_adm, new_states, sink,
+            sink_seen, now, stats_all, router, extra_work=occ1)
+        if self.train_cfg is not None:
+            ts = self.train_state
+            L = R * S
+            moved = router.psum_stage(sum(moved_msgs(x) for x in stats_all))
+            caches = [None] * L
+            for r in range(R):
+                ls = new_states[r]
+                d, da = ls.feat.shape[-1], ls.agg.shape[-1]
+                g = router.stage_gather(torch.cat(
+                    [ls.feat, ls.agg, ls.agg_cnt[..., None]], dim=-1))
+                for si in range(S):
+                    caches[r * S + si] = (g[si, ..., :d],
+                                          g[si, ..., d:d + da],
+                                          g[si, ..., d + da])
+            self.train_state = train_stage(
+                self.train_cfg, self._head,
+                [(StagedActLayer(self.layers[l]),
+                  {"p": ts.params[f"l{l}"], "act": self._act_leaves[l]},
+                  True)
+                 for l in range(L)], caches, topo, sink, sink_seen, ts, lb,
+                final_fb, now, moved, router, part0, self.delivery)
+            self._sync_params_from_train()
+        idle_v = router.psum_vote(torch.stack(idle).to(torch.int64))
+        occ = (_occ_row(stats_all, qstats, self.train_state, router,
+                        stage=True) if cfg.telemetry else None)
+        return (topo, new_states, sink, sink_seen, queries, new_ring,
+                stats_all, idle_v, answers, qstats, occ)
+
+    def _run_program(self, fb, eb, rb, vb, qb, lb, now, wconf):
+        """Run one tick's device program (the 1-D one, or the pipelined
+        one on a 2-D mesh) on the pipeline's state. Returns (stats, one a
+        layer or a round; answers; QueryStats; occupancy row; the idle
+        counters [R] on a 2-D mesh, else None)."""
+        if self.n_stages > 1:
+            (self.topo, self.states, self.sink, self.sink_seen, self.queries,
+             self.stage_ring, stats_all, idle, answers, qstats,
+             occ) = self._tick_program_2d(
+                self.topo, self.states, self.sink, self.sink_seen,
+                self.queries, self.stage_ring, fb, eb, rb, vb, qb, lb, now,
+                wconf)
+            return stats_all, answers, qstats, occ, idle
+        (self.topo, self.states, self.sink, self.sink_seen, self.queries,
+         stats_all, answers, qstats, occ) = self._tick_program(
+            self.topo, self.states, self.sink, self.sink_seen, self.queries,
+            fb, eb, rb, vb, qb, lb, now, wconf)
+        return stats_all, answers, qstats, occ, None
+
     def _sync_params_from_train(self) -> None:
         """Mirror the live trained parameters into the model's modules, so
         the next tick's forward (and every host reader) sees the online
@@ -879,14 +1475,6 @@ class D3Pipeline:
             ts.steps.double()]).cpu().tolist()
         return {"loss": loss, "grad_norm": gn, "steps": int(steps)}
 
-    def layer_state(self, l: int):
-        """Layer l's LayerState (the 1-D engine keeps one per layer)."""
-        return self.states[l]
-
-    def set_layer_state(self, l: int, ls) -> None:
-        """Write layer l's LayerState back (the coordinator's rebuild)."""
-        self.states[l] = ls
-
     def tick(self, edges: Optional[np.ndarray] = None,
              feats: Optional[list] = None, window=None,
              queries: Optional[list] = None,
@@ -901,6 +1489,7 @@ class D3Pipeline:
         is read with `train_stats()`.
         Returns the per-layer TickStats, read back to the host (with the
         tick's answers and query counters, in one read)."""
+        self._need_active()
         wconf = window or self.cfg.window
         t0 = time.perf_counter()
         eb, rb, vb, fb, qb, lb = self._build_batches(
@@ -908,16 +1497,18 @@ class D3Pipeline:
         host_s = time.perf_counter() - t0
         now = torch.tensor(self.now, dtype=torch.int64, device=self.device)
         tick0 = self.now
-        (self.topo, self.states, self.sink, self.sink_seen, self.queries,
-         stats_all, answers, qstats, occ) = self._tick_program(
-            self.topo, self.states, self.sink, self.sink_seen, self.queries,
+        stats_all, answers, qstats, occ, idle = self._run_program(
             fb, eb, rb, vb, qb, lb, now, wconf)
         self.now += 1
         on = answers is not None
         qx = [getattr(qstats, f) for f in QSTAT_FIELDS] if on else []
-        host_stats, host_q, host_ans, host_occ = self._stats_to_host(
-            stats_all, *qx, answers=[answers] if on else None,
+        staged = [idle.sum()] if idle is not None else []
+        host_stats, host_x, host_ans, host_occ = self._stats_to_host(
+            stats_all, *staged, *qx, answers=[answers] if on else None,
             occ=[occ] if occ is not None else None)
+        if idle is not None:
+            self.metrics.stage_idle += host_x.pop(0)
+        host_q = host_x
         self._harvest_answers(host_ans)
         self.metrics.host_seconds += host_s
         dt = time.perf_counter() - t0
@@ -1056,8 +1647,12 @@ class D3Pipeline:
         override = win.WindowConfig(kind=win.STREAMING) if drain else None
         for i in range(max_ticks):
             stats = self.tick(window=override)
+            # rows in flight between stages are pending work the layer
+            # states do not show (none on a 1-D mesh)
             if term.observe(self.states, stats, self.router,
-                            queries=self.queries):
+                            queries=self.queries,
+                            extra_work=(self._ring_occupancy()
+                                        if self.n_stages > 1 else None)):
                 return i + 1
         raise RuntimeError("pipeline failed to terminate "
                            f"within {max_ticks} flush ticks")
@@ -1079,6 +1674,7 @@ class D3Pipeline:
         The same read carries the T ticks' answers and the summed query
         counters.
         """
+        self._need_active()
         wconf = window or self.cfg.window
         t0 = time.perf_counter()
         edge_chunks = list(edge_chunks) if edge_chunks is not None else []
@@ -1115,22 +1711,26 @@ class D3Pipeline:
         now = torch.full((), self.now, dtype=torch.int64, device=dev)
         quiet = torch.full((), quiet0, dtype=torch.int64, device=dev)
         ssum = [zero_stats(self.states[0].feat.shape[0], dev)
-                for _ in self.layers]
+                for _ in self.states]
         qsum = zero_query_stats(dev)
+        isum = torch.zeros((), dtype=torch.int64, device=dev)
         answers, occ = [], []
         tick0 = self.now
         for t in range(T):
-            (self.topo, self.states, self.sink, self.sink_seen, self.queries,
-             stats_t, ans_t, qstats_t, occ_t) = self._tick_program(
-                self.topo, self.states, self.sink, self.sink_seen,
-                self.queries, ev.batch_at(fb, t), ev.batch_at(eb, t),
-                ev.batch_at(rb, t), ev.batch_at(vb, t),
+            stats_t, ans_t, qstats_t, occ_t, idle_t = self._run_program(
+                ev.batch_at(fb, t), ev.batch_at(eb, t), ev.batch_at(rb, t),
+                ev.batch_at(vb, t),
                 ev.batch_at(qb, t) if qb is not None else self._empty_queries,
                 ev.batch_at(lb, t) if lb is not None else self._empty_labels,
                 now, wconf)
+            # rows still in flight between stages are pending work
             quiet = quiet_update(quiet, self.states, stats_t, self.router,
-                                 queries=self.queries)
+                                 queries=self.queries,
+                                 extra_work=(self._ring_occupancy()
+                                             if idle_t is not None else None))
             ssum = [add_stats(a, b) for a, b in zip(ssum, stats_t)]
+            if idle_t is not None:
+                isum = isum + idle_t.sum()
             if ans_t is not None:
                 answers.append(ans_t)
                 qsum = add_query_stats(qsum, qstats_t)
@@ -1139,13 +1739,16 @@ class D3Pipeline:
             now = now + 1
         self.now += T
         # the one host sync of the super-tick: summed stats + quiet counter
-        # (+ the summed query counters and the T ticks' answers, + the T
-        # ticks' occupancy rows)
+        # (+ the bubble count on a 2-D mesh, + the summed query counters
+        # and the T ticks' answers, + the T ticks' occupancy rows)
+        staged_x = [isum] if self.n_stages > 1 else []
         qx = [getattr(qsum, f) for f in QSTAT_FIELDS] if answers else []
         (host_stats, (quiet_ticks, *host_q), host_ans,
-         host_occ) = self._stats_to_host(ssum, quiet, *qx,
+         host_occ) = self._stats_to_host(ssum, quiet, *staged_x, *qx,
                                          answers=answers or None,
                                          occ=occ or None)
+        if staged_x:
+            self.metrics.stage_idle += host_q.pop(0)
         self._harvest_answers(host_ans)
         dt = time.perf_counter() - t0
         self._accumulate(host_stats, dt, ticks=T, qstats=host_q,
@@ -1192,7 +1795,9 @@ class D3Pipeline:
         requested rows are gathered on the device and copied back; vids
         never seen, or whose master never materialized, are absent. On a
         mesh every rank calls it with the same vids: each reads the rows
-        of its parts and one all_gather gives every rank all of them."""
+        of its parts and one all_gather over its stage row gives every
+        rank all of them."""
+        self._need_active()
         vids = np.asarray(list(vids) if not isinstance(vids, np.ndarray)
                           else vids, np.int64).reshape(-1)
         t = self.part.t
@@ -1213,11 +1818,21 @@ class D3Pipeline:
             lp = torch.where(own, lp, 0)
             rows = torch.cat([self.sink[lp, s],
                               (self.sink_seen[lp, s] & own)[:, None]], 1)
-            got = self.mesh.all_gather(rows)[
+            got = self.router.data.all_gather(rows)[
                 torch.div(p, p_loc, rounding_mode="floor"),
                 torch.arange(len(vids), device=self.device)].cpu()
             vecs, seen = got[:, :-1].numpy(), got[:, -1].numpy() > 0.5
         return {int(v): vecs[i] for i, v in enumerate(vids) if seen[i]}
+
+    def sink_global(self) -> torch.Tensor:
+        """The whole [n_parts, node_cap, d] sink in the reference's global
+        layout: on a mesh, one all_gather over the rank's stage row (every
+        stage holds the same sink); collective."""
+        self._need_active()
+        if self.mesh is None:
+            return self.sink
+        return self.router.data.all_gather(self.sink).reshape(
+            (-1,) + tuple(self.sink.shape[1:]))
 
     def embeddings(self) -> dict:
         """Materialized final-layer embeddings {vid: vector} (masters);

@@ -297,7 +297,9 @@ def train_stage(tcfg: TrainConfig, head, layers_bw, layer_feats, topo,
                 router, part0, delivery) -> TrainState:
     """The fifth plane: one windowed online step at the end of a tick.
 
-    layers_bw   : per layer (layer, its live params tree).
+    layers_bw   : per layer (layer, its live params tree[, take_p]):
+                  take_p picks the "p" sub-tree of the param grads (the
+                  2-D pipeline wraps params as {"p": ..., "act": ...}).
     layer_feats : per layer (feat, agg, agg_cnt) caches of the local block.
     lb          : the tick's LabelBatch (vids unique within it).
     sink_fb     : the tick's final feature batch (rows whose sink entry
@@ -345,10 +347,12 @@ def train_stage(tcfg: TrainConfig, head, layers_bw, layer_feats, topo,
     # (5) layered backward through the live caches
     part_grads, local = {}, {}
     for li in reversed(range(len(layers_bw))):
-        layer, lp = layers_bw[li]
+        layer, lp, *take_p = layers_bw[li]
         feat, agg, cntv = layer_feats[li]
         dparams, g = backward_layer_routed(layer, lp, topo, feat, agg,
                                            cntv, g, router, part0, delivery)
+        if take_p and take_p[0]:
+            dparams = dparams["p"]
         part_grads[f"l{li}"] = dparams
         local[f"l{li}"] = tree_map(lambda a: torch.sum(a, 0), dparams)
     summed = _psum_tree(router, {"loss": lsum, "head": d_hp, **local})

@@ -1,16 +1,27 @@
 """The routing plane: transport of part-addressed record batches.
 
 Counterpart of `repro/dist/router.py` (RouteReceipt, zero_receipt,
-add_receipts, LocalRouter and the 1-D MeshRouter):
+add_receipts, LocalRouter and MeshRouter):
 
   LocalRouter : one device owns every part; transport is the identity.
-  MeshRouter  : parts are block-sharded over the ranks of a 1-D
+  MeshRouter  : parts are block-sharded over the data axis of a
                 `dist/mesh.py:StreamMesh`; each `route_lanes` call
                 compacts the records of all its lanes by destination rank
                 and exchanges them with ONE packed all_to_all
-                (`dist/wire.py`). A lane's step after the plan (pack,
-                place, ring refill) is one `kernels/route_pack` route_lane
-                call that reads the lane's fields in place.
+                (`dist/wire.py`) inside the rank's stage row. A lane's
+                step after the plan (pack, place, ring refill) is one
+                `kernels/route_pack` route_lane call that reads the
+                lane's fields in place.
+
+On a 2-D ("stage", "data") mesh the router also carries the stage axis:
+`stage_shift` (the circular hand-off s -> s + 1 within a data column),
+`stage_last`, `stage_gather`, `psum_stage` / `pmax_stage` and the
+quiescence vote `psum_vote` over both axes. `psum`, `pmax`, `part0` and
+`route_lanes` stay on the data axis. On a 1-D mesh (and the LocalRouter)
+every stage method degrades as the reference's does: the stage
+reductions are the identity, `stage_gather` adds a [1] axis and
+`psum_vote` is `psum`. Each stage collective counts under its own kind in
+`StreamMesh.calls`.
 
 Capped exchange: a lane's per-destination send bucket holds
 `lane_cap(C)` rows (route_cap, default None = the lane's capacity C, the
@@ -27,12 +38,12 @@ With the telemetry plane on (`MeshRouter(telemetry=True)`), a receipt's
 before the cap (ring rows included): the route_cap at which the call
 would defer nothing. It is read off the plan's destination run starts,
 so it costs no pass over the rows. Off, and under the LocalRouter, it is
-0, as in JAX. The stage-axis methods of the 2-D mesh are not ported
-(ROADMAP Queue 1 item 13).
+0, as in JAX.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Optional
 
 import torch
@@ -74,6 +85,7 @@ class LocalRouter:
     n_parts: int
 
     n_devices = 1
+    n_stages = 1
 
     @property
     def n_local_parts(self) -> int:
@@ -97,12 +109,26 @@ class LocalRouter:
     def pmax(self, x):
         return x
 
+    def stage_index(self) -> int:
+        return 0
+
+    def psum_stage(self, x):
+        return x
+
+    def pmax_stage(self, x):
+        return x
+
+    def stage_gather(self, x):
+        """All stages' copies of `x`, leading [S] axis ([1] here)."""
+        return x[None]
+
 
 @dataclass(frozen=True)
 class MeshRouter:
-    """Sharded router over a 1-D StreamMesh: rank r owns parts
-    [r * Pl, (r + 1) * Pl), Pl = n_parts // mesh.size (validated by
-    PipelineConfig.validate).
+    """Sharded router over a StreamMesh: data shard d owns parts
+    [d * Pl, (d + 1) * Pl), Pl = n_parts // mesh.n_data (validated by
+    PipelineConfig.validate); on a 2-D mesh every stage row holds the
+    same blocks.
 
     route_cap   : per-destination send-bucket rows (None = each lane's
                   full capacity, the dense never-overflow exchange).
@@ -118,28 +144,85 @@ class MeshRouter:
     pack_backend: str = "kernel"
     telemetry: bool = False
 
+    @cached_property
+    def data(self):
+        """The data axis: this rank's stage row (the mesh itself on 1-D)."""
+        return self.mesh if self.n_stages == 1 else self.mesh.data_view()
+
+    @cached_property
+    def stage(self):
+        """The stage axis: this rank's data column (2-D only)."""
+        return self.mesh.stage_view()
+
+    @property
+    def n_stages(self) -> int:
+        return self.mesh.n_stages
+
     @property
     def n_devices(self) -> int:
-        return self.mesh.size
+        """Ranks on the DATA axis (parts shard within a stage row)."""
+        return self.mesh.size // self.n_stages
 
     @property
     def n_local_parts(self) -> int:
-        return self.n_parts // self.mesh.size
+        return self.n_parts // self.n_devices
 
     def part0(self) -> int:
-        return self.mesh.rank * self.n_local_parts
+        return (self.mesh.rank % self.n_devices) * self.n_local_parts
 
     def psum(self, x):
-        return self.mesh.all_reduce(x)
+        """Sum over the data axis."""
+        return self.data.all_reduce(x)
 
     def psum_vote(self, x):
-        """A quiescence / silence vote over every rank (the 1-D mesh's
-        one axis: `psum`)."""
-        return self.psum(x)
+        """A quiescence / silence vote over every rank: both axes on a
+        2-D mesh, `psum` on a 1-D one."""
+        if self.n_stages == 1:
+            return self.psum(x)
+        return self.mesh.all_reduce(x, kind="psum_vote")
 
     def pmax(self, x):
-        """Elementwise maximum over the ranks (the telemetry gauges)."""
-        return self.mesh.all_reduce(x, op=dist.ReduceOp.MAX)
+        """Elementwise maximum over the data axis (the telemetry gauges)."""
+        return self.data.all_reduce(x, op=dist.ReduceOp.MAX)
+
+    # ---- the stage axis (a 2-D mesh; the identity forms on 1-D)
+    def stage_index(self) -> int:
+        return self.mesh.rank // self.n_devices
+
+    def psum_stage(self, x):
+        """Sum over the stage axis only."""
+        if self.n_stages == 1:
+            return x
+        return self.stage.all_reduce(x, kind="psum_stage")
+
+    def pmax_stage(self, x):
+        """Maximum over the stage axis only: peak gauges cross the stage
+        axis with max, never sum."""
+        if self.n_stages == 1:
+            return x
+        return self.stage.all_reduce(x, op=dist.ReduceOp.MAX,
+                                     kind="pmax_stage")
+
+    def stage_shift(self, rows):
+        """Post packed rows to the next stage: stage s -> s + 1 (mod S)
+        within the data column. Called right after each round's compute,
+        as in the reference."""
+        return self.stage.shift(rows, kind="stage_shift")
+
+    def stage_last(self, rows):
+        """Every stage's copy of the LAST stage's rows: the final layer
+        lives on stage S - 1, and its outbox must reach every stage's
+        replica of the sink in the same tick."""
+        return self.stage.all_gather(rows, kind="stage_last")[
+            self.n_stages - 1]
+
+    def stage_gather(self, x):
+        """Every stage's copy of `x`, leading [S] axis: the training plane
+        gathers all rounds' layer caches so each stage row runs the full
+        (stage-replicated) layered backward."""
+        if self.n_stages == 1:
+            return x[None]
+        return self.stage.all_gather(x, kind="stage_gather")
 
     def lane_cap(self, capacity: int) -> int:
         """Resolved per-destination bucket rows for a lane of the given
@@ -204,7 +287,7 @@ class MeshRouter:
             counts.append(torch.stack([ship_s.sum(), n_defer,
                                        n_left - n_defer]))
         buf = sends[0] if len(sends) == 1 else torch.cat(sends, dim=1)
-        got = self.mesh.all_to_all(buf)                        # [D, X]
+        got = self.data.all_to_all(buf)                        # [D, X]
         outs, off = [], 0
         for proto, cap, W in metas:
             blk = got[:, off:off + cap * W].reshape(D * cap, W)

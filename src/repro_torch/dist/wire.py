@@ -1,7 +1,7 @@
 """Wire format of the routing plane: one packed f32 buffer per lane.
 
 Counterpart of `repro/dist/wire.py` (lane_width, field_col, pack_lane,
-unpack_lane, init_defer). A lane's fields ride ONE [C, W] float32 buffer,
+unpack_lane, pad_lane, init_defer). A lane's fields ride ONE [C, W] float32 buffer,
 so a whole lane crosses the mesh in one collective, and the same packed
 rows are what the lane's defer ring carries across ticks.
 
@@ -87,6 +87,20 @@ def unpack_lane(buf: torch.Tensor, proto):
         raise ValueError(f"wire width mismatch: proto wants "
                          f"{lane_width(proto)}, buffer has {buf.shape[1]}")
     return type(proto)(**out)
+
+
+def pad_lane(rows: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Zero-pad packed wire rows [C, W] up to [capacity, W]. Zero rows
+    unpack as invalid records, so padding is inert at delivery. The
+    inter-stage ring gives the host feature inbox (feat_cap rows) and a
+    layer's outbox (P_loc * cap_pp rows) one slot shape this way."""
+    C, W = rows.shape
+    if C > capacity:
+        raise ValueError(f"pad_lane: {C} rows exceed the slot capacity "
+                         f"{capacity}")
+    if C == capacity:
+        return rows
+    return torch.cat([rows, rows.new_zeros((capacity - C, W))])
 
 
 def init_defer(rows: int, width: int, device):

@@ -14,10 +14,18 @@ drills run in the tests rather than by hand:
     (shed + bounded retry counters) instead of stalling or silently
     dropping.
 
-Both return the reference's report dicts for the same config. The other
-two drills, fail-stop shard loss (`scenario_failstop`) and the fail-slow
-shard (`scenario_slow_shard`), need the survivor mesh and the live
-reshard (ROADMAP Queue 1 item 13) and raise NotImplementedError.
+  * fail-stop shard loss (`scenario_failstop`): consistent-cut
+    checkpoints, then shards are lost mid-stream; the last cut restores,
+    the carry reshards onto the survivor mesh, the chunks since the cut
+    replay, and the result must equal an uninterrupted run;
+  * fail-slow shard (`scenario_slow_shard`): a synthetic wall schedule
+    flags a slow shard and `mitigate_stragglers()` reshards away from it.
+
+Each returns the reference's report dict for the same config. The two
+mesh drills are collective: every process of a world of
+n_stages * d_old ranks (`launch/mesh.py:spawn_stream_mesh`) calls them;
+the report is complete on the ranks that survive (rank 0 always does),
+and None on the ranks the drill removes.
 """
 from __future__ import annotations
 
@@ -30,7 +38,9 @@ import numpy as np
 from repro_torch.core import windowing as win
 from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
 from repro_torch.ft.checkpoint import CheckpointCorruptError, CheckpointManager
+from repro_torch.ft.elastic import rescale_parts
 from repro_torch.graph.sage import GraphSAGE
+from repro_torch.launch.mesh import make_stream_mesh, survivor_mesh
 from repro_torch.serve.session import ServeSession
 
 
@@ -122,12 +132,78 @@ def _advance(session: ServeSession, chunk, feats):
 
 # ------------------------------------------------------------- scenarios
 def scenario_failstop(cfg: ChaosConfig, ckpt_dir, d_old: int = 4,
-                      d_new: int = 2, n_stages: int = 1) -> dict:
-    """Fail-stop shard loss mid-stream: recovery reshards the restored
-    carry onto the survivor mesh, which is not ported."""
-    raise NotImplementedError(
-        "scenario_failstop needs survivor_mesh and the live reshard, not "
-        "ported to repro_torch yet (ROADMAP Queue 1 item 13)")
+                      d_new: int = 2, n_stages: int = 1,
+                      device=None) -> dict:
+    """Hub-heavy spike + fail-stop shard loss mid-stream.
+
+    Oracle first: the SAME stream, queries and driver, uninterrupted on
+    the d_old grid. Then the chaos run: consistent-cut checkpoints every
+    `checkpoint_every` chunks; before chunk `fail_at_chunk` the shards in
+    `lose_shards` fail-stop — the session degrades, the last checkpoint
+    restores, the carry reshards onto the survivor mesh, the chunks since
+    the cut REPLAY, and the stream resumes. Returns both runs' sinks
+    (global [P, N, d] numpy), answers and drop counters for the caller to
+    compare. Collective over a world of n_stages * d_old processes;
+    `device` as make_stream_mesh takes it. The lost ranks return None."""
+    edges, feats, hubs = hub_heavy_stream(cfg)
+    chunks = _chunks(cfg, edges)
+    fail_at = min(cfg.fail_at_chunk, len(chunks) - 1)
+    # consistent queries submitted right before the cut preceding the
+    # failure: held on the device, checkpointed, restored, answered after
+    # recovery
+    cut = (fail_at // cfg.checkpoint_every) * cfg.checkpoint_every
+    q_vids = [int(h) for h in hubs]
+
+    def _run(fail: bool):
+        pipe = build_pipeline(cfg, make_stream_mesh(device, stage=n_stages),
+                              n_stages=n_stages)
+        session = ServeSession(pipe, driver=cfg.driver, max_retries=2)
+        mgr = (CheckpointManager(Path(ckpt_dir) / "chaos", keep=3)
+               if fail else None)
+        qids = None
+        restored_step = None
+        for i, chunk in enumerate(chunks):
+            if i == cut - 1 and cut > 0:
+                qids = session.submit_embed(q_vids, consistent=True)
+            if fail and i == fail_at:
+                # ---- fail-stop: the shards in lose_shards are gone
+                session.degrade("failstop drill")
+                surv = survivor_mesh(pipe.mesh, cfg.lose_shards,
+                                     n_data=d_new)
+                restored_step = mgr.restore_pipeline(pipe)
+                rescale_parts(d_old, d_new, cfg.n_parts)
+                pipe.reshard(surv)
+                if not pipe.active:
+                    return None
+                for j in range(restored_step, i):   # replay since cut
+                    _advance(session, chunks[j], feats)
+                session.restore_normal()
+            _advance(session, chunk, feats)
+            if fail and (i + 1) % cfg.checkpoint_every == 0 and i < fail_at:
+                mgr.save_pipeline(i + 1, pipe)
+        session.flush()
+        return (pipe.sink_global().cpu().numpy(), pipe.metrics, session,
+                qids, restored_step)
+
+    o_sink, o_met, o_sess, o_qids, _ = _run(fail=False)
+    chaos = _run(fail=True)
+    if chaos is None:
+        return None
+    c_sink, c_met, c_sess, c_qids, restored_step = chaos
+    o_ans = {q: o_sess.answers[q] for q in (o_qids or [])
+             if q in o_sess.answers}
+    c_ans = {q: c_sess.answers[q] for q in (c_qids or [])
+             if q in c_sess.answers}
+    return {
+        "oracle_sink": o_sink, "chaos_sink": c_sink,
+        "oracle_answers": o_ans, "chaos_answers": c_ans,
+        "restored_step": restored_step,
+        "dropped": int(c_met.dropped),
+        "route_dropped": int(c_met.route_dropped),
+        "oracle_dropped": int(o_met.dropped),
+        "stats": c_sess.latency_stats(),
+        "n_chunks": len(chunks), "cut": cut, "fail_at": fail_at,
+    }
 
 
 def scenario_truncated_checkpoint(cfg: ChaosConfig, ckpt_dir,
@@ -163,13 +239,60 @@ def scenario_truncated_checkpoint(cfg: ChaosConfig, ckpt_dir,
 
 
 def scenario_slow_shard(cfg: ChaosConfig, d_old: int = 4,
-                        n_stages: int = 1) -> dict:
-    """Fail-slow shard: mitigation reshards away from the slow shard,
-    which is not ported."""
-    raise NotImplementedError(
-        "scenario_slow_shard needs the live reshard of "
-        "mitigate_stragglers, not ported to repro_torch yet (ROADMAP "
-        "Queue 1 item 13)")
+                        n_stages: int = 1, device=None) -> dict:
+    """Deterministic fail-slow: a synthetic wall-time schedule feeds the
+    StragglerMitigator exactly as the live telemetry plane does (tick
+    wall + per-shard busy); once the slow shard's flag is persistent,
+    `mitigate_stragglers()` executes the re-map — a live reshard onto
+    the survivors, with `parts_per_shard()` re-mapped end-to-end.
+    Collective over a world of n_stages * d_old processes; the ranks the
+    reshard removes return None."""
+    edges, feats, _ = hub_heavy_stream(cfg)
+    chunks = _chunks(cfg, edges)
+    mesh = make_stream_mesh(device, stage=n_stages)
+    pipe = build_pipeline(cfg, mesh, n_stages=n_stages, telemetry=True)
+    before = [p.copy() for p in pipe.parts_per_shard()]
+    base_wall = 1.0
+    plan = None
+    mitigated_at = None
+    for i, chunk in enumerate(chunks):
+        if not pipe.active:
+            return None
+        rows = _feat_rows(chunk, feats)
+        if cfg.driver == "tick":
+            pipe.tick(chunk, rows)
+        else:
+            pipe.run_super_tick([chunk], [rows])
+        if plan is None:
+            # deterministic injected walls: the slow shard stretches the
+            # lock-step tick by slow_factor and shows the highest busy.
+            # The live telemetry feed also observes every tick (real
+            # walls never flag, but non-flagged ticks DECAY flags by 1),
+            # so the injection repeats past patience + decay per chunk.
+            busy = np.ones(max(pipe._n_data, 1))
+            busy[cfg.slow_shard] = 2.0
+            if i < 2:
+                pipe.straggler.observe_tick(base_wall, busy)
+            else:
+                slow = base_wall * cfg.slow_factor
+                for _ in range(pipe.straggler.patience + 2):
+                    pipe.straggler.observe_tick(slow, busy)
+            got = pipe.mitigate_stragglers()
+            if got is not None:
+                plan, mitigated_at = got, i
+    if not pipe.active:
+        return None
+    pipe.flush(max_ticks=256)
+    return {
+        "plan": plan, "mitigated_at_chunk": mitigated_at,
+        "parts_before": before,
+        "parts_after": [p.copy() for p in pipe.parts_per_shard()],
+        "n_data_after": pipe._n_data,
+        "dropped": int(pipe.metrics.dropped),
+        "route_dropped": int(pipe.metrics.route_dropped),
+        "sink": pipe.sink_global().cpu().numpy(),
+        "ticks_observed": pipe.straggler.ticks_observed,
+    }
 
 
 def scenario_admission_storm(cfg: ChaosConfig, device=None) -> dict:

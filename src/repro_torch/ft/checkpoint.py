@@ -31,9 +31,17 @@ tree on the caller's thread (one copy of every tensor to the host) before
 the optional writer thread starts (`async_write`, the paper's
 non-blocking snapshots).
 
-On a 1-D mesh every rank calls `save_pipeline` / `restore_pipeline`:
-rank 0 writes the GLOBAL layout, its part-leading tables gathered over
-the process group, and each rank restores its own block of parts.
+On a mesh every rank calls `save_pipeline` / `restore_pipeline`: rank 0
+writes the reference's GLOBAL layout (`gather_tree`: part-leading tables
+gathered over the data axis; on a 2-D mesh the round states stacked over
+the stages, [S, P, ...], and the inter-stage ring as [S, R, D * C, W]),
+and each rank restores its own block (`local_block`). The live reshard
+(`D3Pipeline.reshard`) relays state through the same two functions.
+
+Garbage collection keeps the newest `keep` generations: a collected
+generation loses its blob, its meta and its host-table pair
+(`.aux` / `.auxnames.json`). The reference's `_gc` leaves the pair
+behind, so its directory grows one host-table blob a save.
 """
 from __future__ import annotations
 
@@ -490,8 +498,9 @@ class CheckpointManager:
         ckpts = sorted(self.dir.glob("*.ckpt"))
         for p in ckpts[: -self.keep]:
             p.unlink(missing_ok=True)
-            meta = p.with_suffix("").with_suffix(".meta.json")
-            meta.unlink(missing_ok=True)
+            stem = p.with_suffix("")
+            for suffix in (".meta.json", ".aux", ".auxnames.json"):
+                stem.with_suffix(suffix).unlink(missing_ok=True)
 
     # ----------------------------------------------------------- pipeline
     def save_pipeline(self, step: int, pipe):
@@ -500,7 +509,9 @@ class CheckpointManager:
         states and held point queries live in the query table, so this is
         the Chandy-Lamport-equivalent cut: a restored pipeline answers
         pending `consistent` queries identically. On a mesh every rank
-        calls it; rank 0 writes the gathered global layout."""
+        calls it; rank 0 writes the gathered global layout (with the
+        in-flight rows of a 2-D pipeline's inter-stage ring)."""
+        pipe._need_active()
         t = pipe.part.t
         aux = {
             "degree": t.degree, "replicas": t.replicas, "load": t.load,
@@ -512,14 +523,10 @@ class CheckpointManager:
             "slot_vals": np.asarray(list(t.slot_of.values()), np.int64),
             "now": np.asarray(pipe.now),
         }
-        pairs = tree_flatten(pipeline_tree(pipe))
-        if pipe.mesh is None:
-            leaves = [l for _, l in pairs]
-        else:
-            leaves = [_gather_leaf(pipe.mesh, path, l) for path, l in pairs]
-            if pipe.mesh.rank != 0:
-                return
-        self._save_leaves(step, leaves, _treedef(pairs),
+        pairs = gather_tree(pipe)
+        if pipe.mesh is not None and pipe.mesh.rank != 0:
+            return
+        self._save_leaves(step, [l for _, l in pairs], _treedef(pairs),
                           {"now": pipe.now}, aux)
 
     def restore_pipeline(self, pipe, step: int | None = None) -> int:
@@ -527,7 +534,8 @@ class CheckpointManager:
         same configuration) into `pipe`; returns its step. With training
         on, the live parameters are mirrored back into the model, as each
         tick does. On a mesh every rank calls it and takes its own block
-        of parts."""
+        of parts (and, on a 2-D mesh, its stage's rounds and ring slot)."""
+        pipe._need_active()
         mesh = pipe.mesh
         if mesh is not None:
             self.wait()                     # rank 0's pending write
@@ -535,30 +543,19 @@ class CheckpointManager:
         template = pipeline_tree(pipe)
         pairs = tree_flatten(template)
         leaves, got_step = self._restore_leaves(len(pairs), step)
+        grid = _grid(pipe)
         out = []
         for (path, want), got in zip(pairs, leaves):
-            shape = tuple(want.shape)
-            if mesh is not None and _part_leading(path):
-                n = shape[0] if shape else 0
-                shape = (n * mesh.size,) + shape[1:]
-                if tuple(got.shape) == shape:
-                    got = got[mesh.rank * n:(mesh.rank + 1) * n]
+            kind = _leaf_kind(path)
+            shape = _global_shape(kind, tuple(want.shape), *grid[:2])
+            if mesh is not None and tuple(got.shape) == shape:
+                got = local_block(kind, got, *grid)
             if tuple(got.shape) != tuple(want.shape):
                 raise ValueError(
                     f"checkpoint leaf {'.'.join(map(str, path))} has shape "
                     f"{got.shape}, the pipeline expects {shape}")
             out.append(_as_template(got, want))
-        tree = tree_unflatten(template, out)
-        pipe.topo = tree["topo"]
-        pipe.states = list(tree["layers"])
-        pipe.sink = tree["sink"]
-        pipe.sink_seen = tree["sink_seen"]
-        pipe.queries = tree["queries"]
-        if tree["train"] is not None:
-            pipe.train_state = tree["train"]
-            pipe._sync_params_from_train()
-        else:
-            _load_params(pipe, tree["params"])
+        install_tree(pipe, tree_unflatten(template, out))
         h = self.restore_aux(got_step)
         t = pipe.part.t
         t.degree = np.asarray(h["degree"])
@@ -579,12 +576,12 @@ class CheckpointManager:
 
 def pipeline_tree(pipe) -> dict:
     """The reference's checkpoint tree of a pipeline: {"topo", "layers",
-    "sink", "sink_seen", "queries", "params", "stage_ring", "train"}.
-    `params` is the reference's parameter layout ({"l<i>": {"self":
-    {"w", "b"}, "neigh": {"w"}}, "head": {"w", "b"}}, the inverse of
-    `convert.params_from_numpy`); the 2-D stage ring is not ported, so its
-    entry is None (zero leaves), as on the reference's 1-D mesh; `train`
-    is None without the training plane."""
+    "sink", "sink_seen", "queries", "params", "stage_ring", "train"}, as
+    this rank holds it. `params` is the reference's parameter layout
+    ({"l<i>": {"self": {"w", "b"}, "neigh": {"w"}}, "head": {"w", "b"}},
+    the inverse of `convert.params_from_numpy`); `stage_ring` is None (zero
+    leaves) on a 1-D mesh, as in the reference; `train` is None without
+    the training plane."""
     from repro_torch.graph.sage import linear_tree
     params = dict(pipe.params)
     head = getattr(pipe.model, "head", None)
@@ -592,34 +589,119 @@ def pipeline_tree(pipe) -> dict:
         params["head"] = linear_tree(head)
     return {"topo": pipe.topo, "layers": list(pipe.states),
             "sink": pipe.sink, "sink_seen": pipe.sink_seen,
-            "queries": pipe.queries, "params": params, "stage_ring": None,
-            "train": pipe.train_state}
+            "queries": pipe.queries, "params": params,
+            "stage_ring": pipe.stage_ring, "train": pipe.train_state}
 
 
-def _part_leading(path) -> bool:
-    """Is this pipeline-tree leaf block-sharded over the ranks (leading
-    part axis, or a per-rank defer ring) rather than replicated?"""
+def install_tree(pipe, tree) -> None:
+    """Put a (local) pipeline tree's state into `pipe`; with training on,
+    the live parameters are mirrored into the model, as each tick does."""
+    pipe.topo = tree["topo"]
+    pipe.states = list(tree["layers"])
+    pipe.sink = tree["sink"]
+    pipe.sink_seen = tree["sink_seen"]
+    pipe.queries = tree["queries"]
+    pipe.stage_ring = tree["stage_ring"]
+    if tree["train"] is not None:
+        pipe.train_state = tree["train"]
+        pipe._sync_params_from_train()
+    else:
+        _load_params(pipe, tree["params"])
+
+
+def _leaf_kind(path) -> str:
+    """How a pipeline-tree leaf lies over a mesh: "layer" (a round
+    state's table: sharded over the data axis, one layer per stage),
+    "cms" (a round state's sketch: replicated over the data axis, one per
+    stage), "part" (sharded over the data axis, the same on every stage),
+    "ring" (the inter-stage ring) or "rep" (replicated)."""
     top = path[0]
-    if top in ("topo", "sink", "sink_seen", "queries"):
-        return True
+    if top == "stage_ring":
+        return "ring"
     if top == "layers":
-        return path[-1] != "cms"            # the sketch is replicated
+        return "cms" if path[-1] == "cms" else "layer"
+    if top in ("topo", "sink", "sink_seen", "queries"):
+        return "part"
     if top == "train":
         if path[1] in ("labels", "label_mask", "dirty", "touch",
                        "residual"):
-            return True
-        return path[1] == "opt" and path[2] != "head"
-    return False                            # params: replicated
+            return "part"
+        return "part" if path[1] == "opt" and path[2] != "head" else "rep"
+    return "rep"                            # params: replicated
 
 
-def _gather_leaf(mesh, path, leaf):
-    """The global layout of one leaf: part-leading leaves concatenated
-    over the ranks (one all_gather), replicated ones as they are."""
-    if not _part_leading(path):
+def _grid(pipe):
+    """(S, D, s, d) of this rank (1, 1, 0, 0 without a mesh)."""
+    m = pipe.mesh
+    if m is None:
+        return 1, 1, 0, 0
+    return m.n_stages, m.n_data, m.stage_index, m.data_index
+
+
+def _global_shape(kind, shape, S, D):
+    """The reference's global shape of a local leaf on an S x D grid."""
+    if kind == "rep" or (kind == "cms" and S == 1):
+        return shape
+    if kind == "part" or (kind == "layer" and S == 1):
+        return (shape[0] * D,) + shape[1:]
+    if kind == "layer":
+        return (S, shape[0] * D) + shape[1:]
+    if kind == "cms":
+        return (S,) + shape
+    R, C, W = shape                         # the ring
+    return (S, R, D * C, W)
+
+
+def local_block(kind, got, S, D, s, d):
+    """Rank (s, d)'s block of a global leaf of the given kind."""
+    if kind == "rep" or (kind == "cms" and S == 1):
+        return got
+    if kind == "part" or (kind == "layer" and S == 1):
+        n = got.shape[0] // D
+        return got[d * n:(d + 1) * n]
+    if kind == "layer":
+        n = got.shape[1] // D
+        return got[s, d * n:(d + 1) * n]
+    if kind == "cms":
+        return got[s]
+    C = got.shape[2] // D
+    return got[s, :, d * C:(d + 1) * C]
+
+
+def gather_tree(pipe, kind: str = "all_gather"):
+    """(path, leaf) pairs of `pipeline_tree(pipe)` in the reference's
+    GLOBAL layout, on every rank of the mesh (collective over its members;
+    a pipeline without a mesh is global already). The gathers count under
+    `kind` in the mesh's call table."""
+    pairs = tree_flatten(pipeline_tree(pipe))
+    if pipe.mesh is None:
+        return pairs
+    return [(path, _gather_leaf(pipe.mesh, path, l, kind))
+            for path, l in pairs]
+
+
+def _gather_leaf(mesh, path, leaf, kind_name="all_gather"):
+    """The global layout of one leaf (`_leaf_kind`): one all_gather over
+    the axis it is sharded on, none for replicated leaves."""
+    kind = _leaf_kind(path)
+    S = mesh.n_stages
+    if kind == "rep" or (kind == "cms" and S == 1):
         return leaf
     x = leaf.to(torch.uint8) if leaf.dtype == torch.bool else leaf
-    g = mesh.all_gather(x)
-    g = g.reshape((-1,) + tuple(leaf.shape[1:]))
+    n, rest = (leaf.shape[0] if leaf.ndim else 0), tuple(leaf.shape[1:])
+    if kind == "part" or (kind == "layer" and S == 1):
+        g = mesh.data_view().all_gather(x, kind_name).reshape(
+            (mesh.n_data * n,) + rest)
+    elif kind == "layer":
+        g = mesh.all_gather(x, kind_name).reshape((S, mesh.n_data * n)
+                                                   + rest)
+    elif kind == "cms":
+        g = mesh.stage_view().all_gather(x, kind_name)
+    else:                                   # ring [R, C, W] a rank
+        R, C, W = leaf.shape
+        g = mesh.all_gather(x, kind_name).reshape(
+            S, mesh.n_data, R, C, W).permute(
+            0, 2, 1, 3, 4).reshape(S, R, mesh.n_data * C, W)
     return g.to(torch.bool) if leaf.dtype == torch.bool else g
 
 

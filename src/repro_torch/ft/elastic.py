@@ -18,10 +18,9 @@ content) depends on the device count, as functions on tensors:
     their owning data shard, so rows re-block by part ownership under the
     new p_loc (`repack_stage_slab`).
 
-`simulate_failure_and_recover` restores a checkpoint and installs the
-config at the new parallelism on a LOCAL pipeline (the reference's
-`reshard(None, cfg)`); the live reshard of a meshed pipeline onto a
-survivor mesh is ROADMAP Queue 1 item 13.
+`simulate_failure_and_recover` restores a checkpoint and live-reshards
+the recovered carry onto a survivor mesh (`D3Pipeline.reshard`), or, on
+a LOCAL pipeline, installs the config at the new parallelism.
 """
 from __future__ import annotations
 
@@ -118,20 +117,26 @@ def repack_stage_slab(rows, part_col: int, valid_col: int,
 
 def simulate_failure_and_recover(pipe, ckpt_mgr, step: int,
                                  new_parallelism: int, new_mesh=None):
-    """Fail-stop drill on a LOCAL pipeline: restore the checkpoint into
-    `pipe`, then install the config at the new parallelism (validated; the
-    caller's config object is never mutated) without moving the carry.
-    Returns (restored_step, RescalePlan, new_cfg). The state is keyed by
-    logical part, so no graph data is touched. A meshed pipeline, or a
-    survivor mesh, needs the live reshard (ROADMAP Queue 1 item 13)."""
-    if pipe.mesh is not None or new_mesh is not None:
-        raise NotImplementedError(
-            "simulate_failure_and_recover on a mesh (the live reshard onto "
-            "a survivor mesh) is not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 13)")
+    """Fail-stop drill: restore the checkpoint into `pipe`, then LIVE
+    reshard the recovered carry onto the survivor mesh. Returns
+    (restored_step, RescalePlan, new_cfg).
+
+    The engine state is keyed by logical part, so no graph data is
+    touched. `new_mesh=None` on a meshed pipeline builds the grid of the
+    world's first new_parallelism * S ranks (`make_stream_mesh(stage=S,
+    ranks=...)`, the reference's `make_stream_mesh(new_parallelism * S,
+    stage=S)`); on a local pipeline it installs the config at the new
+    parallelism without moving anything. On a mesh this is collective
+    over the world, as `reshard` is. The caller's config object is never
+    mutated: the new validated config is installed and returned."""
     restored = ckpt_mgr.restore_pipeline(pipe, step)
     plan = rescale_parts(pipe.cfg.base_parallelism, new_parallelism,
                          pipe.cfg.n_parts)
+    if new_mesh is None and pipe.mesh is not None:
+        from repro_torch.launch.mesh import make_stream_mesh
+        new_mesh = make_stream_mesh(
+            pipe.device, stage=pipe.n_stages,
+            ranks=range(new_parallelism * pipe.n_stages))
     new_cfg = replace(pipe.cfg, base_parallelism=new_parallelism)
-    pipe.reshard(None, cfg=new_cfg)
+    pipe.reshard(new_mesh, cfg=new_cfg)
     return restored, plan, pipe.cfg

@@ -62,6 +62,12 @@ class SAGELayer(nn.Module):
         h = self.w_self(x_v) + self.w_neigh(agg)
         return torch.relu(h) if self.act else h
 
+    def linear_params(self, params, x_v, agg):
+        """psi before its activation, over a parameter tree (the 2-D
+        pipeline's StagedActLayer applies the relu as data)."""
+        return (functional_call(self.w_self, params["self"], (x_v,))
+                + functional_call(self.w_neigh, params["neigh"], (agg,)))
+
     def param_tree(self) -> dict:
         return {"self": linear_tree(self.w_self),
                 "neigh": linear_tree(self.w_neigh)}
@@ -77,8 +83,7 @@ class SAGELayer(nn.Module):
 
     def update_params(self, params, x_v, agg):
         """psi over a parameter tree: the same arithmetic as `update`."""
-        h = (functional_call(self.w_self, params["self"], (x_v,))
-             + functional_call(self.w_neigh, params["neigh"], (agg,)))
+        h = self.linear_params(params, x_v, agg)
         return torch.relu(h) if self.act else h
 
     def forward(self, g: Graph, x):

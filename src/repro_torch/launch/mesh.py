@@ -1,22 +1,30 @@
-"""The 1-D ("data",) stream mesh: one process per rank.
+"""Stream meshes: one process per rank.
 
-Counterpart of `repro/launch/mesh.py:make_stream_mesh` (1-D). JAX runs the
-sharded tick as ONE program over the mesh's devices; the port runs one
-process per rank, each holding its block of parts, joined by a
-`torch.distributed` process group. A `dist/mesh.py:StreamMesh` is that
-rank's view.
+Counterpart of `repro/launch/mesh.py:make_stream_mesh` and
+`survivor_mesh`. JAX runs the sharded tick as ONE program over the mesh's
+devices; the port runs one process per rank, each holding its block of
+parts, joined by a `torch.distributed` process group. A
+`dist/mesh.py:StreamMesh` is that rank's view.
 
   make_stream_mesh()   : from an already initialized process group (one
                          process per rank started by torchrun or any
-                         launcher that calls init_process_group).
+                         launcher that calls init_process_group); 1-D, or
+                         2-D with stage=S (rank r = s * D + d on an S x D
+                         grid), over the whole world or over `ranks=`.
   spawn_stream_mesh()  : start n ranks on this host, run fn(mesh, *args)
                          in each and return their results (rank order).
+  survivor_mesh()      : the mesh after losing data columns (the live
+                         reshard's target, `D3Pipeline.reshard`).
+
+Building a mesh is collective over the WORLD: every process calls it, in
+the same order, because every subgroup (the mesh's own, one per stage row,
+one per data column) is made with `dist.new_group` on every process,
+members or not. A process outside the mesh gets a view with rank -1.
 
 The backend is the caller's choice: "gloo" when ranks share a GPU (NCCL
 refuses two ranks on one device) or run on the CPU; gloo moves CUDA
 tensors through host memory, so each of its collectives waits for the
-device. The 2-D ("stage", "data") mesh is not ported (ROADMAP Queue 1
-item 13).
+device.
 """
 from __future__ import annotations
 
@@ -36,35 +44,87 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.mesh import StreamMesh
 
 
-def _refuse_stages(stage: int) -> None:
-    if int(stage) != 1:
-        raise NotImplementedError(
-            f"stage={stage}: the 2-D ('stage', 'data') mesh is not ported "
-            "to repro_torch yet (ROADMAP Queue 1 item 13)")
-
-
-def make_stream_mesh(device=None, stage: int = 1, group=None) -> StreamMesh:
-    """This process's rank of the 1-D mesh over `group` (default: the
-    initialized default process group). device: where this rank runs
-    (default: cuda:<LOCAL_RANK % device count>; raises without CUDA, as
-    every entry point of the port does). stage > 1 raises
-    NotImplementedError."""
-    _refuse_stages(stage)
+def make_stream_mesh(device=None, stage: int = 1, group=None,
+                     ranks=None) -> StreamMesh:
+    """This process's view of a stream mesh over an initialized process
+    group. device: where this rank runs (default: cuda:<LOCAL_RANK %
+    device count>; raises without CUDA, as every entry point of the port
+    does). stage: the number of pipeline stages (1 = the 1-D mesh); the
+    rank count must be a multiple of it. ranks: the world ranks the mesh
+    spans, increasing (default: all of them, or `group`'s on a 1-D mesh
+    over a given group). Collective over the world when it makes
+    subgroups: every process calls it, members or not."""
     if not dist.is_initialized():
         raise RuntimeError("make_stream_mesh needs an initialized process "
                            "group (torch.distributed.init_process_group)")
-    rank = dist.get_rank(group)
-    size = dist.get_world_size(group)
+    stage = int(stage)
+    if stage < 1:
+        raise ValueError(f"stage={stage} must be >= 1")
     if device is None:
         resolve_device()                      # raises without CUDA
-        local = int(os.environ.get("LOCAL_RANK", rank))
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
         device = torch.device("cuda", local % torch.cuda.device_count())
-    return StreamMesh(rank=rank, size=size, group=group,
-                      device=torch.device(device))
+    device = torch.device(device)
+    if group is not None:
+        if ranks is not None or stage != 1:
+            raise ValueError("group= builds a 1-D mesh over that group; "
+                             "pass ranks= (and stage=) instead")
+        return StreamMesh(rank=dist.get_rank(group),
+                          size=dist.get_world_size(group), group=group,
+                          device=device)
+    world = dist.get_world_size()
+    ranks = tuple(range(world)) if ranks is None else tuple(
+        int(r) for r in ranks)
+    if list(ranks) != sorted(set(ranks)) or not ranks \
+            or ranks[-1] >= world or ranks[0] < 0:
+        raise ValueError(f"ranks={ranks} must be distinct, increasing "
+                         f"world ranks below {world}")
+    n = len(ranks)
+    if n % stage:
+        raise ValueError(
+            f"requested {n} devices over stage={stage} pipeline stages: "
+            "the device count must be a multiple of the stage count "
+            f"(each stage gets {n} / {stage} data shards)")
+    D = n // stage
+    whole = len(ranks) == world
+    mesh_group = None if whole else dist.new_group(list(ranks))
+    rows = cols = ()
+    if stage > 1:
+        rows = tuple(dist.new_group([ranks[s * D + d] for d in range(D)])
+                     for s in range(stage))
+        cols = tuple(dist.new_group([ranks[s * D + d] for s in range(stage)])
+                     for d in range(D))
+    me = dist.get_rank()
+    return StreamMesh(rank=ranks.index(me) if me in ranks else -1, size=n,
+                      group=mesh_group, device=device, n_stages=stage,
+                      ranks=() if whole else ranks, row_groups=rows,
+                      col_groups=cols)
 
 
-def _rank_main(rank, n, fn, backend, device, store_path, out_dir, args,
-               timeout):
+def survivor_mesh(mesh: StreamMesh, lost_data_shards,
+                  n_data: int | None = None) -> StreamMesh:
+    """The mesh after fail-stop loss of `lost_data_shards` (data-axis
+    column indices of `mesh`): the stage extent stays, the lost data
+    columns go, and `n_data` optionally trims to the first surviving
+    columns (block sharding needs n_parts % n_data == 0, so recovery may
+    keep fewer shards than survived). The lost ranks own nothing
+    afterwards: `D3Pipeline.reshard(survivor_mesh(...))` relays all state
+    onto the survivors. Collective over the world, as make_stream_mesh."""
+    S, D = mesh.n_stages, mesh.n_data
+    lost = {int(s) for s in lost_data_shards}
+    keep = [d for d in range(D) if d not in lost]
+    if n_data is not None:
+        keep = keep[: int(n_data)]
+    if not keep:
+        raise ValueError("no surviving data shards after "
+                         f"losing {sorted(lost)}")
+    wr = mesh.world_ranks
+    return make_stream_mesh(mesh.device, stage=S, ranks=[
+        wr[s * D + d] for s in range(S) for d in keep])
+
+
+def _rank_main(rank, n, fn, backend, device, stage, store_path, out_dir,
+               args, timeout):
     try:
         store = dist.FileStore(store_path, n)
         dist.init_process_group(backend, store=store, rank=rank,
@@ -78,7 +138,7 @@ def _rank_main(rank, n, fn, backend, device, store_path, out_dir, args,
             dev = torch.device("cuda", 0 if backend == "gloo" else rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        result = fn(make_stream_mesh(dev), *args)
+        result = fn(make_stream_mesh(dev, stage=stage), *args)
         torch.save(result, Path(out_dir) / f"rank{rank}.pt")
     except BaseException:
         # the parent reports every rank's failure, earliest first: the
@@ -114,15 +174,19 @@ def spawn_stream_mesh(n: int, fn, *, backend: str, device, args=(),
     cannot fork) and meet through a FileStore in a fresh temporary
     directory, so concurrent meshes on one host never share a port. The
     backend is explicit: "gloo" for ranks sharing a GPU or on the CPU.
+    stage > 1 gives each rank its view of an S x (n // S) grid.
     device "cuda" puts every gloo rank on cuda:0 (each NCCL rank on
     cuda:<rank>). A rank that raises, or a mesh that outlives `timeout`
     seconds, kills the other ranks and raises here; the error holds every
     failed rank's traceback, the earliest failure first."""
-    _refuse_stages(stage)
+    if n % int(stage):
+        raise ValueError(f"requested {n} devices over stage={stage} "
+                         "pipeline stages: the device count must be a "
+                         "multiple of the stage count")
     tmp = tempfile.mkdtemp(prefix="stream_mesh-")
     try:
         ctx = mp.start_processes(
-            _rank_main, args=(n, fn, backend, str(device),
+            _rank_main, args=(n, fn, backend, str(device), int(stage),
                               os.path.join(tmp, "store"), tmp, tuple(args),
                               timeout),
             nprocs=n, join=False, start_method="spawn")

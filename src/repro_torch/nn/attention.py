@@ -5,9 +5,9 @@ Counterpart of `repro/nn/attention.py`. Prefill attention goes through
 (the port's counterpart of both `use_flash=True` and the `q_chunk` path,
 which compute the same function), on a CPU tensor its plain version.
 Decode attends one new token against the cache in plain PyTorch, as the
-JAX package leaves it to XLA. The sequence-sharded decode
-(`decode_attend_partial`, `combine_partial_decodes`) belongs to the
-multi-device slice (ROADMAP Queue 1 item 13).
+JAX package leaves it to XLA; so does the sequence-sharded decode
+(`decode_attend_partial` on each shard of the cache, then
+`combine_partial_decodes`, the flash-decoding log-sum-exp merge).
 """
 from __future__ import annotations
 
@@ -58,6 +58,38 @@ def decode_attend(q, cache_k, cache_v, valid):
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(cache_v.dtype)
     return torch.einsum("bkgt,btkd->bkgd", w, cache_v).reshape(B, 1, H, D)
+
+
+def decode_attend_partial(q, cache_k, cache_v, valid):
+    """Partial decode attention over one sequence shard of the cache.
+
+    Returns (unnormalized out [B,1,H,D] f32, the shard's running max and
+    sum of exponentials, each [B,1,H,1]) so shards combine with a global
+    log-sum-exp reduction (`combine_partial_decodes`)."""
+    B, _, H, D = q.shape
+    Kh = cache_k.shape[2]
+    G = H // Kh
+    qg = q.reshape(B, Kh, G, D)
+    logits = torch.einsum("bkgd,btkd->bkgt", qg, cache_k).float()
+    logits = logits / D ** 0.5
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)                       # [B,Kh,G,1]
+    m_safe = torch.clamp(m, min=NEG_INF / 2)   # a fully masked shard
+    p = torch.exp(logits - m_safe)
+    s = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgt,btkd->bkgd", p, cache_v.float())
+    return (out.reshape(B, 1, H, D), m_safe.reshape(B, 1, H, 1),
+            s.reshape(B, 1, H, 1))
+
+
+def combine_partial_decodes(outs, ms, ss):
+    """Combine per-shard partial attention, stacked on a leading shard
+    axis: rescale each shard's sums to the global max and normalize."""
+    m_all = ms.amax(dim=0)                                      # [B,1,H,1]
+    corr = torch.exp(ms - m_all)
+    s_all = (ss * corr).sum(dim=0)
+    o_all = (outs * corr).sum(dim=0)
+    return o_all / torch.clamp(s_all, min=1e-30)
 
 
 class GQAAttention(nn.Module):

@@ -270,22 +270,28 @@ def _target(qs: QueryState, N: int):
             + torch.clamp(qs.slot, 0, N - 1)).reshape(-1)
 
 
-def _plane_work(qs: QueryState, layer_states):
+def _plane_work(qs: QueryState, layer_states, router=None,
+                extra_work=None):
     """The shared inputs of both silence gates: per-row clean flags (no
     red/fwd pending at any layer) and the local pending-work count — the
     same `termination.pending_work` the quiescence gates use, so the
     consistent-snapshot guarantee and flush termination agree on what is
-    in flight."""
+    in flight. On a 2-D mesh each stage holds only its layers' states, so
+    the dirty flags are OR'd over the stage axis, and `extra_work`
+    carries the inter-stage ring occupancy."""
     P_loc, N = layer_states[0].red_pending.shape
     dirty = torch.zeros((P_loc, N), dtype=torch.bool,
                         device=qs.qid.device)
     for ls in layer_states:
         dirty = dirty | ls.red_pending | ls.fwd_pending
-    return ~dirty.reshape(P_loc * N), pending_work(layer_states, qs)
+    if router is not None and router.n_stages > 1:
+        dirty = router.psum_stage(dirty.to(torch.int32)) > 0
+    return (~dirty.reshape(P_loc * N),
+            pending_work(layer_states, qs, extra_work))
 
 
 def query_admit_stage(qs: QueryState, qb: QueryBatch, layer_states, sink,
-                      sink_seen, router, batch_work):
+                      sink_seen, router, batch_work, extra_work=None):
     """START-of-tick half of the query plane (before the layer ticks).
 
     1. admit the host's new queries (replicated batch, local filter);
@@ -311,7 +317,7 @@ def query_admit_stage(qs: QueryState, qb: QueryBatch, layer_states, sink,
     N = sink.shape[1]
     sink_flat = sink.reshape(P_loc * N, d)
     seen_flat = sink_seen.reshape(P_loc * N)
-    clean_flat, work = _plane_work(qs, layer_states)
+    clean_flat, work = _plane_work(qs, layer_states, router, extra_work)
     silent_start = (router.psum_vote(work) == 0) & ~batch_work
 
     qs, n_adm, drop = admit(qs, qb, part0)
@@ -343,7 +349,7 @@ def query_admit_stage(qs: QueryState, qb: QueryBatch, layer_states, sink,
 
 def query_answer_stage(qs: QueryState, wire_d, qb: QueryBatch, drop1,
                        n_adm, layer_states, sink, sink_seen, now,
-                       stats_all, router):
+                       stats_all, router, extra_work=None):
     """END-of-tick half, after the sink update.
 
     1. admit the delivered wire records (link tails, possibly carried
@@ -368,10 +374,13 @@ def query_answer_stage(qs: QueryState, wire_d, qb: QueryBatch, drop1,
     N = sink.shape[1]
     sink_flat = sink.reshape(P_loc * N, d)
     seen_flat = sink_seen.reshape(P_loc * N)
-    clean_flat, timers = _plane_work(qs, layer_states)
+    clean_flat, timers = _plane_work(qs, layer_states, router, extra_work)
     moved = torch.zeros((), dtype=torch.int64, device=dev)
     for s in stats_all:
         moved = moved + s.emitted + s.reduce_msgs + s.broadcast_msgs
+    if router.n_stages > 1:
+        # on a 2-D mesh the stats cover this stage's layers only
+        moved = router.psum_stage(moved)
     silent = (moved == 0) & (router.psum_vote(timers) == 0)
 
     qs, _, drop2 = admit(qs, wire_d, part0)   # tail re-admits: not counted

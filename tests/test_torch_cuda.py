@@ -875,3 +875,154 @@ def test_checkpoint_moves_between_the_card_and_the_cpu(cuda, tmp_path,
     deltas = [(p.metrics.reduce_msgs - r, p.metrics.emitted_total - e)
               for p, (r, e) in zip((src, dst), cut)]
     assert deltas[0] == deltas[1] and deltas[0][0] > 0
+
+
+# the 2-D stage pipeline and the live reshard on 4 gloo ranks sharing the
+# card, each case also run on the CPU over the same groups: integer stats
+# and metrics exactly equal, embeddings and sinks within 1e-5 x (1 +
+# |cpu|) (f32 sums of the same records in another order); kernels 1-3
+# launched on the card ranks
+def _stage_card_rank(world, driver):
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.launch.mesh import make_stream_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    edges, feats = _golden_stream()
+    mesh = make_stream_mesh(world.device, stage=2)
+    out = {}
+    for dev in (world.device, torch.device("cpu")):
+        rp_ops.reset_launches()
+        sr_ops.reset_launches()
+        pipe = D3Pipeline(GraphSAGE((8, 8, 8), seed=0), PipelineConfig(
+            n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+            feat_cap=128, edge_tick_cap=32, max_nodes=32, n_stages=2,
+            route_cap=4, window=win.WindowConfig(kind=win.STREAMING)),
+            mesh=mesh.on(dev))
+        if driver == "tick":
+            pipe.run_stream(edges, feats, tick_edges=24)
+            pipe.flush(max_ticks=160)
+        else:
+            pipe.run_stream_super(edges, feats, tick_edges=24,
+                                  super_ticks=4)
+            pipe.flush_super(max_ticks=160, T=4)
+        out[dev.type] = {
+            "metrics": {k: v for k, v in vars(pipe.metrics).items()
+                        if isinstance(v, int)},
+            "emb": pipe.embeddings(),
+            "launches": {**rp_ops.LAUNCHES, **sr_ops.LAUNCHES}}
+    return out
+
+
+@pytest.mark.parametrize("driver", ["tick", "super"])
+def test_stage_program_on_the_card_matches_the_cpu(cuda, driver):
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    for r in spawn_stream_mesh(4, _stage_card_rank, backend="gloo",
+                               device=cuda, stage=2, args=(driver,),
+                               timeout=300):
+        a, b = r["cuda"], r["cpu"]
+        assert a["metrics"] == b["metrics"]
+        assert a["metrics"]["stage_idle"] > 0
+        assert a["metrics"]["route_deferred"] > 0
+        assert a["metrics"]["route_dropped"] == 0
+        assert set(a["emb"]) == set(b["emb"]) and a["emb"]
+        for v, vec in b["emb"].items():
+            assert (np.abs(a["emb"][v] - vec)
+                    <= 1e-5 * (1 + np.abs(vec))).all()
+        assert all(a["launches"][k] > 0 for k in (
+            "route_lane", "segment_sum_rows", "mean_rows_gather"))
+        assert all(v == 0 for v in b["launches"].values())
+
+
+def _reshard_card_rank(world, case):
+    from repro_torch.core import windowing as win
+    from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
+    from repro_torch.graph.sage import GraphSAGE
+    from repro_torch.launch.mesh import make_stream_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, old, new = case
+    edges, feats = _golden_stream(n_edges=150)
+    chunks = [edges[i:i + 16] for i in range(0, len(edges), 16)]
+    rows = [[(int(v), feats[int(v)]) for e in c for v in set(map(int, e))]
+            for c in chunks]
+    out = {}
+    for dev in (world.device, torch.device("cpu")):
+        mk = lambda n: make_stream_mesh(dev, stage=S, ranks=range(n * S))
+        pipe = D3Pipeline(GraphSAGE((8, 8, 8), seed=0), PipelineConfig(
+            n_parts=4, node_cap=32, edge_cap=128, repl_cap=128,
+            feat_cap=128, edge_tick_cap=32, max_nodes=32, n_stages=S,
+            window=win.WindowConfig(kind=win.SESSION, interval=3)),
+            mesh=mk(old))
+        for i, (c, f) in enumerate(zip(chunks, rows)):
+            if i == len(chunks) // 2:
+                pipe.reshard(mk(new))
+            if pipe.active:
+                pipe.tick(c, f)
+        if not pipe.active:
+            out[dev.type] = None
+            continue
+        pipe.flush(max_ticks=128)
+        out[dev.type] = {
+            "metrics": {k: v for k, v in vars(pipe.metrics).items()
+                        if isinstance(v, int)},
+            "sink": pipe.sink_global().cpu().numpy(),
+            "device": pipe.sink.device.type}
+    return out
+
+
+@pytest.mark.parametrize("case", [(1, 4, 2), (1, 2, 4), (2, 2, 1)],
+                         ids=["4-to-2", "2-to-4", "2x2-to-2x1"])
+def test_reshard_on_the_card_matches_the_cpu(cuda, case):
+    """A mid-stream reshard relays the carry card to card: the result
+    equals the same reshard of CPU tensors."""
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    held = 0
+    for r in spawn_stream_mesh(4, _reshard_card_rank, backend="gloo",
+                               device=cuda, args=(case,), timeout=300):
+        a, b = r["cuda"], r["cpu"]
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        held += 1
+        assert a["device"] == "cuda" and a["metrics"] == b["metrics"]
+        assert a["metrics"]["route_dropped"] == 0
+        assert (np.abs(a["sink"] - b["sink"])
+                <= 1e-5 * (1 + np.abs(b["sink"]))).all()
+    S, _, new = case
+    assert held == S * new
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_partial_on_the_card(cuda, dtype):
+    """The sequence-sharded decode on the card: 4 shards' partials,
+    combined, equal the whole-cache decode (bf16: within bf16's 2^-8,
+    the whole-cache decode rounds its weights and output to bf16; f32:
+    1e-5) and the same functions on the CPU."""
+    from repro_torch.nn.attention import (combine_partial_decodes,
+                                          decode_attend,
+                                          decode_attend_partial)
+    rng = np.random.default_rng(3)
+    B, T, Kh, G, D = 2, 1024, 8, 4, 128
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32))
+               for s in ((B, 1, Kh * G, D), (B, T, Kh, D), (B, T, Kh, D)))
+    valid = torch.as_tensor(rng.random((B, T)) > 0.1)
+    valid[1, 3 * T // 4:] = False            # a whole shard masked
+    tol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        qd, kd, vd = (x.to(dev, dtype) for x in (q, k, v))
+        vm = valid.to(dev)
+        n = T // 4
+        parts = [decode_attend_partial(qd, kd[:, i * n:(i + 1) * n],
+                                       vd[:, i * n:(i + 1) * n],
+                                       vm[:, i * n:(i + 1) * n])
+                 for i in range(4)]
+        comb = combine_partial_decodes(*(torch.stack(x)
+                                         for x in zip(*parts)))
+        full = decode_attend(qd, kd, vd, vm).float()
+        assert torch.isfinite(comb).all()
+        assert ((comb - full).abs() <= tol * torch.clamp(full.abs(), min=1)
+                ).all()
+        outs[dev.type] = comb.cpu()
+    assert ((outs["cuda"] - outs["cpu"]).abs()
+            <= tol * torch.clamp(outs["cpu"].abs(), min=1)).all()

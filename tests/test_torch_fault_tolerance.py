@@ -24,8 +24,10 @@ weights (40 nodes, dims (6, 12, 12), 4 parts, a session(4) window):
     return JAX's report (the wall-clock percentiles aside; the drills'
     counts do not depend on the weights, which each package draws from
     the seed);
-  * every part owed to ROADMAP Queue 1 item 13 raises NotImplementedError
-    naming it.
+  * the garbage collector: a collected generation's host-table pair goes
+    with its blob in the port (R11), and stays in the reference (pinned);
+  * item 13's parts refuse, without a process group, what only a mesh
+    can run; the mesh drills run in tests/test_torch_chaos_mesh.py.
 
 Held-query and checkpoint cases on the 4-rank mesh run in
 tests/test_torch_mesh.py.
@@ -221,6 +223,59 @@ def test_checkpoint_gc_and_latest(tmp_path):
     assert torch.equal(tree["a"], torch.arange(4, dtype=torch.int32))
     with pytest.raises(ValueError, match="shape"):
         mgr.restore({"a": np.zeros(5, np.int64)})
+
+
+def _pipe_files(d):
+    return {suffix: sorted(p.name for p in d.glob(f"*{suffix}"))
+            for suffix in (".ckpt", ".meta.json", ".aux", ".auxnames.json")}
+
+
+def test_checkpoint_gc_collects_host_tables(jparams, tmp_path):
+    """R11: after 4 pipeline saves with keep=2, the port keeps exactly the
+    2 newest generations, each with its blob, meta and host-table pair
+    (.aux / .auxnames.json); the kept newest restores in both packages
+    and continues as the writer does."""
+    edges, feats = make_stream()
+    pipe = port_pipe(jparams)
+    mgr = CheckpointManager(tmp_path / "port", keep=2)
+    for s in (1, 2, 3, 4):
+        pipe.run_stream(edges[(s - 1) * 16:s * 16], feats, tick_edges=16)
+        mgr.save_pipeline(s, pipe)
+    files = _pipe_files(tmp_path / "port")
+    for suffix, names in files.items():
+        assert names == [f"{s:010d}{suffix}" for s in (3, 4)], suffix
+    fresh, jfresh = port_pipe(jparams), jax_pipe(jparams)
+    assert mgr.restore_pipeline(fresh) == 4
+    assert jck.CheckpointManager(tmp_path / "port").restore_pipeline(
+        jfresh) == 4
+    assert_states_equal(fresh, jfresh)
+    for p in (pipe, fresh, jfresh):
+        p.run_stream(edges[64:], feats, tick_edges=16)
+        p.flush(max_ticks=128)
+    assert_states_equal(pipe, fresh)
+    assert_states_equal(fresh, jfresh, exact=False)
+
+
+def test_reference_gc_leaks_host_tables(jparams, tmp_path):
+    """R11, pinned in the reference (not fixed there): its `_gc` unlinks
+    a collected generation's .ckpt and .meta.json only, so after 4 saves
+    with keep=2 all 4 .aux / .auxnames.json pairs remain."""
+    edges, feats = make_stream()
+    pipe = jax_pipe(jparams)
+    mgr = jck.CheckpointManager(tmp_path / "jax", keep=2)
+    for s in (1, 2, 3, 4):
+        pipe.run_stream(edges[(s - 1) * 16:s * 16], feats, tick_edges=16)
+        mgr.save_pipeline(s, pipe)
+    files = _pipe_files(tmp_path / "jax")
+    assert files[".ckpt"] == [f"{s:010d}.ckpt" for s in (3, 4)]
+    assert files[".meta.json"] == [f"{s:010d}.meta.json" for s in (3, 4)]
+    assert files[".aux"] == [f"{s:010d}.aux" for s in (1, 2, 3, 4)]
+    assert files[".auxnames.json"] == [f"{s:010d}.auxnames.json"
+                                       for s in (1, 2, 3, 4)]
+    # the port restores the reference's kept newest all the same
+    fresh = port_pipe(jparams)
+    assert CheckpointManager(tmp_path / "jax").restore_pipeline(fresh) == 4
+    assert_states_equal(fresh, pipe, exact=False)
 
 
 def test_checkpoint_async_snapshots_on_the_callers_thread(tmp_path):
@@ -580,21 +635,31 @@ def test_chaos_admission_storm_equals_jax(driver):
             assert st[k] == want["stats"][k], k
 
 
-# ------------------------------------------------ item 13's refusals
+# ------------------------------------------------ item 13's parts
 
 def test_every_item_13_part_raises_naming_it(jparams, tmp_path):
+    """Item 13 is ported: nothing raises naming it. Without a process
+    group the parts that need a mesh refuse what they cannot run, as the
+    reference would: a reshard onto something that is no StreamMesh, a
+    recovery onto one, and the mesh drills (collective over a world of
+    gloo ranks; they run in tests/test_torch_chaos_mesh.py); a 2-stage
+    config validates on a 2-device grid."""
     pipe = port_pipe(jparams)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="StreamMesh"):
         pipe.reshard(object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tel.simulate_failure_and_recover(pipe, CheckpointManager(tmp_path),
-                                         1, 1, new_mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tchaos.scenario_failstop(tchaos.ChaosConfig(), tmp_path)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tchaos.scenario_slow_shard(tchaos.ChaosConfig())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PipelineConfig(**CAPS, n_stages=2).validate(n_devices=2)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_pipeline(1, pipe)
+    with pytest.raises(TypeError, match="StreamMesh"):
+        tel.simulate_failure_and_recover(pipe, mgr, 1, 1,
+                                         new_mesh=object())
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        tchaos.scenario_failstop(tchaos.ChaosConfig(), tmp_path,
+                                 device="cpu")
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        tchaos.scenario_slow_shard(tchaos.ChaosConfig(), device="cpu")
+    PipelineConfig(**CAPS, n_stages=2).validate(n_devices=2)
+    with pytest.raises(ValueError, match="multiple of the stage count"):
+        PipelineConfig(**CAPS, n_stages=2).validate(n_devices=3)
 
 
 def test_the_port_needs_no_msgpack_and_zstandard_only_optionally():

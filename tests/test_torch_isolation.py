@@ -53,7 +53,8 @@ def test_import_leaves_jax_out():
             "repro_torch.core.train_plane, repro_torch.core.training, "
             "repro_torch.serve.train_session, repro_torch.optim, "
             "repro_torch.optim.quantized, repro_torch.dist.grad_compression, "
-            "repro_torch.core.aggregators; "
+            "repro_torch.core.aggregators, repro_torch.ft.chaos, "
+            "repro_torch.ft.elastic, repro_torch.ft.checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -157,6 +157,55 @@ def test_mha_matches_jax(S, T, q_offset):
                                np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n_shards,masked_shard", [(4, None), (4, 2),
+                                                    (2, None)])
+def test_decode_partial_combine_matches_full(n_shards, masked_shard):
+    """The sequence-sharded decode (test_system.py's case): partial
+    attention a shard, combined by log-sum-exp, equals the full decode
+    within 1e-5, and each shard's partials equal JAX's; a shard whose
+    rows are all masked contributes nothing."""
+    from repro.nn.attention import combine_partial_decodes as jax_combine
+    from repro.nn.attention import decode_attend as jax_decode
+    from repro.nn.attention import decode_attend_partial as jax_partial
+    from repro_torch.nn.attention import (combine_partial_decodes,
+                                          decode_attend,
+                                          decode_attend_partial)
+    rng = np.random.default_rng(0)
+    B, T, Kh, G, D = 2, 64, 2, 3, 16
+    H = Kh * G
+    q = rng.normal(size=(B, 1, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, T, Kh, D)).astype(np.float32)
+    v = rng.normal(size=(B, T, Kh, D)).astype(np.float32)
+    valid = rng.random((B, T)) > 0.1
+    n = T // n_shards
+    if masked_shard is not None:
+        valid[:, masked_shard * n:(masked_shard + 1) * n] = False
+    full = decode_attend(_t(q), _t(k), _t(v), torch.as_tensor(valid))
+    parts, jparts = [], []
+    for i in range(n_shards):
+        sl = slice(i * n, (i + 1) * n)
+        parts.append(decode_attend_partial(_t(q), _t(k[:, sl]),
+                                           _t(v[:, sl]),
+                                           torch.as_tensor(valid[:, sl])))
+        jparts.append(jax_partial(jnp.asarray(q), jnp.asarray(k[:, sl]),
+                                  jnp.asarray(v[:, sl]),
+                                  jnp.asarray(valid[:, sl])))
+        for got, want in zip(parts[-1], jparts[-1]):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=1e-5)
+    comb = combine_partial_decodes(*(torch.stack(x) for x in zip(*parts)))
+    np.testing.assert_allclose(comb.numpy(), full.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    jcomb = jax_combine(*(jnp.stack(x) for x in zip(*jparts)))
+    np.testing.assert_allclose(comb.numpy(), np.asarray(jcomb), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        full.numpy(), np.asarray(jax_decode(jnp.asarray(q), jnp.asarray(k),
+                                            jnp.asarray(v),
+                                            jnp.asarray(valid))),
+        rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------------------- model
 def test_param_count_matches_jax(jax_lm, port_lm):
     assert param_count(port_lm) == jax_param_count(jax_lm[1])

@@ -42,8 +42,8 @@ telemetry on, per-tick and super-tick — every device column and integer
 host column of the trace equal JAX's 4-device trace, the ring gauges
 equal the summed per-rank ring populations after every tick, the straggler
 feed fed once a tick, and the stats other than the gauges equal the
-telemetry-free case; a persistent straggler makes `mitigate_stragglers`
-raise NotImplementedError naming item 13. Checkpoints (CKCASES): held
+telemetry-free case; a persistent straggler on shard 1 makes
+`mitigate_stragglers` reshard onto shards 0 and 2 (JAX's rescale plan). Checkpoints (CKCASES): held
 consistent queries cut on the 4 ranks (rank 0 writes the gathered global
 layout) restore into fresh ranks and answer as the uninterrupted run does;
 the same blob restores into a local port pipeline and a local JAX pipeline,
@@ -480,13 +480,17 @@ def _port_rank(mesh, params, tparams, ckpt_dir):
             if tel:
                 res = tel_summary(pipe, record)
                 res["rings"] = rings
-                # a persistent straggler: the reshard branch is item 13's
-                pipe.straggler._flags[:] = pipe.straggler.patience
-                try:
-                    pipe.mitigate_stragglers()
-                    res["mitigate"] = None
-                except NotImplementedError as e:
-                    res["mitigate"] = str(e)
+                # a persistent straggler on shard 1: the live reshard
+                # onto the survivors (4 -> 3 -> 2, a divisor of 4 parts)
+                pipe.straggler._flags[1] = pipe.straggler.patience
+                plan = pipe.mitigate_stragglers()
+                res["mitigate"] = {
+                    "moves": plan.moves, "active": pipe.active,
+                    "n_data": pipe._n_data,
+                    "shards": [p.tolist() for p in pipe.parts_per_shard()],
+                    "emb": pipe.embeddings() if pipe.active else None,
+                    # collective over the world: every rank calls it
+                    "again": pipe.mitigate_stragglers()}
             else:
                 res["off_stats"] = record
         out[name] = res
@@ -780,7 +784,11 @@ def test_mesh_config_validation():
 def test_mesh_telemetry_matches_jax_mesh(runs, name):
     """The trace of 4 gloo ranks at route_cap 2 equals JAX's 4-device
     trace column for column; the ring gauges equal the ranks' summed
-    ring populations; telemetry changes no other stat."""
+    ring populations; telemetry changes no other stat. Then a persistent
+    straggler on shard 1: `mitigate_stragglers` reshards onto data shards
+    0 and 2 with JAX's rescale plan, the removed ranks keep nothing, and
+    the restarted feed flags nothing."""
+    from repro.ft import elastic as jel
     ref, port, *_ = runs
     want = ref[name]
     ranks = [p[name] for p in port]
@@ -791,12 +799,21 @@ def test_mesh_telemetry_matches_jax_mesh(runs, name):
         assert r["peaks"] == want["peaks"]
         assert r["metrics"] == want["metrics"]
         assert r["ticks_observed"] == want["ticks_observed"]
-        assert "item 13" in r["mitigate"]
+        mit = r["mitigate"]
+        assert mit["n_data"] == 2 and mit["shards"] == [[0, 1], [2, 3]]
+        assert mit["moves"] == jel.rescale_parts(4, 2, 4).moves
+        assert mit["again"] is None
         n = len(STAT_FIELDS)
         for call, off in zip(r["stats"], r["off_stats"]):
             for s_on, s_off in zip(call, off):
                 assert s_on[:n] == s_off[:n]
                 assert s_off[n:] == [0] * len(TEL_GAUGES)
+    assert [r["mitigate"]["active"] for r in ranks] == [True, False, True,
+                                                        False]
+    e0, e2 = ranks[0]["mitigate"]["emb"], ranks[2]["mitigate"]["emb"]
+    assert set(e0) == set(e2) and e0
+    for v in e0:
+        np.testing.assert_array_equal(e0[v], e2[v])
     cols = ranks[0]["cols"]
     assert cols["route_peak"].max() > 2, "demand must pass the cap"
     assert cols["occ_rmi_defer"].max() > 0

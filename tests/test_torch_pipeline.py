@@ -140,12 +140,19 @@ def test_serve_cli_mesh_pinned_counts(driver, rmis, cross):
     ("n_stages", 2, 13), ("delta_eps", 1e-3, 8),
     ("train_cap", 4, 10), ("telemetry", True, 11)])
 def test_unported_planes_raise(field, value, item):
-    """Planes not ported raise NotImplementedError naming their ROADMAP
-    item; items 8 (delta gating), 10 (the training plane) and 11 (the
-    telemetry plane) are ported now: delta_eps > 0 and telemetry=True
-    run (one trace row a tick), and train_cap > 0 without train= is the
-    ValueError JAX raises."""
+    """Every plane named here is ported now (items 8, 10, 11 and 13):
+    delta_eps > 0 and telemetry=True run (one trace row a tick),
+    train_cap > 0 without train= is the ValueError JAX raises, and
+    n_stages = 2 without a mesh is the ValueError JAX raises (the
+    LocalRouter has no stage axis); none raises NotImplementedError."""
     cfg = PipelineConfig(**CAPS, **{field: value})
+    if item == 13:
+        with pytest.raises(ValueError, match="LocalRouter"):
+            JaxConfig(**CAPS, **{field: value}).validate(
+                n_devices=1, n_layers=2, local=True)
+        with pytest.raises(ValueError, match="LocalRouter"):
+            D3Pipeline(GraphSAGE(DIMS), cfg, device="cpu")
+        return
     if item in (8, 11):
         edges, feats = _stream()
         pipe = D3Pipeline(GraphSAGE(DIMS), cfg, device="cpu")
@@ -196,13 +203,25 @@ def test_route_cap_without_mesh_is_the_dense_path():
         assert torch.equal(x.agg, y.agg) and torch.equal(x.agg_cnt, y.agg_cnt)
 
 
+def _grid_rank(mesh):
+    return (mesh.rank, mesh.stage_index, mesh.data_index, mesh.n_stages,
+            mesh.n_data, mesh.member)
+
+
 def test_unported_pipeline_arguments_raise():
+    """The 2-D mesh launcher is ported: stage=2 over 4 ranks gives each
+    rank its place on a 2 x 2 grid (rank r = s * D + d); a mesh without a
+    process group, or a rank count that stage does not divide, raises."""
     from repro_torch.launch.mesh import make_stream_mesh, spawn_stream_mesh
     cfg = PipelineConfig(**CAPS)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(RuntimeError, match="initialized process group"):
         make_stream_mesh(stage=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        spawn_stream_mesh(4, print, backend="gloo", device="cpu", stage=2)
+    with pytest.raises(ValueError, match="multiple of the stage count"):
+        spawn_stream_mesh(3, _grid_rank, backend="gloo", device="cpu",
+                          stage=2)
+    grid = spawn_stream_mesh(4, _grid_rank, backend="gloo", device="cpu",
+                             stage=2, timeout=120)
+    assert grid == [(r, r // 2, r % 2, 2, 2, True) for r in range(4)]
     with pytest.raises(TypeError, match="StreamMesh"):
         D3Pipeline(GraphSAGE(DIMS), cfg, mesh=object(), device="cpu")
     # the training plane is ported: train= without train_cap is the

@@ -550,8 +550,8 @@ def test_lane_fields_is_the_wire_layout():
 class _LoopbackMesh:
     """A two-rank StreamMesh stand-in on one process: all_to_all returns
     the send buffer (each rank hears itself), enough to drive
-    MeshRouter.route_lanes' local work."""
-    size, rank = 2, 0
+    MeshRouter.route_lanes' local work (a 1-D mesh: one stage)."""
+    size, rank, n_stages = 2, 0, 1
 
     def all_to_all(self, buf):
         return buf.clone()
