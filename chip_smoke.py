@@ -248,6 +248,38 @@ phases free their memory:
      on a fresh item-sized table beside its bound, its plain version and
      F.embedding_bag (timed only, as a yardstick).
 
+Then the zoo's train steps, after the serve phases free their memory:
+
+  [train-zoo-kernel] kernel 4 at the two-tower's training forward and
+     kernel 1 at its backward (the dense table gradient: the flat ids
+     sorted by row, each record reading its bag's output gradient), at
+     both towers' train_batch call sites (262,144 user bags into
+     5,000,192 rows, 131,072 item bags into 500,224, W 8, d 256), mean
+     and sum, against their plain versions; through autograd one launch
+     of each, the gradient the direct call's bit for bit; both timed at
+     the user call site beside their bounds, plain versions, and
+     F.embedding_bag / zeros + index_add_ of pre-expanded rows;
+  [train-zoo-parity] the reduced LM's lm_step("train_4k") and the reduced
+     two-tower's train_batch, card vs CPU (TF32 off), 2 steps each: loss,
+     parameters and Adam's moments; no flash launch on the LM's path,
+     kernels 4 and 1 twice a two-tower step;
+  [lm-train] mistral-nemo-12b's published widths and train_4k shape
+     (256 x 4096 tokens a step, bf16 compute over f32 parameters and
+     Adam), 2 of its 40 layers, grad_accum 128: the first microbatch's
+     loss falls along its gradient; 2 steps on token_batches: finite
+     losses, step 0's at the init's (JAX's constant 3e-4 raises the loss
+     at this width), no flash launch; seconds a step, tokens/s, the
+     step's FLOPs and their bf16 bound, peak memory, one microbatch's
+     forward and backward under torch.profiler;
+  [rs-train] two-tower-retrieval's published widths and train_batch
+     (65,536, temperature 0.05, f32), the tables cut to 5,000,192 and
+     500,224 rows: the first batch's loss and gradient through the
+     kernels vs the plain lookup's autograd; 3 steps, each launching
+     kernels 4 and 1 twice; ms a step, examples/s, losses, peak memory,
+     one step under torch.profiler;
+  [train-cli] python -m repro_torch.launch.train --reduced --steps 3
+     for both archs, as subprocesses on the card.
+
 After [mesh-full], [what-if]: the cost model fitted on [mesh-parity]'s
 telemetry trace prices other route_caps' wire at [mesh-full]'s measured
 gloo all_to_all rate (bytes over the seconds blocked in it).
@@ -5227,6 +5259,565 @@ def phase_rs_time(device, launches, max_err, rs=RS):
             "bound_by": by, "library_ms": lib_ms}
 
 
+# ------------------------------------------------------ the zoo's training
+# the zoo's train steps. [lm-train]: mistral-nemo-12b at its published
+# widths and train_4k shape (batch 256 x seq 4096), bf16 compute over f32
+# parameters and Adam, depth cut from 40 layers to `lm_layers` (1.887 B
+# f32 parameters, 7.55 GB; Adam's update holds ~8 such trees), the batch
+# in `lm_accum` microbatches of 2 x 4096, `lm_steps` steps on
+# token_batches(seed 0). [rs-train]: two-tower-retrieval at its published
+# widths, batch 65,536 and temperature, f32, the tables cut to
+# configs/two_tower_retrieval.py's TRAIN_USER_VOCAB / TRAIN_ITEM_VOCAB,
+# `rs_steps` steps. [train-zoo-parity]: the reduced configs, card vs CPU
+# (TF32 off), `parity_steps` steps of lm_step on [256, parity_seq] tokens
+# (grad_accum 8) and of train_batch at `rs_parity_batch`.
+ZOO = dict(lm_layers=2, lm_accum=128, lm_steps=2, rs_steps=3,
+           parity_seq=32, parity_steps=2, rs_parity_batch=256, descent=0.05)
+# [lm-train]'s loss falls along its gradient: on the first microbatch,
+# params - t g with t = descent / ||g||^2 (a first-order fall of `descent`
+# nats) must lower the loss by at least half that. JAX's recipe itself
+# (Adam at a constant 3e-4, no warmup) raises the loss at this width: the
+# first step moves every weight by ~lr sign(g), so an output of a
+# 5,120-wide row moves by ~lr sum |x_i| ~ 1.2, as large as the outputs
+# themselves. Step 0's loss, the init's, lies within [ln V, ln V + 1]
+# (logits of unit spread: ln V + 1/2)
+# card vs CPU after a train step: loss within ZOO_LOSS_TOL x |cpu|,
+# parameters and Adam's moments within ZOO_STATE_TOL absolute, and the
+# moments also within ZOO_MOMENT_RTOL x max |cpu| per leaf (v ~ 1e-3 g^2
+# lies far below ZOO_STATE_TOL) (the CPU parity tests' bounds against
+# JAX, tests/test_torch_train_zoo.py). At
+# full width [rs-train] holds the loss through kernel 4 to the plain
+# lookup's within ZOO_LOSS_TOL, and the table gradients through kernel 1
+# to the plain backward's on the same forward within ZOO_GRAD_TOL x max
+# |plain| per table (a row sums a few records: f32 sums in another
+# order). Gradients through two forwards are not compared element by
+# element: a relu unit within rounding of 0 takes its kink one way in one
+# and the other way in the other, and the gradient of a bag row reached
+# through it jumps (on an H100 at train_batch's full width: 5% of the
+# table's max |grad|)
+ZOO_LOSS_TOL, ZOO_STATE_TOL, ZOO_GRAD_TOL = 1e-5, 1e-5, 1e-5
+ZOO_MOMENT_RTOL = 1e-4
+
+
+def zoo_bag_case(gen, B, W, V, d, device):
+    """A [V, d] table, [B, W] bag ids as the two-tower draws them
+    (random_bag_ids) and a [B, d] output gradient."""
+    import torch
+    from repro_torch.launch.serve import random_bag_ids
+    table = torch.randn(V, d, generator=gen, device=device)
+    ids = random_bag_ids(gen, (B, W), V)
+    w = torch.randn(B, d, generator=gen, device=device)
+    return table, ids, w
+
+
+def zoo_bag_grad_check(eb, eb_ref, seg, w, ids, V, mode, what):
+    """Kernel 1's bag backward against the plain table gradient: per
+    element |diff| <= KA_TOL x (1 + the row's sum of |w| / count), the
+    plain gradient of |w| (f32 sums of the same rows in another order).
+    Returns (max abs err, the kernel's gradient)."""
+    seg.reset_launches()
+    got = eb.embedding_bag_grad(w, ids, V, mode)
+    sync(got)
+    check(not w.is_cuda or seg.LAUNCHES["segment_sum_rows"] == 1,
+          f"{what}: the bag backward launched kernel 1 "
+          f"{seg.LAUNCHES['segment_sum_rows']} times")
+    want = eb_ref.embedding_bag_grad_ref(w, ids, V, mode)
+    mag = eb_ref.embedding_bag_grad_ref(w.abs(), ids, V, mode)
+    err = (got - want).abs()
+    worst = float(err.max())
+    check(bool((err <= KA_TOL * (1 + mag)).all()),
+          f"{what}: bag backward vs plain, max err {worst}")
+    del want, mag, err
+    return worst, got
+
+
+def phase_train_zoo_kernel(device, z=ZOO):
+    """Kernel 4 at the two-tower's training forward and kernel 1 at its
+    backward (the table gradient), at both towers' train_batch call sites,
+    against their plain versions; through autograd (one launch of each,
+    the gradient the direct call's bit for bit); then both timed at the
+    user call site beside their bounds, plain versions and library calls.
+    Returns the two `kernels` entries without their main-path launches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import two_tower_retrieval as tt
+    from repro_torch.kernels.embedding_bag import ops as eb, ref as eb_ref
+    from repro_torch.kernels.segment_reduce import ops as seg
+    c = tt.CONFIG
+    B = tt.SHAPES["train_batch"].dims["batch"]
+    W, d = c.max_ids_per_field, c.embed_dim
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    sides = (("item", B * c.item_fields, tt.TRAIN_ITEM_VOCAB),
+             ("user", B * c.user_fields, tt.TRAIN_USER_VOCAB))
+    for side, n_bags, V in sides:
+        table, ids, w = zoo_bag_case(gen, n_bags, W, V, d, device)
+        for mode in ("mean", "sum"):
+            e, _ = eb_check(eb, eb_ref, table, ids, mode)
+            errs["fwd"] = max(errs["fwd"], e)
+            e, got = zoo_bag_grad_check(eb, eb_ref, seg, w, ids, V, mode,
+                                        f"{side} bags, {mode}")
+            errs["bwd"] = max(errs["bwd"], e)
+            # through autograd: kernel 4 forward, kernel 1 backward
+            leaf = table.detach().requires_grad_()
+            eb.reset_launches()
+            seg.reset_launches()
+            (auto,) = torch.autograd.grad(eb.embedding_bag(leaf, ids, mode),
+                                          leaf, w)
+            check(device.type != "cuda" or (
+                eb.LAUNCHES["embedding_bag"] == 1
+                and seg.LAUNCHES["segment_sum_rows"] == 1),
+                  f"{side} bags under autograd launched {eb.LAUNCHES}, "
+                  f"{seg.LAUNCHES}")
+            check(torch.equal(auto, got), f"{side} bags: the autograd "
+                                          "gradient is not the direct call's")
+            del got, auto
+        n_valid = int((ids >= 0).sum())
+        print(f"[train-zoo-kernel] {side} call site: {n_bags} bags of W={W} "
+              f"({n_valid} valid ids) over a [{V}, {d}] f32 table: "
+              f"forward vs plain and backward (the dense table gradient) "
+              f"vs plain passed, mean and sum; through autograd one launch "
+              f"of each kernel, the gradient the direct call's bit for bit")
+        if side == "item":
+            del table, ids, w
+            free_cuda()
+    print(f"[train-zoo-kernel] max abs err: forward {errs['fwd']:.3e} "
+          f"(tolerance {EB_TOL} x (1 + sum |w row|)), backward "
+          f"{errs['bwd']:.3e} (tolerance {KA_TOL} x (1 + sum |g| / cnt))")
+
+    # timing at the user call site (mean, as the towers run)
+    valid = ids >= 0
+    n_valid = int(valid.sum())
+    flat = ids[valid]
+    offsets = torch.zeros(ids.shape[0], dtype=torch.int64, device=device)
+    offsets[1:] = torch.cumsum(valid.sum(dim=1), 0)[:-1]
+    fwd_ms = time_ms(lambda: eb.embedding_bag(table, ids, "mean"))
+    fwd_plain = time_ms(lambda: eb_ref.embedding_bag_ref(table, ids, "mean"))
+    fwd_lib = time_ms(lambda: F.embedding_bag(flat, table, offsets,
+                                              mode="mean"))
+    n_bags = ids.shape[0]
+    fwd_bytes = n_valid * d * 4 + ids.numel() * ids.element_size() \
+        + n_bags * d * 4
+    fwd_ops = n_valid * d + n_bags * d
+    fwd_bound = bound_ms(fwd_bytes, fwd_ops)
+    fwd_by = "bytes" if fwd_bytes / PEAK_BYTES_PER_S > \
+        fwd_ops / PEAK_F32_OPS_PER_S else "operations"
+    print(f"[train-zoo-kernel] embedding_bag at the training forward "
+          f"(user side, {n_bags} bags, {n_valid} valid ids, a "
+          f"[{V}, {d}] table): {fwd_ms:.4f} ms; bound {fwd_bound:.4f} ms "
+          f"by {fwd_by} ({fwd_bytes} bytes); plain {fwd_plain:.4f} ms; "
+          f"F.embedding_bag {fwd_lib:.4f} ms")
+    rows_idx = flat.to(torch.int64)
+    counts = valid.sum(dim=1).clamp(min=1).to(torch.float32)
+    g_rows = (w / counts[:, None])[:, None, :].expand(
+        n_bags, W, d)[valid].contiguous()
+    bwd_ms = time_ms(lambda: eb.embedding_bag_grad(w, ids, V, "mean"))
+    bwd_plain = time_ms(lambda: eb_ref.embedding_bag_grad_ref(w, ids, V,
+                                                              "mean"))
+    bwd_lib = time_ms(lambda: torch.zeros(V, d, device=device).index_add_(
+        0, rows_idx, g_rows))
+    # the function reads grad_out and the ids once and writes the dense
+    # gradient once; an add per valid id's element, a division per bag's
+    bwd_bytes = n_bags * d * 4 + ids.numel() * ids.element_size() \
+        + V * d * 4
+    bwd_ops = n_valid * d + n_bags * d
+    bwd_bound = bound_ms(bwd_bytes, bwd_ops)
+    bwd_by = "bytes" if bwd_bytes / PEAK_BYTES_PER_S > \
+        bwd_ops / PEAK_F32_OPS_PER_S else "operations"
+    print(f"[train-zoo-kernel] the bag backward on kernel 1 (sort_runs + "
+          f"deliver_rows; user side, {n_valid} records into {V} rows, d "
+          f"{d}): {bwd_ms:.4f} ms; bound {bwd_bound:.4f} ms by {bwd_by} "
+          f"({bwd_bytes} bytes); plain (zeros + index_add_ of the "
+          f"expanded rows) {bwd_plain:.4f} ms; zeros + index_add_ of "
+          f"pre-expanded rows {bwd_lib:.4f} ms")
+    del table, ids, w, flat, offsets, rows_idx, g_rows, valid, counts
+    free_cuda()
+    return [
+        {"name": "embedding_bag (two-tower training forward)",
+         "route": "cuda", "source": "src/repro_torch/csrc/embedding_bag.cu",
+         "replaces": "src/repro/kernels/embedding_bag/kernel.py:43",
+         "launches": None, "max_abs_err": errs["fwd"], "ms": fwd_ms,
+         "plain_ms": fwd_plain, "bound_ms": fwd_bound, "bound_by": fwd_by,
+         "library_ms": fwd_lib},
+        {"name": "segment_sum_rows (embedding-bag backward)",
+         "route": "cuda", "source": "src/repro_torch/csrc/segment_reduce.cu",
+         "replaces": "src/repro/kernels/segment_reduce/kernel.py:59",
+         "launches": None, "max_abs_err": errs["bwd"], "ms": bwd_ms,
+         "plain_ms": bwd_plain, "bound_ms": bwd_bound, "bound_by": bwd_by,
+         "library_ms": bwd_lib}]
+
+
+def zoo_runs_match(tag, cpu_runs, card_runs):
+    """Card vs CPU after each train step (ZOO_LOSS_TOL, ZOO_STATE_TOL,
+    ZOO_MOMENT_RTOL). Returns (max loss rel err, max state abs err, max
+    moment err / max |cpu| of its leaf)."""
+    e_loss = e_state = e_moment = 0.0
+    for i, ((lc, pc, sc), (lg, pg, sg)) in enumerate(zip(cpu_runs,
+                                                         card_runs)):
+        e = abs(float(lg) - float(lc)) / abs(float(lc))
+        check(e <= ZOO_LOSS_TOL, f"[{tag}] step {i}: loss card "
+                                 f"{float(lg)} vs CPU {float(lc)}")
+        e_loss = max(e_loss, e)
+        for name in pc:
+            for what, a, b in (("param", pc, pg), ("m", sc["m"], sg["m"]),
+                               ("v", sc["v"], sg["v"])):
+                e = float((b[name].cpu() - a[name]).abs().max())
+                check(e <= ZOO_STATE_TOL, f"[{tag}] step {i}: {what} "
+                                          f"{name} card vs CPU {e}")
+                e_state = max(e_state, e)
+                if what != "param":
+                    scale = float(a[name].abs().max())
+                    check(e <= ZOO_MOMENT_RTOL * scale,
+                          f"[{tag}] step {i}: {what} {name} card vs CPU "
+                          f"{e} > {ZOO_MOMENT_RTOL} x {scale}")
+                    e_moment = max(e_moment, e / scale if scale else e)
+        check(int(sg["t"]) == int(sc["t"]) == i + 1, f"[{tag}] step count")
+    return e_loss, e_state, e_moment
+
+
+def phase_train_zoo_parity(device, z=ZOO):
+    """The reduced LM's lm_step("train_4k") and the reduced two-tower's
+    train_batch, built on the CPU from a seed and copied to the card (f32,
+    TF32 off): loss, parameters and Adam's moments after each step, card
+    vs CPU; on the card the LM launches no flash kernel, each two-tower
+    step kernel 4 twice and kernel 1 twice."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.mistral_nemo_12b import REDUCED
+    from repro_torch.data.streams import token_batches
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.segment_reduce import ops as seg
+    from repro_torch.launch.serve import random_bag_ids
+    from repro_torch.nn.module import param_tree
+    from repro_torch.optim import adam
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run(spec, shape, batches, to_args):
+        cpu = spec.build_reduced(device="cpu", seed=SEED, train=True)
+        card = spec.build_reduced(device=device, seed=SEED + 1, train=True)
+        card.load_state_dict(cpu.state_dict())
+        runs = {}
+        for model in (cpu, card):
+            step = spec.step(model, shape)
+            p = param_tree(model)
+            s = adam().init(p)
+            runs[model.device.type] = out = []
+            for reset in (fa.reset_launches, eb.reset_launches,
+                          seg.reset_launches):
+                reset()
+            for b in batches:
+                p, s, loss = step(p, s, *to_args(b, model.device))
+                out.append((loss, p, s))
+        return runs[device.type], runs["cpu"]
+
+    lm = get_arch("mistral-nemo-12b")
+    data = list(token_batches(SEED, REDUCED.vocab, 256, z["parity_seq"],
+                              z["parity_steps"]))
+    card_runs, cpu_runs = run(lm, "train_4k", data, lambda b, dev: (
+        torch.as_tensor(b[0], device=dev), torch.as_tensor(b[1],
+                                                           device=dev)))
+    if device.type == "cuda":
+        check(fa.LAUNCHES["flash_attention"] == 0,
+              f"the LM train step launched the flash kernel: {fa.LAUNCHES}")
+    lm_err = zoo_runs_match("train-zoo-parity", cpu_runs, card_runs)
+    tt = get_arch("two-tower-retrieval")
+    c = tt.build_reduced(device="cpu").cfg
+    gen = torch.Generator().manual_seed(SEED)
+    n = z["rs_parity_batch"]
+    batches = [{"user_ids": random_bag_ids(gen, (n, c.user_fields,
+                                                 c.max_ids_per_field),
+                                           c.user_vocab),
+                "item_ids": random_bag_ids(gen, (n, c.item_fields,
+                                                 c.max_ids_per_field),
+                                           c.item_vocab),
+                "item_logq": torch.randn(n, generator=gen) - 5.0}
+               for _ in range(z["parity_steps"])]
+    card_runs, cpu_runs = run(tt, "train_batch", batches, lambda b, dev: (
+        {k: v.to(dev) for k, v in b.items()},))
+    if device.type == "cuda":
+        n_steps = z["parity_steps"]
+        check(eb.LAUNCHES["embedding_bag"] == 2 * n_steps
+              and seg.LAUNCHES["segment_sum_rows"] == 2 * n_steps,
+              f"{n_steps} reduced train_batch steps launched "
+              f"{eb.LAUNCHES}, {seg.LAUNCHES}")
+    tt_err = zoo_runs_match("train-zoo-parity", cpu_runs, card_runs)
+    print(f"[train-zoo-parity] reduced LM, {z['parity_steps']} lm_step "
+          f"train_4k steps on [256, {z['parity_seq']}] tokens (grad_accum "
+          f"8), card vs CPU: loss rel err {lm_err[0]:.3e}, params and "
+          f"Adam moments max abs err {lm_err[1]:.3e}, moments "
+          f"{lm_err[2]:.3e} of their leaf's max; no flash launch")
+    print(f"[train-zoo-parity] reduced two-tower, {z['parity_steps']} "
+          f"train_batch steps of {n}: loss rel err {tt_err[0]:.3e}, state "
+          f"max abs err {tt_err[1]:.3e}, moments {tt_err[2]:.3e} of their "
+          f"leaf's max; kernels 4 and 1 twice a step (tolerances: loss "
+          f"{ZOO_LOSS_TOL} x |cpu|, state {ZOO_STATE_TOL}, moments "
+          f"{ZOO_MOMENT_RTOL} x max |cpu|)")
+    free_cuda()
+
+
+def lm_train_flops(cfg, B, S):
+    """FLOPs of one train_4k step as the port runs it: the forward's
+    matmuls (2 per multiply-add; attention over all T keys a query block,
+    as mha_chunked takes it), times 4: the forward, the rematerialised
+    forward of every layer and loss chunk, and the backward's two."""
+    d, H, Kh, D = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    per_tok = cfg.n_layers * (2 * d * D * (2 * H + 2 * Kh)
+                              + 2 * 3 * d * cfg.d_ff) + 2 * d * cfg.vocab
+    attn = cfg.n_layers * 4 * B * S * S * H * D
+    return 4 * (per_tok * B * S + attn)
+
+
+def phase_lm_train(device, z=ZOO):
+    """mistral-nemo-12b train_4k at its published widths, depth cut (ZOO):
+    the gradient of the first microbatch is a descent direction (ZOO's
+    `descent`); then `lm_steps` steps of lm_step through the spec's entry
+    point on token_batches: finite losses, step 0's at the init's, no
+    flash launch; step seconds, tokens/s, the FLOPs' bf16 bound, peak
+    memory, and one microbatch's forward and backward under
+    torch.profiler."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.mistral_nemo_12b import CONFIG
+    from repro_torch.data.streams import token_batches
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.configs.base import value_and_grad
+    from repro_torch.nn.module import (bind_params, param_bytes,
+                                       param_count, param_tree)
+    from repro_torch.nn.transformer import TransformerLM
+    from repro_torch.optim import adam
+    spec = get_arch("mistral-nemo-12b")
+    cfg = dataclasses.replace(CONFIG, n_layers=z["lm_layers"])
+    dims = spec.shapes["train_4k"].dims
+    B, S = dims["batch"], dims["seq"]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device, seed=SEED, train=True)
+    params = param_tree(model)
+    sync(params["lm_head"])
+    build_s = time.perf_counter() - t0
+    data = [(torch.as_tensor(t, device=device),
+             torch.as_tensor(lab, device=device))
+            for t, lab in token_batches(SEED, cfg.vocab, B, S,
+                                        z["lm_steps"])]
+    # the first microbatch's loss falls along its gradient
+    mb = B // z["lm_accum"]
+    toks0, labs0 = data[0][0][:mb], data[0][1][:mb]
+    loss0, g = value_and_grad(model, model.loss, params, toks0, labs0)
+    gn2 = float(sum(x.float().square().sum() for x in g.values()))
+    t_step = z["descent"] / gn2
+    moved = {n: p - t_step * g[n] for n, p in params.items()}
+    del g
+    # through value_and_grad as loss0, so both take the training route
+    loss1 = float(value_and_grad(model, model.loss, moved, toks0, labs0)[0])
+    del moved
+    fell = float(loss0) - loss1
+    check(fell >= 0.5 * z["descent"], f"[lm-train] params - t g lowered "
+                                      f"the loss by {fell}, expected "
+                                      f"~{z['descent']}")
+    print(f"[lm-train] descent check on microbatch 0 ({mb} x {S}): loss "
+          f"{float(loss0):.6f}, ||g|| {gn2 ** 0.5:.4f}; at params - t g, t "
+          f"= {z['descent']} / ||g||^2, {loss1:.6f}: fell {fell:.6f} "
+          f"(first order {z['descent']})")
+    if cuda:
+        profile_call("lm-train", f"one microbatch's forward and backward "
+                                 f"({mb} x {S} tokens)",
+                     lambda: value_and_grad(model, model.loss, params, toks0,
+                                            labs0), top=14)
+    free_cuda()
+    state = adam().init(params)
+    step = spec.step(model, "train_4k", grad_accum=z["lm_accum"])
+    print(f"[lm-train] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv} kv, head_dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_layers} of 40 layers; "
+          f"{param_count(model)} f32 params ({param_bytes(model)} bytes) "
+          f"and Adam's m, v drawn on the device in {build_s:.2f}s; batch "
+          f"{B} x seq {S} in {z['lm_accum']} microbatches, compute "
+          f"{cfg.dtype}, q_chunk {cfg.q_chunk}, loss_chunks "
+          f"{cfg.loss_chunks}, remat {cfg.remat}")
+    fa.reset_launches()
+    losses, secs = [], []
+    for toks, labels in data:
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, toks, labels)
+        bind_params(model, params)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+        print(f"[lm-train] step {len(losses) - 1}: loss {losses[-1]:.6f} "
+              f"in {secs[-1]:.3f} s ({B * S / secs[-1]:.1f} tokens/s)")
+    launches = fa.LAUNCHES["flash_attention"]
+    check(all(math.isfinite(x) for x in losses), f"[lm-train] losses "
+                                                  f"{losses}")
+    ln_v = math.log(cfg.vocab)
+    check(ln_v <= losses[0] <= ln_v + 1, f"[lm-train] step 0's loss "
+                                         f"{losses[0]} is not the init's "
+                                         f"(ln V = {ln_v})")
+    check(launches == 0, f"[lm-train] the train step launched the flash "
+                         f"kernel {launches} times")
+    flops = lm_train_flops(cfg, B, S)
+    bound = flops / PEAK_BF16_OPS_PER_S
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    print(f"[lm-train] {len(losses)} steps, {B * S} tokens each: per step "
+          + ", ".join(f"{s:.3f} s" for s in secs)
+          + f"; {B * S * len(secs) / sum(secs):.1f} tokens/s; "
+          f"{flops} FLOPs a step ({flops / min(secs) / 1e12:.1f} TFLOP/s at "
+          f"the fastest step), {bound:.3f} s at the bf16 peak; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (ln vocab {ln_v:.4f}); "
+          f"flash launches {launches}; peak "
+          f"memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    del model, params, state, step, data, toks0, labs0
+    free_cuda()
+    return {"losses": losses, "secs": secs}
+
+
+def phase_rs_train(device, z=ZOO):
+    """two-tower-retrieval train_batch at its published widths and batch,
+    the tables cut for training: the first batch's loss and gradient
+    through the kernels (kernel 4 twice forward, kernel 1 twice backward)
+    against the plain lookup's autograd; then `rs_steps` timed steps
+    through the spec's entry point, each launching both kernels twice.
+    Returns the launches of the timed steps."""
+    import math
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import value_and_grad
+    from repro_torch.kernels.embedding_bag import ops as eb, ref as eb_ref
+    from repro_torch.kernels.segment_reduce import ops as seg
+    from repro_torch.launch.serve import random_bag_ids
+    from repro_torch.nn.module import bind_params, param_bytes, param_count
+    from repro_torch.nn.module import param_tree
+    from repro_torch.optim import adam
+    cuda = device.type == "cuda"
+    spec = get_arch("two-tower-retrieval")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = spec.build(device=device, seed=SEED, train=True)
+    c = model.cfg
+    B = spec.shapes["train_batch"].dims["batch"]
+    W = c.max_ids_per_field
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+
+    def batch():
+        # item_logq: log of a sampling probability near uniform over the
+        # table, spread as a frequency estimate would be
+        return {"user_ids": random_bag_ids(gen, (B, c.user_fields, W),
+                                           c.user_vocab),
+                "item_ids": random_bag_ids(gen, (B, c.item_fields, W),
+                                           c.item_vocab),
+                "item_logq": -math.log(c.item_vocab) + 0.5 * torch.randn(
+                    B, generator=gen, device=device)}
+
+    print(f"[rs-train] {c.name}: user table "
+          f"{tuple(model.user_emb.table.shape)}, item table "
+          f"{tuple(model.item_emb.table.shape)} f32, embed_dim "
+          f"{c.embed_dim}, towers {c.tower_mlp}, temperature "
+          f"{c.temperature}; {param_count(model)} params "
+          f"({param_bytes(model)} bytes); batch {B}")
+    params = param_tree(model)
+    b0 = batch()
+    args = (b0["user_ids"], b0["item_ids"], b0["item_logq"])
+    eb.reset_launches()
+    seg.reset_launches()
+    loss_k, g_k = value_and_grad(model, model.loss, params, *args)
+    sync(loss_k)
+    if cuda:
+        check(eb.LAUNCHES["embedding_bag"] == 2
+              and seg.LAUNCHES["segment_sum_rows"] == 2,
+              f"one loss and gradient launched {eb.LAUNCHES}, {seg.LAUNCHES}")
+    with torch.no_grad(), mock.patch.object(eb, "embedding_bag",
+                                            eb_ref.embedding_bag_ref):
+        loss_p = model.loss(*args)
+    e_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(e_loss <= ZOO_LOSS_TOL, f"[rs-train] loss kernels {float(loss_k)} "
+                                  f"vs plain {float(loss_p)}")
+    with mock.patch.object(eb, "embedding_bag_grad",
+                           eb_ref.embedding_bag_grad_ref):
+        _, g_p = value_and_grad(model, model.loss, params, *args)
+    e_grad = {}
+    for name in ("user_emb.table", "item_emb.table"):
+        scale = float(g_p[name].abs().max())
+        err = float((g_k[name] - g_p[name]).abs().max())
+        check(err <= ZOO_GRAD_TOL * scale, f"[rs-train] grad {name}: "
+                                           f"kernel 1 vs plain {err} > "
+                                           f"{ZOO_GRAD_TOL} x {scale}")
+        e_grad[name] = err / max(scale, 1e-30)
+    print(f"[rs-train] the first batch: loss through kernel 4 "
+          f"{float(loss_k):.6f} vs the plain lookup's, rel err "
+          f"{e_loss:.3e}; the tables' gradients through kernel 1 vs the "
+          f"plain backward on the same forward, max err / max |plain| "
+          + ", ".join(f"{n} {e:.3e}" for n, e in e_grad.items())
+          + f" (tolerances {ZOO_LOSS_TOL}, {ZOO_GRAD_TOL})")
+    del g_k, g_p, loss_p
+    free_cuda()
+    step = spec.step(model, "train_batch")
+    state = adam().init(params)
+    eb.reset_launches()
+    seg.reset_launches()
+    losses, secs = [], []
+    for i in range(z["rs_steps"]):
+        b = b0 if i == 0 else batch()
+        sync(b["item_logq"])
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, b)
+        bind_params(model, params)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+    launches = {"embedding_bag": eb.LAUNCHES["embedding_bag"],
+                "segment_sum_rows": seg.LAUNCHES["segment_sum_rows"]}
+    n = z["rs_steps"]
+    if cuda:
+        check(launches == {"embedding_bag": 2 * n,
+                           "segment_sum_rows": 2 * n},
+              f"[rs-train] {n} steps launched {launches}")
+    check(all(math.isfinite(x) for x in losses), f"[rs-train] {losses}")
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    print(f"[rs-train] {n} train_batch steps of {B}: per step "
+          + ", ".join(f"{s * 1e3:.3f} ms" for s in secs)
+          + f"; {B * n / sum(secs):.1f} examples/s; loss "
+          + " -> ".join(f"{x:.4f}" for x in losses)
+          + f" (ln batch {math.log(B):.4f}); launches {launches}; peak "
+          f"memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    if cuda:
+        b = batch()
+        profile_call("rs-train", "one train_batch step",
+                     lambda: step(params, state, b), top=10)
+    del model, params, state, step, b0
+    free_cuda()
+    return launches
+
+
+def phase_train_cli(device):
+    """`python -m repro_torch.launch.train --reduced --steps 3` for both
+    archs as subprocesses, on the device (CUDA: no --device flag)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch, shape in (("mistral-nemo-12b", "train_4k"),
+                        ("two-tower-retrieval", "train_batch")):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               arch, "--shape", shape, "--reduced", "--steps", "3"]
+        if device.type != "cuda":
+            cmd += ["--device", str(device)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, cwd=str(ROOT),
+                              capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0, f"[train-cli] {arch} exited "
+                                    f"{proc.returncode}:\n{proc.stdout}\n"
+                                    f"{proc.stderr[-4000:]}")
+        check(len(lines) == 4 and lines[-1] == "train driver done"
+              and all(line.startswith(f"step {i}: loss=")
+                      for i, line in enumerate(lines[:3])),
+              f"[train-cli] {arch} printed {lines}")
+        print(f"[train-cli] {arch} --shape {shape} --reduced --steps 3 "
+              f"({secs:.1f} s with the interpreter's start): "
+              + "; ".join(lines))
+
+
 def main():
     try:
         import torch
@@ -5314,6 +5905,15 @@ def main():
     rs_launches = phase("rs-full", phase_rs_full, device)
     result["kernels"].append(phase("rs-time", phase_rs_time, device,
                                    rs_launches, eb_err))
+    free_cuda()
+    zoo_kernels = phase("train-zoo-kernel", phase_train_zoo_kernel, device)
+    phase("train-zoo-parity", phase_train_zoo_parity, device)
+    phase("lm-train", phase_lm_train, device)
+    rs_train = phase("rs-train", phase_rs_train, device)
+    zoo_kernels[0]["launches"] = rs_train["embedding_bag"]
+    zoo_kernels[1]["launches"] = rs_train["segment_sum_rows"]
+    result["kernels"] += zoo_kernels
+    phase("train-cli", phase_train_cli, device)
     print("[card] all times above on this card:")
     print(card)
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

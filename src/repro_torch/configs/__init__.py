@@ -12,6 +12,7 @@ _MODULES = {
     "d3gnn-sage": "repro_torch.configs.d3gnn_sage",
     "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
 }
+ARCH_IDS = tuple(_MODULES)
 
 
 def get_arch(arch_id: str):

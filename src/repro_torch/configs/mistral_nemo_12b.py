@@ -19,13 +19,14 @@ CONFIG = TransformerConfig(
 REDUCED = TransformerConfig(
     name="mistral-nemo-reduced",
     n_layers=4, d_model=64, n_heads=4, n_kv=2, head_dim=16, d_ff=160,
-    vocab=512, dtype="float32")
+    vocab=512, dtype="float32", loss_chunks=2)
 
 SPEC = ArchSpec(
     name="mistral-nemo-12b", family="lm",
-    build=lambda device=None, seed=0: TransformerLM(CONFIG, device, seed),
-    build_reduced=lambda device=None, seed=0: TransformerLM(REDUCED, device,
-                                                            seed),
+    build=lambda device=None, seed=0, train=False: TransformerLM(
+        CONFIG, device, seed, train),
+    build_reduced=lambda device=None, seed=0, train=False: TransformerLM(
+        REDUCED, device, seed, train),
     shapes=LM_SHAPES,
     input_specs=lm_input_specs,
     step=lm_step,

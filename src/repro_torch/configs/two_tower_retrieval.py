@@ -5,9 +5,10 @@ retrieval. [RecSys'19 (YouTube); unverified]
 Counterpart of `repro/configs/two_tower_retrieval.py`. Embedding tables:
 user 10^8 rows, item 10^7 rows x dim 256, f32. `CONFIG` is the published
 config verbatim; `build()` cuts the user table to fit one card
-(ONE_CARD_USER_VOCAB). `input_specs` gives (shape, dtype) pairs without
-allocating; `step` returns the serve steps (the train step belongs to the
-training slice).
+(ONE_CARD_USER_VOCAB), and `build(train=True)` both tables, to leave room
+for their gradients and Adam's moments (TRAIN_USER_VOCAB,
+TRAIN_ITEM_VOCAB). `input_specs` gives (shape, dtype) pairs without
+allocating; `step` returns the train and serve steps.
 
 Shapes:
   train_batch    batch=65,536  in-batch sampled softmax (+logQ correction)
@@ -21,7 +22,9 @@ from dataclasses import replace
 
 import torch
 
-from repro_torch.configs.base import ArchSpec, ShapeSpec
+from repro_torch.configs.base import (ArchSpec, ShapeSpec, clipped_update,
+                                      value_and_grad)
+from repro_torch.optim import adam
 from repro_torch.recsys.two_tower import TwoTower, TwoTowerConfig
 
 # vocabs padded to multiples of 512 so the tables row-shard evenly on both
@@ -41,6 +44,14 @@ REDUCED = TwoTowerConfig(embed_dim=32, tower_mlp=(64, 32),
 # candidates (2.05 GB of bags, [1M, 1024] f32 hidden layers of 4.1 GB).
 # Widths, fields, ids per field, the item table and f32 stay as published.
 ONE_CARD_USER_VOCAB = 50_000_384
+# Training holds each table four times more (its dense gradient, the
+# clipped gradient, Adam's m and v) and twice over at the update's peak
+# (the new m, v and parameters beside the old), about 8 x the tables. The
+# published tables alone are 112.6 GB; train_batch keeps 5,000,192 user
+# and 500,224 item rows (multiples of 512, the published 10:1 ratio):
+# 5.63 GB of tables, ~45 GB at the update's peak. Widths, fields, ids per
+# field, the batch of 65,536, the temperature and f32 stay as published.
+TRAIN_USER_VOCAB, TRAIN_ITEM_VOCAB = 5_000_192, 500_224
 
 SHAPES = {
     "train_batch": ShapeSpec("train_batch", "train", {"batch": 65536}),
@@ -70,12 +81,25 @@ def input_specs(model, shape_name: str) -> dict:
                          torch.int32)}
 
 
-def step(model, shape_name: str):
-    """The serve step of `model` (a TwoTower) for one of SHAPES: a
-    callable of the batch dict; the model's parameters are its own."""
+def step(model, shape_name: str, optimizer=None):
+    """The train or serve step of `model` (a TwoTower) for one of SHAPES:
+    a callable of the batch dict. The serve steps use the model's own
+    parameters; train_step(params, opt_state, batch) -> (params,
+    opt_state, loss) takes them as an argument (JAX's `step`): the
+    sampled-softmax loss's gradient, clipped to global norm 1, then
+    `optimizer` (Adam unless given) at 1e-3."""
     if shape_name == "train_batch":
-        raise NotImplementedError("the two-tower train step belongs to the "
-                                  "training slice (ROADMAP Queue 1 item 10)")
+        opt = optimizer or adam()
+
+        def train_step(params, opt_state, batch):
+            loss, grads = value_and_grad(
+                model, model.loss, params, batch["user_ids"],
+                batch["item_ids"], batch["item_logq"])
+            params, opt_state = clipped_update(opt, opt_state, grads,
+                                               params, 1e-3)
+            return params, opt_state, loss
+
+        return train_step
     if shape_name == "serve_p99":
         return lambda batch: model.user_tower(batch["user_ids"])
     if shape_name == "serve_bulk":
@@ -87,11 +111,15 @@ def step(model, shape_name: str):
 
 SPEC = ArchSpec(
     name="two-tower-retrieval", family="recsys",
-    build=lambda device=None, seed=0: TwoTower(
+    build=lambda device=None, seed=0, train=False: TwoTower(
+        replace(CONFIG, user_vocab=TRAIN_USER_VOCAB,
+                item_vocab=TRAIN_ITEM_VOCAB) if train else
         replace(CONFIG, user_vocab=ONE_CARD_USER_VOCAB), device, seed),
-    build_reduced=lambda device=None, seed=0: TwoTower(REDUCED, device, seed),
+    build_reduced=lambda device=None, seed=0, train=False: TwoTower(
+        REDUCED, device, seed),
     shapes=SHAPES,
     input_specs=input_specs,
     step=step,
     notes="embedding lookup is the hot path; build() cuts the user table "
-          "to 50,000,384 rows for one 80 GB card.")
+          "to 50,000,384 rows for one 80 GB card, build(train=True) the "
+          "tables to 5,000,192 and 500,224 rows.")

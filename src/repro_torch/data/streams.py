@@ -1,8 +1,8 @@
 """Synthetic streams mirroring the paper's datasets (temporal edge lists +
 node features).
 
-Counterpart of `repro/data/streams.py` (the graph streams; the LM token
-batches come with the training slice). The paper streams temporal
+Counterpart of `repro/data/streams.py`: the graph streams and the LM
+token batches. The paper streams temporal
 edge-list files (sx-superuser, reddit-hyperlink, stackoverflow,
 ogb-products, wikikg90Mv2) as per-edge addition events ordered by
 timestamp, with node features as a feature stream. These generators
@@ -74,3 +74,18 @@ def feature_stream(stream: TemporalStream, tick_edges: int,
             yield []
     while pending:
         yield pending.pop(0)
+
+
+def token_batches(seed: int, vocab: int, batch: int, seq: int,
+                  n_batches: int) -> Iterator[tuple]:
+    """Synthetic LM (tokens, labels) batches with a Zipfian marginal, as
+    numpy int32 arrays [batch, seq]; labels are the tokens shifted left
+    by one (wrapping), as the JAX package's generator gives them."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = 1.0 / ranks
+    p /= p.sum()
+    for _ in range(n_batches):
+        toks = rng.choice(vocab, size=(batch, seq), p=p).astype(np.int32)
+        labels = np.roll(toks, -1, axis=1)
+        yield toks, labels

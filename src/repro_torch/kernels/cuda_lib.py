@@ -15,6 +15,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -77,3 +79,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_all([name])[name]))
         _LOADED[name] = lib
     return lib
+
+
+def refuse_grad(entry: str, *tensors) -> None:
+    """Raise where a CUDA kernel entry that has no backward is reached
+    under autograd. Its output is filled by a ctypes launch and carries
+    no graph, so a loss through it would get no gradient and no error.
+    Called on CUDA tensors only: the CPU paths are plain PyTorch and
+    differentiate."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{entry}: the CUDA kernel has no backward, and an input "
+            "requires grad, so its output would carry no gradient; call "
+            "it under torch.no_grad(), or differentiate through the "
+            "plain PyTorch version")

@@ -7,10 +7,19 @@ reduces it into its bag, so no [B*W, d] intermediate exists. Unlike the
 JAX wrapper it takes any bag count (the Pallas kernel asserts
 B % min(64, B) == 0).
 
-The wrapper runs its plain version (`ref.py`) for CPU tensors and, for
-CUDA tensors, launches the kernel or raises. `LAUNCHES` counts kernel
+Under autograd (grad mode on and the table requiring grad) the lookup is
+a `torch.autograd.Function` whose backward is the table gradient, as
+`jnp.take`'s is in the JAX package: a sum of rows per destination row,
+kernel 1's semantics, so on the card it runs on `csrc/segment_reduce.cu`
+(`segment_reduce.ops.sort_runs` + `deliver_rows`, as
+`core/delivery.py:KernelDelivery.add_rows` calls them). No gradient flows
+to the ids.
+
+The wrapper runs its plain versions (`ref.py`) for CPU tensors and, for
+CUDA tensors, launches the kernels or raises. `LAUNCHES` counts kernel
 launches (a plain integer; `reset_launches()` zeroes it) so a run can show
-that its path went through the kernel.
+that its path went through the kernel; the backward's launches count
+under kernel 1's `segment_reduce.ops.LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.embedding_bag import ref
+from repro_torch.kernels.segment_reduce import ops as seg_ops
 
 LAUNCHES = {"embedding_bag": 0}
 
@@ -53,10 +63,9 @@ def _check(table, ids, mode: str) -> None:
         raise ValueError(f"table on {table.device}, ids on {ids.device}")
 
 
-def embedding_bag(table, ids, mode: str = "mean"):
-    """table [V, d] f32; ids [B, W] int32/int64, negative = padding ->
-    [B, d] f32 (semantics of `ref.embedding_bag_ref`)."""
-    _check(table, ids, mode)
+def _forward(table, ids, mode: str):
+    """The bags, no graph: the plain version on the CPU, the kernel on
+    the card."""
     if table.device.type == "cpu":
         return ref.embedding_bag_ref(table, ids, mode)
     if table.dtype != torch.float32:
@@ -75,3 +84,56 @@ def embedding_bag(table, ids, mode: str = "mean"):
         raise RuntimeError(f"embedding_bag launch failed: cudaError {rc}")
     LAUNCHES["embedding_bag"] += 1
     return out
+
+
+def embedding_bag_grad(grad_out, ids, n_rows: int, mode: str = "mean"):
+    """The table gradient of `embedding_bag`: grad_out [B, d] f32, ids
+    [B, W] -> dense [n_rows, d] f32 (semantics of
+    `ref.embedding_bag_grad_ref`).
+
+    On the card, kernel 1 in its gather form: the flat ids sorted stably
+    by row (`sort_runs`; padding and ids past the table sort past every
+    run), each sorted record reading its bag's row of grad_out (scaled
+    by 1 / max(#ids >= 0, 1) in mean mode) by index, so no [B * W, d]
+    rows are written; rows no id names read 0."""
+    if grad_out.device.type == "cpu":
+        return ref.embedding_bag_grad_ref(grad_out, ids, n_rows, mode)
+    B, W = ids.shape
+    g = grad_out.to(torch.float32)
+    g = g / ref.bag_counts(ids)[:, None] if mode == "mean" \
+        else g.contiguous()
+    order, row_ptr = seg_ops.sort_runs(ids.reshape(-1).to(torch.int64),
+                                       n_rows)
+    out, _, _ = seg_ops.deliver_rows(g, row_ptr, order // W, mode="add")
+    return out
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """The lookup under autograd: forward `_forward`, backward
+    `embedding_bag_grad` into the table (none into the ids)."""
+
+    @staticmethod
+    def forward(table, ids, mode):
+        return _forward(table, ids, mode)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, ids, mode = inputs
+        ctx.save_for_backward(ids)
+        ctx.n_rows, ctx.mode = table.shape[0], mode
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (ids,) = ctx.saved_tensors
+        return (embedding_bag_grad(grad_out, ids, ctx.n_rows, ctx.mode),
+                None, None)
+
+
+def embedding_bag(table, ids, mode: str = "mean"):
+    """table [V, d] f32; ids [B, W] int32/int64, negative = padding ->
+    [B, d] f32 (semantics of `ref.embedding_bag_ref`). Differentiable in
+    the table."""
+    _check(table, ids, mode)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbeddingBag.apply(table, ids, mode)
+    return _forward(table, ids, mode)

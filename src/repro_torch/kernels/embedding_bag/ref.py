@@ -3,7 +3,8 @@
 Counterpart of `repro/kernels/embedding_bag/ref.py`, which is
 `repro/recsys/embedding_bag.py:embedding_bag_lookup`. The wrapper in
 `ops.py` runs it for CPU tensors; `chip_smoke.py` holds the CUDA kernel
-against it on the card.
+against it on the card. `embedding_bag_grad_ref` is the plain version of
+the table gradient (the backward of `ops.embedding_bag`).
 """
 from __future__ import annotations
 
@@ -32,3 +33,28 @@ def embedding_bag_ref(table, ids, mode: str = "mean"):
         n = valid.sum(dim=-1, keepdim=True).to(s.dtype)
         s = s / torch.clamp(n, min=1.0)
     return s.masked_fill_(oob.any(dim=-1, keepdim=True), float("nan"))
+
+
+def bag_counts(ids):
+    """[B] f32 divisors of the mean: max(#ids >= 0, 1) per bag, as the
+    forward counts them (an id >= V counts, padding does not)."""
+    return torch.clamp((ids >= 0).sum(dim=-1).to(torch.float32), min=1.0)
+
+
+def embedding_bag_grad_ref(grad_out, ids, n_rows: int, mode: str = "mean"):
+    """The table gradient of `embedding_bag_ref`: grad_out [B, d], ids
+    [B, W] -> dense [n_rows, d] f32. Each id in [0, n_rows) of bag b adds
+    grad_out[b] (sum) or grad_out[b] / max(#ids >= 0, 1) (mean) to its
+    row; padding and ids past the table add nothing (`jnp.take`'s
+    gradient drops them). Zeros + `index_add_` of the expanded rows."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
+    B, W = ids.shape
+    g = grad_out.to(torch.float32)
+    if mode == "mean":
+        g = g / bag_counts(ids)[:, None]
+    live = (ids >= 0) & (ids < n_rows)
+    rows = g[:, None, :].expand(B, W, g.shape[1])[live]
+    out = torch.zeros(n_rows, g.shape[1], dtype=torch.float32,
+                      device=g.device)
+    return out.index_add_(0, ids[live].to(torch.int64), rows)

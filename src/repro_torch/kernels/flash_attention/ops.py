@@ -17,6 +17,12 @@ never drops back to another kernel or to the plain version.
 zeroes them) so a run can show that its path went through the kernels:
 "flash_attention" every launch, "flash_attention_wgmma" those of the
 Hopper kernel.
+
+The kernels have no backward (nor has the JAX package's: its model
+never trains through the Pallas kernel, `use_flash` is never set), so on
+CUDA tensors the wrapper raises under autograd rather than return an
+output without a graph: training attends through
+`nn/attention.py:mha_chunked`, as JAX's does.
 """
 from __future__ import annotations
 
@@ -124,6 +130,9 @@ def flash_attention(q, k, v, causal: bool = True):
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
     _check_cuda(q, k, v)
+    cuda_lib.refuse_grad("flash_attention (training attends through "
+                         "nn.attention.mha_chunked, as the JAX package's "
+                         "does)", q, k, v)
     wgmma = uses_wgmma(q)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel():

@@ -19,6 +19,10 @@ fused entry also the router's pack, concatenation and ring gather) or
 raise; for CPU tensors they run the plain versions in `ref.py` (the JAX
 "xla" backend, and the router's chain around it).
 
+The kernel has no backward: a CUDA call under autograd with an input
+that requires grad raises (`cuda_lib.refuse_grad`) rather than return
+an output without a graph.
+
 All are bit-exact copies of the shipped rows (NaN, Inf and -0.0
 included); the Pallas backend is exact only for finite rows. `LAUNCHES`
 counts kernel launches per entry (`reset_launches()` zeroes it) so a run
@@ -138,6 +142,7 @@ def route_pack(rows, order, slot_s, starts, n_dev: int, cap: int):
     if rows.device.type == "cpu":
         return ref.route_pack_ref(rows[order], slot_s, n_slots)
     dev = rows.device
+    cuda_lib.refuse_grad("route_pack", rows)
     _check(rows, "rows", torch.float32, 2, dev)
     _check_plan(order, starts, rows.shape[0], n_dev, cap, dev)
     width = rows.shape[1]
@@ -198,10 +203,11 @@ def route_lane(ring, lane, plan, n_dev: int, cap: int):
         return ref.route_lane_ref(ring, lane, plan, n_dev, cap)
     order, starts = plan[0], plan[4]
     dev = ring.device
+    layout = wire.lane_fields(lane)
+    cuda_lib.refuse_grad("route_lane", ring, *(t for _, t, _, _ in layout))
     _check(ring, "ring", torch.float32, 2, dev)
     K, W = ring.shape
     C = lane.part.shape[0]
-    layout = wire.lane_fields(lane)
     width = sum(w for _, _, _, w in layout)
     if W != width:
         raise ValueError(f"ring rows are {W} wide, the lane's wire rows "

@@ -11,7 +11,11 @@ PyTorch, as it is XLA on the TPU side; the reductions are the kernels of
   mean_rows_gather  (kernel B) — replaces kernel.py:mean_rows_kernel
 
 Each wrapper runs its plain version (`ref.py`) for CPU tensors and, for
-CUDA tensors, launches its kernel or raises. `LAUNCHES` counts kernel
+CUDA tensors, launches its kernel or raises; the kernels have no
+backward, so a CUDA call under autograd with an input that requires
+grad raises (`cuda_lib.refuse_grad`) rather than return an output
+without a graph. The embedding bag's backward calls `deliver_rows` on
+the gradient, which requires none. `LAUNCHES` counts kernel
 launches per wrapper (plain integers; `reset_launches()` zeroes them) so
 a run can show that its path went through the kernels; every form of
 kernel A counts under "segment_sum_rows".
@@ -176,6 +180,7 @@ def deliver_rows(vec, row_ptr, order=None, cnt=None, base=None,
         return ref.deliver_rows_ref(vec, row_ptr, order, cnt, base,
                                     base_cnt, mode)
     dev = vec.device
+    cuda_lib.refuse_grad("deliver_rows", vec, cnt, base, base_cnt)
     _check(vec, "vec", torch.float32, 2, dev, contiguous=False)
     _check(row_ptr, "row_ptr", torch.int64, 1, dev)
     n, d = row_ptr.numel() - 1, vec.shape[1]
@@ -270,6 +275,7 @@ def mean_rows_gather(agg, cnt, rows):
     if agg.device.type == "cpu":
         return ref.mean_rows_gather_ref(agg, cnt, rows)
     dev = agg.device
+    cuda_lib.refuse_grad("mean_rows_gather", agg, cnt)
     _check(agg, "agg", torch.float32, 2, dev)
     _check(cnt, "cnt", torch.float32, 1, dev)
     _check(rows, "rows", torch.int64, 1, dev)

@@ -1,10 +1,12 @@
 """Grouped-query attention with RoPE and KV-cache decode.
 
-Counterpart of `repro/nn/attention.py`. Prefill attention goes through
-`kernels/flash_attention`: on a CUDA tensor that is the hand-written kernel
-(the port's counterpart of both `use_flash=True` and the `q_chunk` path,
-which compute the same function), on a CPU tensor its plain version.
-Decode attends one new token against the cache in plain PyTorch, as the
+Counterpart of `repro/nn/attention.py`. Prefill attention (grad mode
+off) goes through `kernels/flash_attention`: on a CUDA tensor that is the
+hand-written kernel (the port's counterpart of both `use_flash=True` and
+the `q_chunk` path, which compute the same function), on a CPU tensor
+its plain version. With grad mode on, attention is JAX's training route:
+`mha_chunked` at `q_chunk` when S > q_chunk > 0, else `mha` under the
+causal mask (the kernel has no backward). Decode attends one new token against the cache in plain PyTorch, as the
 JAX package leaves it to XLA; so does the sequence-sharded decode
 (`decode_attend_partial` on each shard of the cache, then
 `combine_partial_decodes`, the flash-decoding log-sum-exp merge).
@@ -45,6 +47,37 @@ def mha(q, k, v, mask=None, scale=None):
         logits = torch.where(mask[None, None, None], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", w, v).reshape(B, S, H, D)
+
+
+def mha_chunked(q, k, v, q_chunk: int = 256, causal: bool = True,
+                q_offset: int = 0):
+    """Query-chunked attention: a loop over q blocks, each with a full
+    softmax over the keys, so the scores live [B, Kh, G, q_chunk, T] at a
+    time instead of [B, Kh, G, S, T]. Counterpart of JAX's `mha_chunked`
+    (a scan over the same blocks, the same f32 scores and masking).
+
+    q [B,S,H,D]; k/v [B,T,Kh,D]; S a multiple of q_chunk. -> [B,S,H,D]."""
+    B, S, H, D = q.shape
+    T, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    nq = S // q_chunk
+    if nq * q_chunk != S:
+        raise ValueError(f"mha_chunked: S = {S} is not a multiple of "
+                         f"q_chunk = {q_chunk}")
+    scale = 1.0 / D ** 0.5
+    qs = q.reshape(B, nq, q_chunk, Kh, G, D)
+    kv_pos = torch.arange(T, device=q.device)[None, :]
+    outs = []
+    for i in range(nq):
+        logits = torch.einsum("bqkgd,btkd->bkgqt", qs[:, i], k).float()
+        logits = logits * scale
+        if causal:
+            q_pos = (i * q_chunk + q_offset + torch.arange(
+                q_chunk, device=q.device))[:, None]
+            logits = torch.where(kv_pos <= q_pos, logits, NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bkgqt,btkd->bqkgd", w, v))
+    return torch.cat(outs, dim=1).reshape(B, S, H, D)
 
 
 def decode_attend(q, cache_k, cache_v, valid):
@@ -95,10 +128,11 @@ def combine_partial_decodes(outs, ms, ss):
 class GQAAttention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
                  rope_theta: float = 10000.0, dtype=torch.float32,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 q_chunk: int = 0):
         super().__init__()
         self.n_heads, self.n_kv, self.head_dim = n_heads, n_kv, head_dim
-        self.rope_theta = rope_theta
+        self.rope_theta, self.q_chunk = rope_theta, q_chunk
         hd, kd = n_heads * head_dim, n_kv * head_dim
         self.wq = init_param((d_model, hd), lecun, dtype, device, generator)
         self.wk = init_param((d_model, kd), lecun, dtype, device, generator)
@@ -116,12 +150,22 @@ class GQAAttention(nn.Module):
         return q, k, v
 
     def forward(self, x, positions=None):
-        """Full (prefill) causal self-attention. x: [B,S,d_model]."""
+        """Full causal self-attention. x: [B,S,d_model]. A call that
+        differentiates (grad mode on and q, k or v requiring grad, the
+        flash kernel's own refusal test) takes JAX's training route
+        (`mha_chunked`, or `mha` when S <= q_chunk); every other call
+        the flash kernel (prefill)."""
         B, S, _ = x.shape
         if positions is None:
             positions = torch.arange(S, device=x.device).expand(B, S)
         q, k, v = self._qkv(x, positions)
-        out = flash_attention(q, k, v, causal=True)
+        if not (torch.is_grad_enabled() and (
+                q.requires_grad or k.requires_grad or v.requires_grad)):
+            out = flash_attention(q, k, v, causal=True)
+        elif self.q_chunk and S > self.q_chunk:
+            out = mha_chunked(q, k, v, q_chunk=self.q_chunk, causal=True)
+        else:
+            out = mha(q, k, v, mask=causal_mask(S, S, device=x.device))
         return out.reshape(B, S, -1) @ self.wo.to(x.dtype)
 
     def decode(self, x, cache_k, cache_v, cache_len):

@@ -1,15 +1,20 @@
-"""Decoder-only transformer (dense) for prefill and KV-cache decode.
+"""Decoder-only transformer (dense): prefill, KV-cache decode and the
+training loss.
 
 Counterpart of `repro/nn/transformer.py`. The JAX model scans over stacked
 layer groups; here the layers are an `nn.ModuleList` run in a Python loop
 (`convert.lm_params_from_numpy` splits JAX's stacked groups into layers).
 Every parameter is drawn in f32 on the model's device from one
-`torch.Generator` seeded with `seed`, tensor by tensor, and stored in
-`cfg.dtype`, so a full-width model never exists in f32 or on the host.
+`torch.Generator` seeded with `seed`, tensor by tensor. A serving model
+stores it in `cfg.dtype`, so a full-width model never exists in f32 or
+on the host; a model built for training (`train=True`) keeps the f32
+parameters, as the JAX package holds them, and every layer casts at use.
 
-Ported: prefill (`hidden_states`, `logits`) and decode (`init_cache`,
-`decode_step`) of dense blocks. MoE blocks wait for their slice (ROADMAP
-Queue 1 item 14) and `loss` for the training slice (item 10).
+Ported: prefill (`hidden_states`, `logits`), decode (`init_cache`,
+`decode_step`) and `loss` (the chunked, rematerialised next-token CE) of
+dense blocks; with `cfg.remat` each layer is checkpointed under grad
+(JAX's `jax.checkpoint` of a group). MoE blocks wait for their slice
+(ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.nn.attention import GQAAttention
@@ -37,6 +43,9 @@ class TransformerConfig:
     moe: Optional[object] = None  # an MoE config: not ported yet
     rope_theta: float = 500000.0
     dtype: str = "bfloat16"
+    loss_chunks: int = 8          # sequence chunks for the CE loss head
+    remat: bool = True            # checkpoint each layer under grad
+    q_chunk: int = 256            # chunked-attention block when training
 
     @property
     def pattern(self) -> tuple:
@@ -59,17 +68,18 @@ class Block(nn.Module):
     """Pre-norm block: x += attn(norm(x)); x += ffn(norm(x))."""
 
     def __init__(self, cfg: TransformerConfig, kind: str, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if kind != "dense":
             raise NotImplementedError(
                 f"{kind!r} blocks are not ported: MoE layers belong to the "
                 "off-path zoo (ROADMAP Queue 1 item 14)")
-        c, dt = cfg, cfg.torch_dtype
+        c, dt = cfg, dtype or cfg.torch_dtype
         self.norm1 = RMSNorm(c.d_model, dtype=dt, device=device)
         self.attn = GQAAttention(c.d_model, c.n_heads, c.n_kv, c.head_dim,
                                  c.rope_theta, dtype=dt, device=device,
-                                 generator=generator)
+                                 generator=generator, q_chunk=c.q_chunk)
         self.norm2 = RMSNorm(c.d_model, dtype=dt, device=device)
         self.ffn = SwiGLU(c.d_model, c.d_ff, dtype=dt, device=device,
                           generator=generator)
@@ -85,33 +95,68 @@ class Block(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """`device=None` is CUDA (raises without it); pass "cpu" for the CPU."""
+    """`device=None` is CUDA (raises without it); pass "cpu" for the CPU.
+    `train=True` stores the parameters in f32 (the JAX package's
+    discipline), else in cfg.dtype; the values drawn are the same."""
 
-    def __init__(self, cfg: TransformerConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: TransformerConfig, device=None, seed: int = 0,
+                 train: bool = False):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        dt = cfg.torch_dtype
+        dt = torch.float32 if train else cfg.torch_dtype
         self.embed = Embedding(cfg.vocab, cfg.d_model, dtype=dt,
                                device=self.device, generator=gen)
         self.blocks = nn.ModuleList(
-            Block(cfg, cfg.pattern[i % len(cfg.pattern)], self.device, gen)
+            Block(cfg, cfg.pattern[i % len(cfg.pattern)], self.device, gen,
+                  dt)
             for i in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, dtype=dt, device=self.device)
         self.lm_head = init_param((cfg.d_model, cfg.vocab), lecun, dt,
                                   self.device, gen)
 
     # ---- forward ----
-    @torch.no_grad()
-    def hidden_states(self, tokens):
-        """tokens [B,S] -> final hidden [B,S,d] (after the final norm)."""
+    def _hidden(self, tokens):
+        """tokens [B,S] -> final hidden [B,S,d] in cfg.dtype; under grad
+        each block is checkpointed when cfg.remat (nothing saved but its
+        input, as JAX's nothing_saveable policy)."""
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
         x = self.embed(tokens.to(self.device)).to(self.cfg.torch_dtype)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, positions)
+            x = checkpoint(blk, x, positions, use_reentrant=False) if remat \
+                else blk(x, positions)
         return self.final_norm(x)
+
+    @torch.no_grad()
+    def hidden_states(self, tokens):
+        """tokens [B,S] -> final hidden [B,S,d] (after the final norm)."""
+        return self._hidden(tokens)
+
+    def loss(self, tokens, labels):
+        """Mean next-token CE (labels = tokens shifted by the caller; -100
+        = padding), differentiable. Counterpart of JAX's `loss`: the
+        hidden states in cfg.loss_chunks sequence chunks (fewer where S
+        does not divide), each chunk's logits and CE recomputed in the
+        backward (checkpointed), so no [tokens, vocab] logits tensor ever
+        lives whole; the CE sums and valid counts add up in f32."""
+        x = self._hidden(tokens)
+        labels = labels.to(self.device)
+        B, S, d = x.shape
+        n_chunks = min(self.cfg.loss_chunks, S)
+        while S % n_chunks:
+            n_chunks -= 1
+        c = S // n_chunks
+        tot = torch.zeros((), dtype=torch.float32, device=self.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=self.device)
+        for i in range(n_chunks):
+            ce, n = checkpoint(_chunk_ce, x[:, i * c:(i + 1) * c],
+                               labels[:, i * c:(i + 1) * c], self.lm_head,
+                               use_reentrant=False)
+            tot, cnt = tot + ce, cnt + n
+        return tot / torch.clamp(cnt, min=1)
 
     @torch.no_grad()
     def logits(self, tokens):
@@ -169,3 +214,13 @@ class TransformerLM(nn.Module):
         return logits, {"k": cache["k"], "v": cache["v"],
                         "len": cache["len"] + 1,
                         "pos": pos + 1}
+
+
+def _chunk_ce(x, labels, head):
+    """(sum of CE over the valid labels, their count) of one chunk:
+    logits in f32 from x @ head in x's dtype."""
+    logits = (x @ head.to(x.dtype)).float()
+    valid = labels >= 0
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    ce = torch.where(valid, torch.logsumexp(logits, dim=-1) - gold, 0.0)
+    return ce.sum(), valid.sum()

@@ -1,4 +1,5 @@
-"""Two-tower retrieval (YouTube/RecSys'19): the serve path.
+"""Two-tower retrieval (YouTube/RecSys'19): sampled softmax over in-batch
+negatives with logQ correction, and the serve path.
 
 Counterpart of `repro/recsys/two_tower.py`. Config: embed_dim 256, tower
 MLP 1024-512-256, dot interaction. Each tower is a multi-field
@@ -6,15 +7,16 @@ EmbeddingBag (one kernel launch over all of a batch's fields), an MLP,
 and an L2 normalisation.
 
 Shapes (configs/two_tower_retrieval.py):
+  train_batch   : batch=65,536 in-batch sampled-softmax training step
   serve_p99     : batch=512 online user-tower inference
   serve_bulk    : batch=262,144 offline scoring (paired dot)
   retrieval_cand: 1 query x 1,000,000 candidates, one batched matmul
 
 Every parameter is drawn in f32 on the model's device from one
 `torch.Generator` seeded with `seed`, so the full-width tables never exist
-on the host. Ported: the towers and the scores. `loss` (in-batch sampled
-softmax) and the train step belong to the training slice (ROADMAP Queue 1
-item 10).
+on the host. The serve towers run without a graph; `loss` runs them
+under autograd (the bag lookups through `kernels/embedding_bag`'s
+autograd.Function: kernel 4 forward, kernel 1 backward on the card).
 """
 from __future__ import annotations
 
@@ -22,10 +24,16 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.nn.layers import MLP
 from repro_torch.recsys.embedding_bag import EmbeddingBag
+
+# the in-batch logits [B, B] are taken LOSS_ROWS rows at a time (at most
+# 2^28 f32 scores a block): at B = 65,536 a whole [B, B] f32 tensor is
+# 17.2 GB, and autograd would keep three of them
+LOSS_SCORES = 1 << 28
 
 
 @dataclass(frozen=True)
@@ -60,16 +68,17 @@ class TwoTower(nn.Module):
         self.item_mlp = MLP((c.embed_dim * c.item_fields,) + tuple(
             c.tower_mlp), device=self.device, generator=gen)
 
+    def _tower(self, bag, mlp, ids):
+        return l2_normalize(mlp(embedding_fields(bag, ids.to(self.device))))
+
     @torch.no_grad()
     def user_tower(self, user_ids):
         """user_ids [B, fields, max_ids] -> normalised [B, d]."""
-        e = embedding_fields(self.user_emb, user_ids.to(self.device))
-        return l2_normalize(self.user_mlp(e))
+        return self._tower(self.user_emb, self.user_mlp, user_ids)
 
     @torch.no_grad()
     def item_tower(self, item_ids):
-        e = embedding_fields(self.item_emb, item_ids.to(self.device))
-        return l2_normalize(self.item_mlp(e))
+        return self._tower(self.item_emb, self.item_mlp, item_ids)
 
     def score(self, user_ids, item_ids):
         """Dot-product scores [B] for paired users/items."""
@@ -82,6 +91,38 @@ class TwoTower(nn.Module):
         u = self.user_tower(user_ids)                  # [Bq, d]
         v = self.item_tower(cand_item_ids)             # [Nc, d]
         return (u @ v.T) / self.cfg.temperature
+
+    def loss(self, user_ids, item_ids, item_logq=None):
+        """In-batch sampled softmax with logQ correction, differentiable.
+
+        user_ids [B, uf, w]; item_ids [B, if, w]; item_logq [B] the items'
+        sampling log-probabilities (frequency correction), optional.
+        Row i's logits are u_i . v_j / temperature - logq_j over the
+        batch's items j, its label j = i; the loss is the mean NLL. The
+        logits are taken in blocks of rows, each checkpointed (recomputed
+        in the backward), so at most one [rows, B] block and its softmax
+        live at a time."""
+        u = self._tower(self.user_emb, self.user_mlp, user_ids)
+        v = self._tower(self.item_emb, self.item_mlp, item_ids)
+        logq = None if item_logq is None else item_logq.to(self.device)
+        B = u.shape[0]
+        rows = max(1, LOSS_SCORES // max(B, 1))
+        nll = torch.zeros((), dtype=torch.float32, device=self.device)
+        for r0 in range(0, B, rows):
+            nll = nll + checkpoint(_block_nll, u[r0:r0 + rows], v, logq,
+                                   r0, self.cfg.temperature,
+                                   use_reentrant=False)
+        return nll / B
+
+
+def _block_nll(u, v, logq, r0: int, temperature: float):
+    """Sum over rows r0 + i of -log_softmax(logits)[i, r0 + i]."""
+    logits = (u @ v.T).float() / temperature
+    if logq is not None:
+        logits = logits - logq[None, :]
+    logp = torch.log_softmax(logits, dim=-1)
+    diag = torch.arange(u.shape[0], device=u.device)
+    return -logp[diag, r0 + diag].sum()
 
 
 def embedding_fields(bag: EmbeddingBag, ids):

@@ -1026,3 +1026,164 @@ def test_decode_partial_on_the_card(cuda, dtype):
         outs[dev.type] = comb.cpu()
     assert ((outs["cuda"] - outs["cpu"]).abs()
             <= tol * torch.clamp(outs["cpu"].abs(), min=1)).all()
+
+
+# the zoo's train steps. Kernel 4 under autograd: its backward (kernel 1
+# over the sorted flat ids) equals the plain table gradient (zeros +
+# index_add_) within KA_TOL x (1 + the row's sum of |w| / count), kernel
+# A's bound above (f32 sums of the same rows in another order: a hub row
+# sums thousands); every kernel entry without a backward raises under
+# grad
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+@pytest.mark.parametrize("B,W,V,d,hub", [(300, 8, 1000, 32, False),
+                                        (4096, 8, 5000, 256, True)])
+def test_embedding_bag_backward_on_the_card_matches_plain(cuda, mode, B, W,
+                                                         V, d, hub):
+    g = torch.Generator().manual_seed(B + d)
+    ids = torch.randint(-2, V, (B, W), generator=g)
+    ids[:5] = -1                           # empty bags
+    ids[5, 0] = V + 7                      # a NaN bag: no gradient row
+    if hub:                                # one row named by a third of ids
+        ids[torch.rand(B, W, generator=g) < 0.3] = 17
+    table = torch.randn(V, d, generator=g)
+    w = torch.randn(B, d, generator=g)
+    w[5] = 0.0
+    leaf = table.to(cuda).requires_grad_()
+    eb_ops.reset_launches()
+    sr_ops.reset_launches()
+    out = eb_ops.embedding_bag(leaf, ids.to(cuda), mode)
+    (got,) = torch.autograd.grad((out.nan_to_num() * w.to(cuda)).sum(),
+                                 leaf)
+    assert eb_ops.LAUNCHES["embedding_bag"] == 1
+    assert sr_ops.LAUNCHES["segment_sum_rows"] == 1
+    want = eb_ref.embedding_bag_grad_ref(w, ids, V, mode)
+    mag = eb_ref.embedding_bag_grad_ref(w.abs(), ids, V, mode)
+    err = (got.cpu() - want).abs()
+    assert bool((err <= KA_TOL * (1 + mag)).all()), float(err.max())
+    direct = eb_ops.embedding_bag_grad(w.to(cuda), ids.to(cuda), V, mode)
+    torch.testing.assert_close(direct, got, rtol=0, atol=0)
+
+
+def test_kernel_entries_without_a_backward_raise_under_grad(cuda):
+    q = torch.randn(1, 64, 4, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="mha_chunked"):
+        ops.flash_attention(q.requires_grad_(), k, k)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, k).shape == q.shape
+    vec = torch.randn(6, 3, device=cuda, requires_grad=True)
+    row_ptr = torch.tensor([0, 2, 6], device=cuda)
+    with pytest.raises(RuntimeError, match="deliver_rows.*no backward"):
+        sr_ops.deliver_rows(vec, row_ptr)
+    with pytest.raises(RuntimeError, match="mean_rows_gather.*no backward"):
+        sr_ops.mean_rows_gather(vec, torch.ones(6, device=cuda),
+                                torch.zeros(2, dtype=torch.int64,
+                                            device=cuda))
+    order = torch.arange(6, device=cuda)
+    with pytest.raises(RuntimeError, match="route_pack.*no backward"):
+        rp_ops.route_pack(vec, order, order, torch.tensor(
+            [0, 6, 6], device=cuda), 2, 3)
+    lane = FeatBatch(part=torch.zeros(6, dtype=torch.int64, device=cuda),
+                     slot=torch.zeros(6, dtype=torch.int64, device=cuda),
+                     feat=vec, valid=torch.ones(6, dtype=torch.bool,
+                                                device=cuda))
+    W = sum(w for _, _, _, w in wire.lane_fields(lane))
+    plan = rp_ops.route_plan(lane.part, lane.valid, 2, 3)
+    with pytest.raises(RuntimeError, match="route_lane.*no backward"):
+        rp_ops.route_lane(torch.zeros(0, W, device=cuda), lane, plan, 2, 3)
+    with torch.no_grad():
+        sr_ops.deliver_rows(vec, row_ptr)
+        rp_ops.route_lane(torch.zeros(0, W, device=cuda), lane, plan, 2, 3)
+
+
+def _copy_train_model(spec, cuda):
+    cpu = spec.build_reduced(device="cpu", seed=0, train=True)
+    card = spec.build_reduced(device=cuda, seed=1, train=True)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _assert_train_runs_match(cpu_runs, card_runs):
+    """Loss within 1e-5 x |cpu|; parameters and Adam moments within 1e-5
+    absolute, and the moments also within 1e-4 x max |cpu| per leaf (the
+    CPU parity tests' bounds against JAX: v ~ 1e-3 g^2 lies far below
+    1e-5)."""
+    for (lc, pc, sc), (lg, pg, sg) in zip(cpu_runs, card_runs):
+        assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+        for name in pc:
+            for a, b in ((pc, pg), (sc["m"], sg["m"]), (sc["v"], sg["v"])):
+                err = float((b[name].cpu() - a[name]).abs().max())
+                assert err <= 1e-5, (name, err)
+            for a, b in ((sc["m"], sg["m"]), (sc["v"], sg["v"])):
+                err = float((b[name].cpu() - a[name]).abs().max())
+                assert err <= 1e-4 * float(a[name].abs().max()), (name, err)
+        assert int(sg["t"]) == int(sc["t"])
+
+
+def test_reduced_lm_train_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.data.streams import token_batches
+    from repro_torch.nn.module import param_tree
+    from repro_torch.optim import adam
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = get_arch("mistral-nemo-12b")
+    cpu, card = _copy_train_model(spec, cuda)
+    runs = {}
+    for model in (cpu, card):
+        step = spec.step(model, "train_4k")
+        p = param_tree(model)
+        s = adam().init(p)
+        runs[model.device.type] = out = []
+        ops.reset_launches()
+        for toks, labels in token_batches(0, model.cfg.vocab, 256, 32, 2):
+            p, s, loss = step(p, s, torch.as_tensor(toks, device=model.device),
+                              torch.as_tensor(labels, device=model.device))
+            out.append((loss, p, s))
+        assert ops.LAUNCHES["flash_attention"] == 0
+    _assert_train_runs_match(runs["cpu"], runs["cuda"])
+
+
+def test_reduced_two_tower_train_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import random_bag_ids
+    from repro_torch.nn.module import param_tree
+    from repro_torch.optim import adam
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = get_arch("two-tower-retrieval")
+    cpu, card = _copy_train_model(spec, cuda)
+    c = cpu.cfg
+    g = torch.Generator().manual_seed(0)
+    batches = [{"user_ids": random_bag_ids(g, (256, c.user_fields,
+                                               c.max_ids_per_field),
+                                           c.user_vocab),
+                "item_ids": random_bag_ids(g, (256, c.item_fields,
+                                               c.max_ids_per_field),
+                                           c.item_vocab),
+                "item_logq": torch.randn(256, generator=g) - 5.0}
+               for _ in range(2)]
+    runs = {}
+    for model in (cpu, card):
+        step = spec.step(model, "train_batch")
+        p = param_tree(model)
+        s = adam().init(p)
+        runs[model.device.type] = out = []
+        eb_ops.reset_launches()
+        sr_ops.reset_launches()
+        for b in batches:
+            p, s, loss = step(p, s, {k: v.to(model.device)
+                                     for k, v in b.items()})
+            out.append((loss, p, s))
+    assert eb_ops.LAUNCHES["embedding_bag"] == 4      # 2 towers x 2 steps
+    assert sr_ops.LAUNCHES["segment_sum_rows"] == 4   # their backwards
+    _assert_train_runs_match(runs["cpu"], runs["cuda"])
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("mistral-nemo-12b", "train_4k"), ("two-tower-retrieval", "train_batch")])
+def test_train_cli_runs_on_the_card_by_default(cuda, arch, shape, capsys):
+    from repro_torch.launch import train
+    model, params, state, losses = train.main(
+        ["--arch", arch, "--shape", shape, "--reduced", "--steps", "3"])
+    assert next(iter(params.values())).is_cuda
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert capsys.readouterr().out.strip().endswith("train driver done")

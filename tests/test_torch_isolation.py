@@ -54,7 +54,9 @@ def test_import_leaves_jax_out():
             "repro_torch.serve.train_session, repro_torch.optim, "
             "repro_torch.optim.quantized, repro_torch.dist.grad_compression, "
             "repro_torch.core.aggregators, repro_torch.ft.chaos, "
-            "repro_torch.ft.elastic, repro_torch.ft.checkpoint; "
+            "repro_torch.ft.elastic, repro_torch.ft.checkpoint, "
+            "repro_torch.launch.train, repro_torch.nn.module, "
+            "repro_torch.configs.base; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -88,6 +90,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         serve.main(["--arch", "two-tower-retrieval", "--reduced"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_arch("two-tower-retrieval").build_reduced()
+    from repro_torch.launch import train
+    for arch, shape in (("mistral-nemo-12b", "train_4k"),
+                        ("two-tower-retrieval", "train_batch")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--arch", arch, "--shape", shape, "--reduced"])
     # a mesh rank with no device named: CUDA, never the CPU unasked
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_stream_mesh

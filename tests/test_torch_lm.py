@@ -389,8 +389,18 @@ def test_d3gnn_step_runs_an_empty_tick():
 def test_unported_paths_raise():
     with pytest.raises(KeyError, match="unported"):
         get_arch("llama4-maverick-400b-a17b")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        get_arch(ARCH).step(None, "train_4k")
+    # the train step is ported now: it runs (parity with JAX's lm_step in
+    # tests/test_torch_train_zoo.py)
+    from repro_torch.nn.module import param_tree
+    from repro_torch.optim import adam
+    model = get_arch(ARCH).build_reduced(device="cpu", train=True)
+    params = param_tree(model)
+    toks = torch.randint(0, REDUCED.vocab, (256, 4),
+                         generator=torch.Generator().manual_seed(0))
+    new, state, loss = get_arch(ARCH).step(model, "train_4k")(
+        params, adam().init(params), toks, torch.roll(toks, -1, 1))
+    assert bool(loss.isfinite()) and int(state["t"]) == 1
+    assert not torch.equal(new["lm_head"], params["lm_head"])
     from repro.configs.llama4_maverick_400b_a17b import REDUCED as jmoe
     from repro_torch.nn.transformer import TransformerConfig
     moe = TransformerConfig(**{f: getattr(jmoe, f) for f in (

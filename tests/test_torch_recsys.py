@@ -210,9 +210,22 @@ def test_shapes_and_input_specs_match_jax(port_model, jax_model):
             assert dtype == dtypes[theirs[name].dtype.type]
 
 
-def test_train_step_raises(port_model):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_arch(ARCH).step(port_model, "train_batch")
+def test_train_step_raises(port_model, inputs):
+    """The train step is ported now: train_batch runs (parity with JAX's
+    step in tests/test_torch_train_zoo.py) and leaves the model as it was."""
+    from repro_torch.nn.module import param_tree
+    from repro_torch.optim import adam
+    params = param_tree(port_model)
+    batch = {"user_ids": torch.tensor(inputs["user_ids"]),
+             "item_ids": torch.tensor(inputs["item_ids"]),
+             "item_logq": torch.full((B,), -3.0)}
+    new, state, loss = get_arch(ARCH).step(port_model, "train_batch")(
+        params, adam().init(params), batch)
+    assert bool(loss.isfinite()) and int(state["t"]) == 1
+    assert set(new) == set(params)
+    assert not torch.equal(new["user_emb.table"], params["user_emb.table"])
+    for name, p in port_model.named_parameters():
+        assert p.data_ptr() == params[name].data_ptr()
 
 
 def test_serve_cli_reduced_on_cpu(capsys):
