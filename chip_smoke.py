@@ -280,6 +280,32 @@ Then the zoo's train steps, after the serve phases free their memory:
   [train-cli] python -m repro_torch.launch.train --reduced --steps 3
      for both archs, as subprocesses on the card.
 
+Then the graph zoo (GNN's note above phase_gnn_kernel: the global graph,
+the sampler's batch and its cuts):
+
+  [gnn-kernel] kernel 1 through gather_segment_sum (a stable sort by
+     masked receiver, each record gathering its source row) and kernels
+     1 + 2 through rmi_apply_read (the records added onto the synopsis,
+     then the mean read at the picked rows) against their plain versions:
+     no edges, every edge masked, one hub receiving every edge, receivers
+     out of order, no records, every record on one row, and a planted
+     fault each comparison must catch; rows 1e (the sampler's
+     minibatch_lg batch, x [169,984, 602] and PNA's d 75) and 2e (the
+     d3gnn layer-0 lane, 8,192 reads) timed beside their bounds, plain
+     versions and (1e) zeros + index_add_ of pre-gathered rows; no zoo
+     model calls either entry, as in the reference: their launches are
+     the counts [gnn-train] reads over its runs, which must be 0;
+  [gnn-parity] the six reduced models (pna, gatedgcn, dimenet, nequip,
+     GAT, GCN), card vs CPU on one numpy-drawn graph: the forward, the
+     gradients and two train steps (loss, every parameter and Adam leaf);
+  [gnn-train] pna, gatedgcn, dimenet and nequip at minibatch_lg's
+     published widths on the sampler's batch, then dimenet and nequip at
+     molecule: the loss falls along -g, finite losses and gradients, 3
+     steps (seconds each, the median of steps 1-2, seeds or graphs a
+     second, peak memory), one step's top device ops;
+  [gnn-cli] python -m repro_torch.launch.train --arch gatedgcn --shape
+     full_graph_sm --steps 2, a subprocess on the card.
+
 After [mesh-full], [what-if]: the cost model fitted on [mesh-parity]'s
 telemetry trace prices other route_caps' wire at [mesh-full]'s measured
 gloo all_to_all rate (bytes over the seconds blocked in it).
@@ -5818,6 +5844,659 @@ def phase_train_cli(device):
               + "; ".join(lines))
 
 
+# ------------------------------------------------------- the graph zoo
+# [gnn-*]: pna, gatedgcn, dimenet and nequip at minibatch_lg's published
+# widths (configs/gnn_common.py) on one batch of the port's sampler: 1,024
+# seeds drawn uniformly, fanout (15, 10), over a powerlaw_edges global
+# graph of 232,965 nodes (reddit's) with 602 standard-normal features and
+# 41 classes; the loss is on the seeds. `global_edges` is cut 5x from the
+# shape's 114,615,892 so that drawing them and sorting their CSR fit this
+# phase's 20 s allowance on the H100 machine's host (the times of each
+# count tried: PERF.md §4). Each node still has far more in-edges than
+# the fanout draws, so the batch's statistics barely move with the cut.
+# The degree law is powerlaw_edges' at alpha 0.5: rank k draws a share
+# ~ k^-0.5 of the edges, a degree distribution P(d) ~ d^-3, preferential
+# attachment's. Its top node's expected in-degree, E / sum(k^-0.5) =
+# 118,912 at the full edge count, stays under N - 1 = 232,964, the most
+# any node of a simple graph of reddit's size can have; the default
+# alpha 1.5 gives that node 38% of all edges (43.9 M), so a batch held
+# ~5,100 distinct nodes of 169,984 rows and runs of ~58,000 edges into
+# one row. The run checks that bound on the drawn graph and prints the
+# batch's distinct-node share. DimeNet and NequIP get
+# positions 3 x N(0, 1) (erdos_graph's), DimeNet triplets capped at 4 x
+# the edge cap; then both again at `molecule` (128 graphs x 30 nodes x 64
+# edges, energy MSE). `steps` timed steps a model; the loss falls along
+# its gradient: params - t g with t = descent x |loss| / ||g||^2 must
+# lower the loss by at least half of descent x |loss|.
+GNN = dict(global_nodes=232_965, global_edges=22_923_178, alpha=0.5,
+           d_feat=602, n_classes=41, seeds=1024, fanout=(15, 10), steps=3,
+           descent=1e-3, molecule=(128, 30, 64), profile_top=8,
+           rmi_rows=262_144, rmi_records=1_052_672, rmi_live=400_000,
+           rmi_reads=8192, rmi_d=602, pna_d=75)
+# [gnn-parity] card vs CPU, the CPU parity tests' bounds
+# (tests/test_torch_zoo_harness.py): forward within GNN_FWD_TOL x (1 + |cpu|);
+# gradients, parameters and Adam's moments after each of two steps within
+# GNN_LEAF_TOL x max |cpu| per leaf; losses within GNN_FWD_TOL x |cpu|.
+# PNA's gradients and steps run in float64, as in the CPU tests (its std
+# aggregator cancels in f32: the reference's own f32 gradient lies ~1e-4
+# of a leaf's max from float64)
+GNN_FWD_TOL, GNN_LEAF_TOL = 1e-5, 1e-4
+GNN_PARITY = ("pna", "gatedgcn", "dimenet", "nequip", "gat", "gcn")
+
+
+def gnn_global_graph(g=GNN):
+    """The global graph: powerlaw_edges, its in-edge CSR and the node
+    features, drawn from numpy seeds; returns (csr, feats, seconds of the
+    edges and CSR, seconds of the features)."""
+    from repro_torch.graph.graphs import powerlaw_edges
+    from repro_torch.graph.sampler import CSRGraph
+    rng = np.random.default_rng(SEED + 20)
+    t0 = time.perf_counter()
+    edges = powerlaw_edges(rng, g["global_nodes"], g["global_edges"],
+                           g["alpha"])
+    csr = CSRGraph.from_edges(edges[:, 0], edges[:, 1], g["global_nodes"])
+    build_s = time.perf_counter() - t0
+    del edges
+    top = int(np.diff(csr.indptr).max())
+    check(top <= g["global_nodes"] - 1, f"[gnn] a node has {top} in-edges, "
+          f"more than a simple graph of {g['global_nodes']} nodes allows")
+    t0 = time.perf_counter()
+    feats = rng.standard_normal((g["global_nodes"], g["d_feat"]),
+                                dtype=np.float32)
+    return csr, feats, build_s, time.perf_counter() - t0
+
+
+def gnn_minibatch(device, g=GNN):
+    """One minibatch_lg batch of the sampler, padded to the shape's caps,
+    as a dict of tensors on `device` (input_specs' names), with `pos` and
+    DimeNet's triplets; prints how it was made. Returns (batch, info)."""
+    import torch
+    from repro_torch.configs.gnn_common import GNN_SHAPES, pad512
+    from repro_torch.graph.sampler import sample_subgraph
+    from repro_torch.graph.triplets import build_triplets
+    dims = GNN_SHAPES["minibatch_lg"].dims
+    csr, feats, build_s, feat_s = gnn_global_graph(g)
+    rng = np.random.default_rng(SEED + 21)
+    deg = np.diff(csr.indptr)
+    seeds = rng.choice(g["global_nodes"], g["seeds"], replace=False)
+    t0 = time.perf_counter()
+    sub, local_seeds, _ = sample_subgraph(rng, csr, seeds, g["fanout"],
+                                          feats)
+    sample_s = time.perf_counter() - t0
+    del csr, feats
+    N, E = int(sub.node_mask.sum()), int(sub.edge_mask.sum())
+    caps = (sub.n_nodes, sub.n_edges)
+    check(g["seeds"] != 1024 or caps == (dims["n_nodes"], dims["n_edges"])
+          == tuple(map(pad512, caps)), f"[gnn] the sampler's caps {caps} "
+          f"are not minibatch_lg's {dims['n_nodes']}, {dims['n_edges']}")
+    labels = np.zeros(sub.n_nodes, np.int64)
+    labels[:N] = rng.integers(0, g["n_classes"], N)
+    label_mask = np.zeros(sub.n_nodes, bool)
+    label_mask[local_seeds] = True
+    pos = np.zeros((sub.n_nodes, 3), np.float32)
+    pos[:N] = 3.0 * rng.normal(size=(N, 3))
+    t_max = pad512(4 * sub.n_edges)
+    t0 = time.perf_counter()
+    kj, ji, tmask = build_triplets(sub.senders[:E].numpy(),
+                                   sub.receivers[:E].numpy(), sub.n_nodes,
+                                   t_max)
+    trip_s = time.perf_counter() - t0
+    batch = {"senders": sub.senders, "receivers": sub.receivers,
+             "x": sub.x, "edge_mask": sub.edge_mask,
+             "node_mask": sub.node_mask, "labels": torch.as_tensor(labels),
+             "label_mask": torch.as_tensor(label_mask),
+             "pos": torch.as_tensor(pos), "t_kj": torch.as_tensor(kj,
+                                                               dtype=torch.int64),
+             "t_ji": torch.as_tensor(ji, dtype=torch.int64),
+             "t_mask": torch.as_tensor(tmask)}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    run = int(np.bincount(sub.receivers[:E].numpy()).max()) if E else 0
+    print(f"[gnn] global graph: {g['global_nodes']} nodes, "
+          f"{g['global_edges']} powerlaw_edges (alpha {g['alpha']}) and "
+          f"their CSR in {build_s:.2f} s, {g['d_feat']} f32 features in "
+          f"{feat_s:.2f} s; in-degree mean {deg.mean():.2f}, median "
+          f"{int(np.median(deg))}, max {int(deg.max())}, "
+          f"{int((deg < g['fanout'][0]).sum())} nodes under "
+          f"{g['fanout'][0]}; {g['seeds']} uniform seeds sampled at fanout "
+          f"{g['fanout']} in {sample_s:.2f} s: {N} distinct nodes of "
+          f"{sub.n_nodes} rows ({N / sub.n_nodes:.4f}), {E} of "
+          f"{sub.n_edges} edges, the longest run into one row {run}; "
+          f"{int(tmask.sum())} triplets of {t_max} in {trip_s:.2f} s")
+    return batch, {"build_s": build_s, "nodes": N, "edges": E}
+
+
+def gnn_molecule_batch(device, seed, g=GNN):
+    """`molecule`: batch_molecules' graphs padded to the shape's caps
+    (pad512), energy targets N(0, 1), and triplets capped at 4 x E."""
+    import torch
+    from repro_torch.configs.gnn_common import GNN_SHAPES, pad512
+    from repro_torch.graph.graphs import batch_molecules
+    from repro_torch.graph.triplets import build_triplets
+    dims = GNN_SHAPES["molecule"].dims
+    n_graphs, nodes_per, edges_per = g["molecule"]
+    rng = np.random.default_rng(seed)
+    mol = batch_molecules(rng, n_graphs, nodes_per, edges_per,
+                          dims["d_feat"])
+    N, E = mol.n_nodes, mol.n_edges
+    Np, Ep = pad512(dims["n_nodes"]), pad512(dims["n_edges"])
+
+    def pad(t, n):
+        out = torch.zeros((n,) + tuple(t.shape[1:]), dtype=t.dtype)
+        out[:t.shape[0]] = t
+        return out
+
+    kj, ji, tmask = build_triplets(mol.senders.numpy(),
+                                   mol.receivers.numpy(), Np, pad512(4 * Ep))
+    batch = {"senders": pad(mol.senders, Ep),
+             "receivers": pad(mol.receivers, Ep), "x": pad(mol.x, Np),
+             "edge_mask": torch.arange(Ep) < E,
+             "node_mask": torch.arange(Np) < N, "pos": pad(mol.pos, Np),
+             "graph_ids": pad(mol.graph_ids, Np),
+             "targets": torch.as_tensor(rng.normal(size=n_graphs),
+                                        dtype=torch.float32),
+             "t_kj": torch.as_tensor(kj, dtype=torch.int64),
+             "t_ji": torch.as_tensor(ji, dtype=torch.int64),
+             "t_mask": torch.as_tensor(tmask)}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def gss_within(got, want, mag):
+    """gather_segment_sum against its plain version run in float64: per
+    element |diff| <= KA_TOL x (1 + the row's sum of |x|). The plain
+    version in f32 is no yardstick here: its index_add_ adds a hub's
+    records one at a time onto a growing sum, and where the sampler
+    repeats source rows (a hub's features thousands of times) those
+    partial sums grow with the run, so its error does too (0.07 off the
+    float64 sum of a 3,205-record row where the kernel's shares and
+    carries are 0.002 off; on the H100 machine)."""
+    return bool(((got.double() - want).abs() <= KA_TOL * (1 + mag)).all())
+
+
+def gss_case(ops, ref, x, s, r, n, mask, what):
+    """Kernel A through gather_segment_sum vs the plain version in
+    float64; one launch. Returns (max abs err vs float64, the f32 plain
+    version's)."""
+    ops.reset_launches()
+    got = ops.gather_segment_sum(x, s, r, n, mask)
+    sync(got)
+    check(not x.is_cuda or ops.LAUNCHES["segment_sum_rows"] == 1,
+          f"[gnn-kernel] {what}: {ops.LAUNCHES}")
+    want = ref.gather_segment_sum_ref(x.double(), s, r, n, mask)
+    mag = ref.gather_segment_sum_ref(x.abs(), s, r, n, mask)
+    check(gss_within(got, want, mag), f"[gnn-kernel] {what}: max err "
+                                      f"{float((got - want).abs().max())}")
+    plain = ref.gather_segment_sum_ref(x, s, r, n, mask)
+    return (float((got.double() - want).abs().max()),
+            float((plain.double() - want).abs().max()))
+
+
+def rmi_within(got, want, mag, ridx):
+    """rmi_apply_read vs its plain version in float64: agg' within KA_TOL
+    x (1 + sum of |records| + |agg|), counts and dirty flags equal, the
+    reads within that bound / max(cnt, 1) plus KB_TOL x (1 + |read|)."""
+    n = want[1][ridx].clamp(min=1)[:, None]
+    return (bool(((got[0].double() - want[0]).abs()
+                  <= KA_TOL * (1 + mag)).all())
+            and torch_equal(got[1].double(), want[1])
+            and torch_equal(got[2], want[2])
+            and bool(((got[3].double() - want[3]).abs()
+                      <= KA_TOL * (1 + mag[ridx]) / n
+                      + KB_TOL * (1 + want[3].abs())).all()))
+
+
+def rmi_wide(args):
+    """rmi_apply_read's inputs with the floats in float64."""
+    return tuple(t.double() if t.is_floating_point() else t for t in args)
+
+
+def rmi_case(ops, ref, args, what):
+    """Kernels A and B through rmi_apply_read vs the plain version in
+    float64; one launch each. Returns (max abs err over agg' and the
+    reads, the f32 plain version's)."""
+    agg, cnt, idx, vec, dcnt, ridx = args
+    ops.reset_launches()
+    got = ops.rmi_apply_read(*args)
+    sync(got[0])
+    check(not agg.is_cuda or ops.LAUNCHES == {"segment_sum_rows": 1,
+                                              "mean_rows_gather": 1},
+          f"[gnn-kernel] {what}: {ops.LAUNCHES}")
+    want = ref.rmi_apply_read_ref(*rmi_wide(args))
+    mag = ref.rmi_apply_read_ref(agg.abs(), cnt, idx, vec.abs(), dcnt,
+                                 ridx)[0]
+    check(rmi_within(got, want, mag, ridx), f"[gnn-kernel] {what}: "
+                                            "rmi_apply_read vs plain")
+    plain = ref.rmi_apply_read_ref(*args)
+
+    def err(a):
+        e = float((a[0].double() - want[0]).abs().max())
+        return max(e, float((a[3].double() - want[3]).abs().max())
+                   if ridx.numel() else 0.0)
+
+    return err(got), err(plain)
+
+
+def rmi_lane(gen, device, R, C, live, K, d):
+    """A layer-0 RMI lane of the d3gnn pipeline's shape: R synopsis rows,
+    C records of which `live` address power-law rows (the rest the drop
+    sentinel R), K read rows; agg, vec normal, counts small integers."""
+    import torch
+    idx = torch.full((C,), R, dtype=torch.int64, device=device)
+    pos = torch.randperm(C, generator=gen, device=device)[:live]
+    idx[pos] = powerlaw_rows(gen, R, live)
+    agg = torch.randn(R, d, generator=gen, device=device)
+    cnt = torch.randint(0, 6, (R,), generator=gen, device=device).float()
+    vec = torch.randn(C, d, generator=gen, device=device)
+    dcnt = torch.randint(-1, 2, (C,), generator=gen, device=device).float()
+    ridx = torch.randint(0, R, (K,), generator=gen, device=device)
+    return agg, cnt, idx, vec, dcnt, ridx
+
+
+def phase_gnn_kernel(device, batch, g=GNN):
+    """Kernel 1 through gather_segment_sum and kernels 1 + 2 through
+    rmi_apply_read against their plain versions on the card: no edges,
+    every edge masked, one hub receiving every edge, receivers out of
+    order, and rows 1e and 2e's shapes (the sampler's minibatch_lg batch
+    at d 602 and PNA's 75; the d3gnn layer-0 lane with 8,192 reads); a
+    planted fault each comparison must catch; then rows 1e and 2e timed
+    beside their bounds, plain versions and (1e) zeros + index_add_ of
+    pre-gathered rows. Returns their `kernels` entries, "launches" left
+    for [gnn-train]'s counts."""
+    import torch
+    from repro_torch.kernels.segment_reduce import ops, ref
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    errs = {"gss": 0.0, "rmi": 0.0}
+
+    def idx(n, hi):
+        return torch.randint(0, hi, (n,), generator=gen, device=device)
+
+    N, d = 500, 75
+    x = torch.randn(N, d, generator=gen, device=device)
+    E = 4000
+    s, r = idx(E, N), idx(E, N)
+    live = torch.rand(E, generator=gen, device=device) > 0.3
+    cases = {
+        "no edges": (s[:0], r[:0], live[:0]),
+        "all edges masked": (s, r, torch.zeros_like(live)),
+        "one hub receives every edge": (s, torch.full_like(r, 11), live),
+        "receivers out of order": (s, r.sort().values[torch.randperm(
+            E, generator=gen, device=device)], live),
+        "receivers sorted, no mask": (s, r.sort().values, None)}
+    for what, (ss, rr, mm) in cases.items():
+        errs["gss"] = max(errs["gss"], gss_case(ops, ref, x, ss, rr, N, mm,
+                                                what)[0])
+    R, C, K = 300, 6000, 200
+    small = rmi_lane(gen, device, R, C, 2000, K, 64)
+    cases = {"records onto a base": small,
+             "no records": tuple(t[:0] if i in (2, 3, 4) else t
+                                 for i, t in enumerate(small)),
+             "every record on one row": small[:2] + (torch.where(
+                 small[2] < R, 5, R),) + small[3:]}
+    for what, args in cases.items():
+        errs["rmi"] = max(errs["rmi"], rmi_case(ops, ref, args, what)[0])
+    # planted faults: one element moved past the bound must fail
+    with torch.no_grad():
+        got = ops.gather_segment_sum(x, s, r, N, live)
+        want = ref.gather_segment_sum_ref(x.double(), s, r, N, live)
+        mag = ref.gather_segment_sum_ref(x.abs(), s, r, N, live)
+        bad = got.clone()
+        bad[int(r[0])] += 1e-3 * (1 + mag[int(r[0])])
+        check(gss_within(got, want, mag) and not gss_within(bad, want, mag),
+              "[gnn-kernel] the gather_segment_sum comparison missed a "
+              "planted fault")
+        got = ops.rmi_apply_read(*small)
+        want = ref.rmi_apply_read_ref(*rmi_wide(small))
+        mag = ref.rmi_apply_read_ref(small[0].abs(), small[1], small[2],
+                                     small[3].abs(), small[4], small[5])[0]
+        bad = (got[0], got[1] + (torch.arange(R, device=device) == 3),
+               got[2], got[3])
+        check(rmi_within(got, want, mag, small[5])
+              and not rmi_within(bad, want, mag, small[5]),
+              "[gnn-kernel] the rmi_apply_read comparison missed a planted "
+              "fault")
+    print("[gnn-kernel] gather_segment_sum (kernel 1, gather form) vs "
+          "plain: no edges, every edge masked, a hub receiving every edge, "
+          "receivers out of order and sorted; rmi_apply_read (kernels 1 + "
+          "2) vs plain: records onto a base, none, all on one row; "
+          "planted faults caught")
+
+    entries = []
+    xb, sb, rb, mb = (batch[k] for k in ("x", "senders", "receivers",
+                                         "edge_mask"))
+    keep = torch.nonzero(mb).squeeze(1)
+    n_src = int(torch.unique(sb[keep]).numel())
+    n_nodes, n_edges = xb.shape[0], int(keep.numel())
+    for width in (xb.shape[1], g["pna_d"]):
+        xw = xb[:, :width].contiguous()
+        what = f"the minibatch_lg batch at d {width}"
+        err, plain_err = gss_case(ops, ref, xw, sb, rb, n_nodes, mb, what)
+        rows = xw[sb[keep]]
+        ms = time_ms(lambda: ops.gather_segment_sum(xw, sb, rb, n_nodes, mb))
+        plain = time_ms(lambda: ref.gather_segment_sum_ref(xw, sb, rb,
+                                                           n_nodes, mb))
+        lib = time_ms(lambda: torch.zeros(n_nodes, width,
+                                          device=device).index_add_(
+            0, rb[keep], rows))
+        # x's gathered rows read once, the edge arrays and mask read, the
+        # output written; an add per live edge's element
+        n_bytes = (n_src * width * 4 + sb.numel() * 8 * 2 + mb.numel()
+                   + n_nodes * width * 4)
+        n_ops = n_edges * width
+        bound = bound_ms(n_bytes, n_ops)
+        by = "bytes" if n_bytes / PEAK_BYTES_PER_S > \
+            n_ops / PEAK_F32_OPS_PER_S else "operations"
+        print(f"[gnn-kernel] row 1e, gather_segment_sum at {what} "
+              f"({n_edges} live of {sb.numel()} edges, {n_src} distinct "
+              f"sources, x [{n_nodes}, {width}]): max abs err vs the plain "
+              f"version in float64 {err:.4g} (the f32 plain version's "
+              f"{plain_err:.4g}); {ms:.4f} ms; bound "
+              f"{bound:.4f} ms by {by} ({n_bytes} bytes); plain "
+              f"{plain:.4f} ms; zeros + index_add_ of pre-gathered rows "
+              f"{lib:.4f} ms")
+        entries.append({
+            "name": f"segment_sum_rows (gather_segment_sum, minibatch_lg, "
+                    f"d {width})",
+            "route": "cuda", "source": "src/repro_torch/csrc/segment_reduce.cu",
+            "replaces": "src/repro/kernels/segment_reduce/kernel.py:59",
+            "launches": None, "max_abs_err": max(errs["gss"], err),
+            "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib})
+        del xw, rows
+    free_cuda()
+    args = rmi_lane(gen, device, g["rmi_rows"], g["rmi_records"],
+                    g["rmi_live"], g["rmi_reads"], g["rmi_d"])
+    err, plain_err = rmi_case(ops, ref, args, "the d3gnn layer-0 lane")
+    agg, cnt, ridx_ = args[0], args[1], args[5]
+    R, d, C, K = agg.shape[0], agg.shape[1], args[2].numel(), ridx_.numel()
+    L = g["rmi_live"]
+    ms = time_ms(lambda: ops.rmi_apply_read(*args))
+    plain = time_ms(lambda: ref.rmi_apply_read_ref(*args))
+    # agg and cnt read and written (agg', cnt' are new), the records'
+    # indices read, the live records' rows and counts read, dirty and the
+    # reads written; an add per live element, a division per read element
+    n_bytes = (2 * R * d * 4 + 2 * R * 4 + C * 8 + L * (d + 1) * 4 + R
+               + K * 8 + K * d * 4)
+    n_ops = L * (d + 1) + K * d
+    bound = bound_ms(n_bytes, n_ops)
+    by = "bytes" if n_bytes / PEAK_BYTES_PER_S > \
+        n_ops / PEAK_F32_OPS_PER_S else "operations"
+    print(f"[gnn-kernel] row 2e, rmi_apply_read at the d3gnn layer-0 lane "
+          f"({R} rows, d {d}, {C} records of which {L} live, {K} reads): "
+          f"max abs err vs the plain version in float64 {err:.4g} (the f32 "
+          f"plain version's {plain_err:.4g}); {ms:.4f} ms; bound {bound:.4f} ms by {by} ({n_bytes} bytes); "
+          f"plain {plain:.4f} ms; no single PyTorch call does it")
+    entries.append({
+        "name": "segment_sum_rows + mean_rows_gather (rmi_apply_read, d3gnn "
+                "layer-0 lane)",
+        "route": "cuda", "source": "src/repro_torch/csrc/segment_reduce.cu",
+        "replaces": "src/repro/kernels/segment_reduce/kernel.py:59, :95",
+        "launches": None, "max_abs_err": max(errs["rmi"], err), "ms": ms,
+        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": None})
+    del args
+    free_cuda()
+    return entries
+
+
+def gnn_parity_graph(arch, shape_name, seed=SEED + 23, n=48, e=160):
+    """A numpy-drawn graph for the reduced models (erdos_graph with
+    positions, then a ring edge into every node), its labels on the seeds'
+    share, or at an energy shape 4 graphs of 12 nodes and targets for the
+    shape's graphs. CPU tensors."""
+    import torch
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.graph.graphs import erdos_graph
+    dims = GNN_SHAPES[shape_name].dims
+    rng = np.random.default_rng(seed)
+    gr = erdos_graph(rng, n, e, 16, with_pos=True)
+    ring = torch.arange(n)
+    b = {"senders": torch.cat([gr.senders, ring]),
+         "receivers": torch.cat([gr.receivers, (ring + 1) % n]),
+         "x": gr.x, "pos": gr.pos, "node_mask": torch.ones(n, dtype=bool)}
+    b["edge_mask"] = torch.as_tensor(np.concatenate(
+        [rng.random(e) >= 0.2, np.ones(n, bool)]))
+    if dims["n_classes"]:
+        b["labels"] = torch.as_tensor(rng.integers(0, dims["n_classes"], n))
+        b["label_mask"] = torch.as_tensor(rng.random(n) < 0.8)
+    else:
+        b["graph_ids"] = torch.arange(n) // (n // 4)
+        b["targets"] = torch.as_tensor(rng.normal(size=dims["n_graphs"]),
+                                       dtype=torch.float32)
+    if arch == "dimenet":
+        from repro_torch.graph.triplets import build_triplets
+        E = b["senders"].numel()
+        kj, ji, tm = build_triplets(b["senders"].numpy(),
+                                    b["receivers"].numpy(), n, 4 * E)
+        b.update(t_kj=torch.as_tensor(kj, dtype=torch.int64),
+                 t_ji=torch.as_tensor(ji, dtype=torch.int64),
+                 t_mask=torch.as_tensor(tm))
+    return b
+
+
+def gnn_parity_model(arch, device):
+    """(model, shape name, train step) of a reduced zoo model."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import GNN_SHAPES, make_gnn_train_step
+    from repro_torch.graph.gat import GAT
+    from repro_torch.graph.sage import GCN
+    if arch in ("gat", "gcn"):
+        model = (GAT((16, 16, 16), n_heads=4, n_classes=7, device=device)
+                 if arch == "gat" else GCN((16, 16, 16), 7, device=device))
+        return model, "full_graph_sm", make_gnn_train_step(
+            model, GNN_SHAPES["full_graph_sm"], needs_triplets=False)
+    spec = get_arch(arch)
+    shape = "molecule" if arch in ("dimenet", "nequip") else "full_graph_sm"
+    model = spec.build_reduced(shape, device=device)
+    return model, shape, spec.step(model, shape)
+
+
+def gnn_leaves_within(tag, got, want, tol):
+    """Per leaf max |got - want| <= tol x max |want|; returns the worst
+    ratio err / max |want|."""
+    import torch
+    worst = 0.0
+    for k, w in want.items():
+        gk = got[k].detach().double().cpu()
+        w = w.detach().double().cpu()
+        check(bool(torch.isfinite(gk).all()), f"[gnn-parity] {tag} {k} not "
+                                              "finite")
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        err = float((gk - w).abs().max()) if w.numel() else 0.0
+        check(err <= max(tol * scale, 1e-12), f"[gnn-parity] {tag} {k}: "
+                                              f"{err} > {tol} x {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def phase_gnn_parity(device):
+    """The six reduced models (pna, gatedgcn, dimenet, nequip, GAT, GCN),
+    card vs CPU on the same numpy-drawn graph: the forward, the loss's
+    gradients, and two train steps (loss, every parameter and Adam leaf),
+    with TF32 off; PNA's gradients and steps in float64 (GNN_PARITY's
+    note)."""
+    import torch
+    from repro_torch.configs.base import value_and_grad
+    from repro_torch.configs.gnn_common import GNN_SHAPES, batch_graph
+    from repro_torch.nn.module import param_tree
+    from repro_torch.optim import adam
+    for arch in GNN_PARITY:
+        cpu_model, shape, _ = gnn_parity_model(arch, "cpu")
+        b = gnn_parity_graph(arch, shape)
+        n_graphs = GNN_SHAPES[shape].dims["n_graphs"]
+        trip = (b["t_kj"], b["t_ji"], b["t_mask"]) if arch == "dimenet" \
+            else ()
+        runs = {}
+        for dev in ("cpu", device):
+            model, _, step = gnn_parity_model(arch, dev)
+            model.load_state_dict(cpu_model.state_dict())
+            bd = {k: v.to(dev) for k, v in b.items()}
+            extra = tuple(t.to(dev) for t in trip)
+            with torch.no_grad():
+                out = model(batch_graph(bd, n_graphs), *extra)
+            if arch == "pna":
+                model = model.double()
+                bd = {k: v.double() if v.is_floating_point() else v
+                      for k, v in bd.items()}
+            params = param_tree(model)
+            loss, grads = value_and_grad(model, step.loss_fn, params, bd)
+            state, steps = adam().init(params), []
+            for _ in range(2):
+                params, state, l2 = step(params, state, bd)
+                steps.append((float(l2), params, state))
+            runs[str(dev)] = (out, float(loss), grads, steps)
+        (o_c, l_c, g_c, s_c), (o_g, l_g, g_g, s_g) = runs["cpu"], \
+            runs[str(device)]
+        e_fwd = float(((o_g.cpu().double() - o_c.double()).abs()
+                       / (1 + o_c.double().abs())).max())
+        check(e_fwd <= GNN_FWD_TOL, f"[gnn-parity] {arch} forward {e_fwd}")
+        check(abs(l_g - l_c) <= GNN_FWD_TOL * abs(l_c),
+              f"[gnn-parity] {arch} loss {l_g} vs {l_c}")
+        e_grad = gnn_leaves_within(f"{arch} grads", g_g, g_c, GNN_LEAF_TOL)
+        e_state = 0.0
+        for i, ((lc, pc, sc), (lg, pg, sg)) in enumerate(zip(s_c, s_g)):
+            check(abs(lg - lc) <= GNN_FWD_TOL * abs(lc),
+                  f"[gnn-parity] {arch} step {i} loss {lg} vs {lc}")
+            check(int(sg["t"]) == int(sc["t"]) == i + 1,
+                  f"[gnn-parity] {arch} step {i}: Adam's t")
+            for what, got, want in (("params", pg, pc), ("m", sg["m"],
+                                                          sc["m"]),
+                                    ("v", sg["v"], sc["v"])):
+                e_state = max(e_state, gnn_leaves_within(
+                    f"{arch} step {i} {what}", got, want, GNN_LEAF_TOL))
+        print(f"[gnn-parity] {arch} ({shape}, reduced{', grads and steps '
+              'in float64' if arch == 'pna' else ''}): card vs CPU forward "
+              f"{e_fwd:.3e} (x (1 + |cpu|)), loss {l_g:.6f} vs {l_c:.6f}, "
+              f"grads {e_grad:.3e} and two steps' params / moments "
+              f"{e_state:.3e} of their leaf's max (tolerances "
+              f"{GNN_FWD_TOL}, {GNN_LEAF_TOL})")
+
+
+def gnn_descent(tag, model, loss_fn, params, batch, g=GNN):
+    """The loss falls along -g: params - t g, t = descent x |loss| /
+    ||g||^2, lowers it by at least half of descent x |loss|; every
+    gradient finite. Returns (loss, fall, expected)."""
+    import math
+    import torch
+    from repro_torch.configs.base import value_and_grad
+    loss0, grads = value_and_grad(model, loss_fn, params, batch)
+    loss0 = float(loss0)
+    check(math.isfinite(loss0), f"[{tag}] loss {loss0}")
+    check(all(bool(torch.isfinite(v).all()) for v in grads.values()),
+          f"[{tag}] a gradient is not finite")
+    gn2 = float(sum(v.double().square().sum() for v in grads.values()))
+    want = g["descent"] * abs(loss0)
+    moved = {n: p - (want / gn2) * grads[n] for n, p in params.items()}
+    del grads
+    loss1 = float(value_and_grad(model, loss_fn, moved, batch)[0])
+    fell = loss0 - loss1
+    check(fell >= 0.5 * want, f"[{tag}] params - t g lowered the loss by "
+                              f"{fell}, expected ~{want}")
+    return loss0, fell, want
+
+
+def gnn_train_run(tag, arch, shape, batch, device, per_step, unit, g=GNN):
+    """One arch at one shape at the published widths: build, the descent
+    check, `steps` timed steps, one profiled step. Returns a summary."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.nn.module import bind_params, param_count, param_tree
+    from repro_torch.optim import adam
+    spec = get_arch(arch)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = spec.build(shape, device=device)
+    step = spec.step(model, shape)
+    params = param_tree(model)
+    loss0, fell, want = gnn_descent(tag, model, step.loss_fn, params, batch)
+    free_cuda()
+    state = adam().init(params)
+    losses, secs = [], []
+    for _ in range(g["steps"]):
+        sync(batch["x"])
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+        bind_params(model, params)
+    check(all(math.isfinite(x) for x in losses), f"[{tag}] losses {losses}")
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    med = statistics.median(secs[1:]) if len(secs) > 1 else secs[0]
+    print(f"[{tag}] {arch} at {shape} ({param_count(model)} params): "
+          f"descent: loss {loss0:.6f}, fell {fell:.6f} along -g (first "
+          f"order {want:.6f}); {g['steps']} steps: "
+          + ", ".join(f"{s:.4f} s" for s in secs)
+          + f"; median of steps 1-{g['steps'] - 1} {med:.4f} s, "
+          f"{per_step / med:.1f} {unit}/s; loss "
+          + " -> ".join(f"{x:.6f}" for x in losses)
+          + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    if cuda:
+        profile_call(tag, f"{arch} at {shape}, one train step",
+                     lambda: step(params, state, batch),
+                     top=g["profile_top"])
+    del model, params, state, step
+    free_cuda()
+    return {"secs": secs, "median_s": med, "peak": peak, "losses": losses}
+
+
+def phase_gnn_train(device, batch, g=GNN):
+    """pna, gatedgcn, dimenet and nequip at minibatch_lg's published
+    widths on the sampler's batch (seeds/s), then dimenet and nequip at
+    molecule (graphs/s): finite losses and gradients, the descent check,
+    seconds a step, peak memory, one step's top device ops. Kernels 1 and
+    2's counts are set to 0 before the runs and read after them: no zoo
+    model calls gather_segment_sum or rmi_apply_read (the reference's
+    models call jax.ops.segment_* alike), so both must read 0. Returns
+    (the runs' summaries, the counts)."""
+    from repro_torch.kernels.segment_reduce import ops
+    ops.reset_launches()
+    out = {}
+    for arch in ("pna", "gatedgcn", "dimenet", "nequip"):
+        out[arch, "minibatch_lg"] = gnn_train_run(
+            "gnn-train", arch, "minibatch_lg", batch, device, g["seeds"],
+            "seeds")
+    mol = gnn_molecule_batch(device, SEED + 24)
+    for arch in ("dimenet", "nequip"):
+        out[arch, "molecule"] = gnn_train_run(
+            "gnn-train", arch, "molecule", mol, device, g["molecule"][0],
+            "graphs")
+    launches = {k: ops.LAUNCHES[k] for k in ("segment_sum_rows",
+                                             "mean_rows_gather")}
+    check(launches == {"segment_sum_rows": 0, "mean_rows_gather": 0},
+          f"[gnn-train] the zoo's runs launched {launches}")
+    print(f"[gnn-train] kernel launches over the six runs: {launches}")
+    return out, launches
+
+
+def phase_gnn_cli(device):
+    """`python -m repro_torch.launch.train --arch gatedgcn --shape
+    full_graph_sm --steps 2` as a subprocess on the device (the published
+    config; CUDA: no --device flag)."""
+    import math
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "gatedgcn", "--shape", "full_graph_sm", "--steps", "2"]
+    if device.type != "cuda":
+        cmd += ["--device", str(device)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=str(ROOT), capture_output=True,
+                          text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0, f"[gnn-cli] exited {proc.returncode}:\n"
+                                f"{proc.stdout}\n{proc.stderr[-4000:]}")
+    losses = [float(line.split("loss=")[1].split()[0]) for line in lines[:2]
+              if line.startswith("step ")]
+    check(len(lines) == 3 and lines[-1] == "train driver done"
+          and len(losses) == 2 and all(math.isfinite(x) for x in losses),
+          f"[gnn-cli] printed {lines}")
+    print(f"[gnn-cli] gatedgcn --shape full_graph_sm --steps 2 ({secs:.1f} "
+          f"s with the interpreter's start): " + "; ".join(lines))
+
+
 def main():
     try:
         import torch
@@ -5914,6 +6593,18 @@ def main():
     zoo_kernels[1]["launches"] = rs_train["segment_sum_rows"]
     result["kernels"] += zoo_kernels
     phase("train-cli", phase_train_cli, device)
+    free_cuda()
+    gnn_batch, _ = gnn_minibatch(device)
+    gnn_kernels = phase("gnn-kernel", phase_gnn_kernel, device, gnn_batch)
+    phase("gnn-parity", phase_gnn_parity, device)
+    _, gnn_launches = phase("gnn-train", phase_gnn_train, device, gnn_batch)
+    for entry in gnn_kernels[:2]:
+        entry["launches"] = gnn_launches["segment_sum_rows"]
+    gnn_kernels[2]["launches"] = gnn_launches["mean_rows_gather"]
+    result["kernels"] += gnn_kernels
+    del gnn_batch
+    free_cuda()
+    phase("gnn-cli", phase_gnn_cli, device)
     print("[card] all times above on this card:")
     print(card)
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

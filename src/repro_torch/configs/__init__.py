@@ -11,6 +11,10 @@ _MODULES = {
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "d3gnn-sage": "repro_torch.configs.d3gnn_sage",
     "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
+    "nequip": "repro_torch.configs.nequip",
+    "dimenet": "repro_torch.configs.dimenet",
+    "pna": "repro_torch.configs.pna",
+    "gatedgcn": "repro_torch.configs.gatedgcn",
 }
 ARCH_IDS = tuple(_MODULES)
 

@@ -21,9 +21,13 @@ tensor} dict (`nn.module.param_tree(model)`) that the step binds to the
 model for its forward and backward (`nn.module.bound_params`); the
 gradient is `torch.autograd.grad` over those leaves.
 
-Families: "lm", "recsys" (two-tower-retrieval), "d3gnn". An LM's and a
-two-tower's build and build_reduced run on CUDA unless given a device
-(and raise without CUDA); GraphSAGE is moved to its device by D3Pipeline.
+Families: "lm", "recsys" (two-tower-retrieval), "gnn" (pna, gatedgcn,
+dimenet, nequip), "d3gnn". An LM's, a two-tower's and a GNN's build and
+build_reduced run on CUDA unless given a device (and raise without
+CUDA); GraphSAGE is moved to its device by D3Pipeline. A GNN's build
+and build_reduced take the shape name first, as the reference's do
+(the input width and classes follow the shape): build(shape_name,
+device=None, seed=0, train=False).
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ class ShapeSpec:
 @dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str                   # "lm" | "recsys" | "d3gnn"
+    family: str                   # "lm" | "recsys" | "gnn" | "d3gnn"
     build: Callable[..., Any]
     build_reduced: Callable[..., Any]
     shapes: Dict[str, ShapeSpec]

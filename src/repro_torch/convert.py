@@ -3,7 +3,7 @@ package's pytrees.
 
 Torch cannot reproduce `jax.random`, so the parity tests initialise a
 model with the JAX `init` (`GraphSAGE.init`, `TransformerLM.init`,
-`TwoTower.init`), convert the pytree to numpy, and load it here; both
+`TwoTower.init`, the graph zoo's `init`s), convert the pytree to numpy, and load it here; both
 packages then compute the same function. The train steps' states go both
 ways (`opt_state_from_numpy` / `opt_state_to_numpy`, `params_to_numpy`)
 so a test can compare them after a step.
@@ -134,6 +134,48 @@ class TwoTowerLayout:
         return tree
 
 
+class GraphLayout:
+    """The JAX pytrees of the graph zoo (PNA, GatedGCN, DimeNet, NequIP,
+    GAT, GCN layers, MPLayer) <-> the port's flat names: the reference's
+    list entries "l<i>" (layers, an MLP's linears) and "b<i>" (DimeNet's
+    blocks) are the port's ModuleLists "layers.<i>" and "blocks.<i>";
+    every other key keeps its name ("l0.pre.l0.w" is
+    "layers.0.pre.layers.0.w", "b2.w_sbf" is "blocks.2.w_sbf", NequIP's
+    "l1.self_l2" is "layers.1.self_l2"). Arrays keep their dtype and [in,
+    out] layout."""
+
+    _TO_PORT = {"l": "layers", "b": "blocks"}
+    _TO_JAX = {v: k for k, v in _TO_PORT.items()}
+
+    def to_port(self, tree: dict) -> dict:
+        out = {}
+        for name, val in _flatten(tree):
+            parts = []
+            for key in name.split("."):
+                head, num = key[:1], key[1:]
+                if head in self._TO_PORT and num.isdigit():
+                    parts += [self._TO_PORT[head], num]
+                else:
+                    parts.append(key)
+            out[".".join(parts)] = val
+        return out
+
+    def to_jax(self, flat: dict) -> dict:
+        renamed = {}
+        for name, val in flat.items():
+            keys, parts, i = name.split("."), [], 0
+            while i < len(keys):
+                if keys[i] in self._TO_JAX and i + 1 < len(keys) \
+                        and keys[i + 1].isdigit():
+                    parts.append(self._TO_JAX[keys[i]] + keys[i + 1])
+                    i += 2
+                else:
+                    parts.append(keys[i])
+                    i += 1
+            renamed[".".join(parts)] = val
+        return _nest(renamed)
+
+
 def _tensors(flat: dict, dtype=None, device=None) -> dict:
     return {k: torch.tensor(np.asarray(v)).to(device=device, dtype=dtype)
             for k, v in flat.items()}
@@ -163,6 +205,14 @@ def two_tower_params_from_numpy(tree: dict) -> dict:
     return _tensors({k: np.asarray(v, np.float32) for k, v in flat.items()})
 
 
+def graph_params_from_numpy(tree: dict, device=None) -> dict:
+    """A JAX graph-zoo `init` pytree (leaves numpy arrays) -> a
+    `state_dict` for the port's model (`GraphLayout`), f32."""
+    flat = GraphLayout().to_port(tree)
+    return _tensors({k: np.asarray(v, np.float32) for k, v in flat.items()},
+                    device=device)
+
+
 def params_to_numpy(params: dict, layout) -> dict:
     """A train step's flat params -> the JAX pytree layout, numpy."""
     return layout.to_jax(_arrays(params))
@@ -178,7 +228,8 @@ def _map_nodes(tree, fn):
 
 def opt_state_from_numpy(state: dict, layout, device=None) -> dict:
     """A JAX optimizer state (leaves numpy) -> the port's, over the flat
-    parameter names of `layout` (LMLayout or TwoTowerLayout).
+    parameter names of `layout` (LMLayout, TwoTowerLayout or
+    GraphLayout).
 
     adam: {"m": tree, "v": tree, "t": int32} -> {"m": {name: f32}, "v":
     {name: f32}, "t": int32 tensor}. adam8bit: {"per_param": tree whose

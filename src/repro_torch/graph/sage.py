@@ -1,9 +1,12 @@
-"""GraphSAGE — the paper's evaluation model (2-layer SAGE-mean, dim 64).
+"""GraphSAGE and GCN — the paper's evaluation models (2-layer SAGE-mean,
+dim 64).
 
-Counterpart of `repro/graph/sage.py` (SAGE layers, the classification
-head and its loss):
+Counterpart of `repro/graph/sage.py` (SAGE and GCN layers, the
+classification head and its loss):
 
-    x_v' = act( W_self x_v + W_neigh mean_{u in N_in(v)} x_u )
+    SAGE:  x_v' = act( W_self x_v + W_neigh mean_{u in N_in(v)} x_u )
+    GCN:   x_v' = act( W (x_v / d_v + sum_u x_u / sqrt(d_u d_v)) ),
+           d = in-degree + 1 (the self loop)
 
 `message` (phi) and `update` (psi) are what the streaming tick calls;
 `forward` is the static full-graph model the oracle runs. The training
@@ -23,7 +26,7 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.graph import segment
-from repro_torch.graph.graphs import Graph
+from repro_torch.graph.graphs import Graph, in_degree
 from repro_torch.nn.layers import Linear
 
 
@@ -40,6 +43,14 @@ def load_linear_tree(lin: Linear, tree: dict) -> None:
     with torch.no_grad():
         for name, val in tree.items():
             getattr(lin, name).copy_(val)
+
+
+def masked_ce(logits, labels, label_mask):
+    """Masked-mean cross-entropy of [N, C] logits (f32) at int labels."""
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    gold = torch.take_along_dim(logp, labels[:, None], dim=-1)[:, 0]
+    ce = torch.where(label_mask, -gold, 0.0)
+    return torch.sum(ce) / torch.clamp(torch.sum(label_mask), min=1)
 
 
 class SAGELayer(nn.Module):
@@ -120,7 +131,50 @@ class GraphSAGE(nn.Module):
 
     def loss(self, g: Graph, labels, label_mask):
         """Masked-mean cross-entropy of the head's logits."""
-        logp = F.log_softmax(self(g).to(torch.float32), dim=-1)
-        gold = torch.take_along_dim(logp, labels[:, None], dim=-1)[:, 0]
-        ce = torch.where(label_mask, -gold, 0.0)
-        return torch.sum(ce) / torch.clamp(torch.sum(label_mask), min=1)
+        return masked_ce(self(g), labels, label_mask)
+
+
+class GCNLayer(nn.Module):
+    agg_kind = "sum"     # deg-normalized sum synopsis (see SAGELayer)
+
+    def __init__(self, in_dim: int, out_dim: int, act: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.act = act
+        self.w = Linear(in_dim, out_dim, generator=generator, device=device)
+
+    def forward(self, g: Graph, x):
+        norm = torch.rsqrt(in_degree(g) + 1.0)[:, None]
+        msg = (x * norm)[g.senders]
+        agg = segment.segment_sum(msg, g.receivers, g.n_nodes, g.edge_mask)
+        h = self.w((agg + x * norm) * norm)
+        return torch.relu(h) if self.act else h
+
+
+class GCN(nn.Module):
+    """A stack of GCN layers with an optional Linear head, laid out as
+    GAT is (`layers.<i>`, `head`; JAX: "l<i>", "head"). The JAX package
+    has the layer only; this model composes it the way its GAT composes
+    GATLayer, so the zoo's tests and train steps can run it. Runs on
+    `device` (CUDA unless given, raising without it)."""
+
+    def __init__(self, dims: Sequence[int], n_classes: int = 0,
+                 seed: int = 0, device=None):
+        super().__init__()
+        from repro_torch.device import resolve_device
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        self.dims, self.n_classes = tuple(dims), n_classes
+        n = len(self.dims) - 1
+        self.layers = nn.ModuleList(
+            GCNLayer(self.dims[i], self.dims[i + 1],
+                     act=i < n - 1 or n_classes > 0, generator=gen,
+                     device=dev) for i in range(n))
+        self.head = (Linear(self.dims[-1], n_classes, generator=gen,
+                            device=dev) if n_classes else None)
+
+    def forward(self, g: Graph, x=None):
+        x = g.x if x is None else x
+        for layer in self.layers:
+            x = layer(g, x)
+        return self.head(x) if self.head is not None else x

@@ -6,9 +6,11 @@ PyTorch, as it is XLA on the TPU side; the reductions are the kernels of
 `csrc/segment_reduce.cu`:
 
   deliver_rows      (kernel A) — replaces kernel.py:segment_sum_kernel;
-                    segment_sum_rows, segment_sum_sorted and
-                    segment_deliver are its forms
+                    segment_sum_rows, segment_sum_sorted,
+                    segment_deliver and gather_segment_sum are its forms
   mean_rows_gather  (kernel B) — replaces kernel.py:mean_rows_kernel
+  rmi_apply_read    kernel A's add onto a base, then kernel B at the
+                    read rows
 
 Each wrapper runs its plain version (`ref.py`) for CPU tensors and, for
 CUDA tensors, launches its kernel or raises; the kernels have no
@@ -328,3 +330,47 @@ def mean_rows(sums, cnts, rows=None):
     if rows is None:
         rows = torch.arange(sums.shape[0], device=sums.device)
     return mean_rows_gather(sums, cnts, rows)
+
+
+def gather_segment_sum(x, senders, receivers, n_nodes: int, edge_mask=None):
+    """out[v] = sum of x[senders[e]] over the valid edges e with
+    receivers[e] = v: the reference's fused-graph entry
+    (`repro/kernels/segment_reduce/ops.py:gather_segment_sum`), a drop-in
+    for graph.segment.segment_sum(x[senders], receivers, n_nodes,
+    edge_mask). x [N, d] float32 with contiguous rows; senders, receivers
+    [E] int64; edge_mask [E] bool or None. An edge is dropped when
+    masked or when its receiver lies outside [0, n_nodes).
+
+    One stable sort of the edges by masked receiver, then kernel A in its
+    gather form: each record reads its source row x[senders[e]] in the
+    kernel, so the [E, d] messages are never written. Returns [n_nodes,
+    d]."""
+    if x.device.type == "cpu":
+        return ref.gather_segment_sum_ref(x, senders, receivers, n_nodes,
+                                          edge_mask)
+    cuda_lib.refuse_grad("gather_segment_sum", x)
+    seg = receivers if edge_mask is None else torch.where(
+        edge_mask, receivers, torch.full_like(receivers, n_nodes))
+    order, row_ptr = sort_runs(seg, n_nodes)
+    return deliver_rows(x, row_ptr, order=senders[order].long())[0]
+
+
+def rmi_apply_read(agg, cnt, idx, vec, dcnt, read_idx):
+    """A tick's aggregator RMI records (idx [C], vec [C, d], dcnt [C])
+    applied onto the (agg [R, d], cnt [R]) synopsis, then the MEAN read at
+    read_idx [K]: the reference's single-call form
+    (`repro/kernels/segment_reduce/ops.py:rmi_apply_read`). Records whose
+    idx lies outside [0, R) are dropped.
+
+    One `sort_runs` and one kernel A launch that adds the records onto
+    the base in place of a separate sum (agg' = agg + the run's sum, cnt'
+    likewise), then kernel B with the gather fused at read_idx: the full
+    [R, d] mean table is never formed. Returns (agg' [R, d], cnt' [R],
+    dirty [R] bool, reads [K, d])."""
+    if agg.device.type == "cpu":
+        return ref.rmi_apply_read_ref(agg, cnt, idx, vec, dcnt, read_idx)
+    cuda_lib.refuse_grad("rmi_apply_read", agg, cnt, vec, dcnt)
+    order, row_ptr = sort_runs(idx, agg.shape[0])
+    agg2, cnt2, dirty = deliver_rows(vec, row_ptr, order, dcnt, base=agg,
+                                     base_cnt=cnt)
+    return agg2, cnt2, dirty, mean_rows_gather(agg2, cnt2, read_idx)

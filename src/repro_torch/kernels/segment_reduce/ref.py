@@ -64,3 +64,32 @@ def segment_sum_rows_ref(rows, seg, row_ptr):
 def mean_rows_gather_ref(agg, cnt, rows):
     """out[k] = agg[rows[k]] / max(cnt[rows[k]], 1), zero where cnt <= 0."""
     return mean_read(agg[rows], cnt[rows])
+
+
+def gather_segment_sum_ref(x, senders, receivers, n_nodes, edge_mask=None):
+    """out[v] = sum of x[senders[e]] over the edges e with receivers[e] = v
+    that are valid (edge_mask, and receivers[e] in [0, n_nodes)): f32
+    index_add_ of the gathered rows."""
+    valid = (receivers >= 0) & (receivers < n_nodes)
+    if edge_mask is not None:
+        valid = valid & edge_mask
+    keep = torch.nonzero(valid).squeeze(1)
+    out = torch.zeros((n_nodes, x.shape[1]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, receivers[keep], x[senders[keep]])
+
+
+def rmi_apply_read_ref(agg, cnt, idx, vec, dcnt, read_idx):
+    """ops.rmi_apply_read unfused: the records' sums by destination (idx
+    outside [0, R) dropped) added to the synopsis, the full mean table
+    (cnt <= 0 reading zero), then its rows at read_idx. Returns (agg',
+    cnt', dirty, reads)."""
+    R = agg.shape[0]
+    valid = (idx >= 0) & (idx < R)
+    keep = torch.nonzero(valid).squeeze(1)
+    dest = idx[keep]
+    d_vec = torch.zeros_like(agg).index_add_(0, dest, vec[keep])
+    d_cnt = torch.zeros_like(cnt).index_add_(0, dest, dcnt[keep])
+    dirty = torch.zeros(R, dtype=torch.bool, device=agg.device)
+    dirty[dest] = True
+    agg2, cnt2 = agg + d_vec, cnt + d_cnt
+    return agg2, cnt2, dirty, mean_read(agg2, cnt2)[read_idx]

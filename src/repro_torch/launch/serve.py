@@ -5,7 +5,9 @@ batched greedy decode (mistral-nemo-12b) or two-tower user-tower requests
 Counterpart of `repro/launch/serve.py`, with the same flags plus --device,
 --dims and --requests; the GNN and LM paths print the same line. The JAX
 launcher sends two-tower-retrieval into its LM path, which has no cache
-for it (ROADMAP Queue 3); here it answers serve_p99 requests.
+for it (ROADMAP Queue 3); here it answers serve_p99 requests. It sends
+the GNN zoo's archs there too (ROADMAP R16); here they raise ValueError:
+their shapes are train shapes (repro_torch.launch.train runs them).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --edges 1500
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
@@ -150,10 +152,10 @@ def serve_recsys(args):
 
 
 def parse_args(argv=None):
+    from repro_torch.configs import ARCH_IDS
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="d3gnn-sage",
-                    choices=["d3gnn-sage", "mistral-nemo-12b",
-                             "two-tower-retrieval"])
+    ap.add_argument("--arch", default="d3gnn-sage", choices=ARCH_IDS,
+                    help="a GNN zoo arch is refused: its shapes train")
     ap.add_argument("--edges", type=int, default=2000)
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--requests", type=int, default=64,
@@ -175,7 +177,12 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    from repro_torch.configs import get_arch
     args = parse_args(argv)
+    if get_arch(args.arch).family == "gnn":
+        raise ValueError(
+            f"{args.arch}: the GNN zoo's shapes are train shapes, and this "
+            "launcher serves; train it with repro_torch.launch.train")
     if args.arch == "d3gnn-sage":
         return serve_stream(args)
     if args.arch == "two-tower-retrieval":

@@ -1,5 +1,5 @@
 """Core layers kept in the JAX package's layout: Linear, RMSNorm,
-Embedding, MLP, SwiGLU.
+LayerNorm, Embedding, MLP, SwiGLU.
 
 Counterparts of `repro/nn/layers.py`. Weights are stored [in, out] exactly
 as the JAX pytree holds them (y = x @ w + b), so `convert` copies arrays
@@ -10,23 +10,13 @@ dtype at use, so storing them cast gives the matmuls the same operands.
 """
 from __future__ import annotations
 
-import math
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-# JAX's lecun_normal: truncated normal on [-2, 2] rescaled to unit variance
-_TRUNC_STD = 0.87962566103423978
-
-
-def lecun_normal_(w: torch.Tensor, fan_in: int,
-                  generator: Optional[torch.Generator] = None):
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    with torch.no_grad():
-        return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                     generator=generator)
+from repro_torch.nn.initializers import lecun_normal_
 
 
 def init_param(shape, fill: Callable, dtype, device,
@@ -81,6 +71,24 @@ class RMSNorm(nn.Module):
         return y * self.scale.to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Normalise over the last dim in f32 (population variance), cast
+    back, then `scale` (ones) and `bias` (zeros)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+        return y * self.scale.to(x.dtype) + self.bias.to(x.dtype)
+
+
 class Embedding(nn.Module):
     """Token table, normal(0, 0.02); a lookup returns the table's dtype
     (the caller casts, as transformer.py does)."""
@@ -97,22 +105,25 @@ class Embedding(nn.Module):
 
 
 class MLP(nn.Module):
-    """Linear layers of widths dims = (in, h1, ..., out) with relu between
-    them and none after the last: JAX's MLP with act=relu and
-    final_act=False. Layer i is `layers.<i>` (JAX's "l<i>")."""
+    """Linear layers of widths dims = (in, h1, ..., out) with `act`
+    (relu unless given) between them, and after the last too when
+    `final_act`: JAX's MLP. Layer i is `layers.<i>` (JAX's "l<i>")."""
 
-    def __init__(self, dims, device=None,
+    def __init__(self, dims, act: Callable = torch.relu,
+                 final_act: bool = False, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.act, self.final_act = act, final_act
         self.layers = nn.ModuleList(
             Linear(dims[i], dims[i + 1], generator=generator, device=device)
             for i in range(len(dims) - 1))
 
     def forward(self, x):
+        n = len(self.layers)
         for i, layer in enumerate(self.layers):
             x = layer(x)
-            if i < len(self.layers) - 1:
-                x = torch.relu(x)
+            if i < n - 1 or self.final_act:
+                x = self.act(x)
         return x
 
 

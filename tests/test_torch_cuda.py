@@ -1179,7 +1179,8 @@ def test_reduced_two_tower_train_step_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("arch,shape", [
-    ("mistral-nemo-12b", "train_4k"), ("two-tower-retrieval", "train_batch")])
+    ("mistral-nemo-12b", "train_4k"), ("two-tower-retrieval", "train_batch"),
+    ("gatedgcn", "full_graph_sm"), ("dimenet", "molecule")])
 def test_train_cli_runs_on_the_card_by_default(cuda, arch, shape, capsys):
     from repro_torch.launch import train
     model, params, state, losses = train.main(
@@ -1187,3 +1188,81 @@ def test_train_cli_runs_on_the_card_by_default(cuda, arch, shape, capsys):
     assert next(iter(params.values())).is_cuda
     assert len(losses) == 3 and all(np.isfinite(losses))
     assert capsys.readouterr().out.strip().endswith("train driver done")
+
+
+# gather_segment_sum / rmi_apply_read (kernels A and B at the reference's
+# fused-graph and fused apply-and-read entries) against their plain
+# versions run in float64 (the f32 plain version's one-at-a-time
+# index_add_ drifts where a run repeats rows: chip_smoke.gss_within): per
+# element |diff| <= KA_TOL * (1 + the row's sum of magnitudes); counts,
+# dirty flags exact; the mean read within that / max(cnt, 1) + 1e-6
+@pytest.mark.parametrize("N,E,d,case", [
+    (100, 400, 16, "masked"), (300, 5000, 75, "shuffled"),
+    (64, 3000, 602, "hub"), (64, 300, 8, "all_masked"), (64, 0, 8, "none"),
+    (1000, 20000, 1, "masked"), (5000, 60000, 602, "repeats")])
+def test_gather_segment_sum_matches_plain(cuda, N, E, d, case):
+    rng = np.random.default_rng(N + E + d)
+    x = torch.as_tensor(rng.normal(size=(N, d)).astype(np.float32))
+    s = torch.as_tensor(rng.integers(0, N, E))
+    r = torch.full((E,), 7) if case == "hub" else \
+        torch.as_tensor(rng.integers(0, N, E))
+    if case == "repeats":      # a hub that reads a few rows many times
+        s = s % 8
+        r = torch.where(torch.as_tensor(rng.random(E) < 0.5), 3, r)
+    mask = torch.as_tensor(rng.random(E) > 0.3)
+    if case == "all_masked":
+        mask[:] = False
+    if case == "shuffled":
+        r = r.sort().values[torch.as_tensor(rng.permutation(E))]
+    sr_ops.reset_launches()
+    got = sr_ops.gather_segment_sum(x.to(cuda), s.to(cuda), r.to(cuda), N,
+                                    mask.to(cuda))
+    torch.cuda.synchronize()
+    assert sr_ops.LAUNCHES["segment_sum_rows"] == 1
+    want = sr_ref.gather_segment_sum_ref(x.double(), s, r, N, mask)
+    mag = sr_ref.gather_segment_sum_ref(x.abs(), s, r, N, mask)
+    err = (got.cpu().double() - want).abs()
+    assert bool((err <= KA_TOL * (1 + mag)).all()), float(err.max())
+
+
+@pytest.mark.parametrize("R,C,K,d", [(70, 50, 12, 6), (4096, 30000, 512, 64),
+                                     (2048, 9000, 300, 602), (16, 0, 4, 3)])
+def test_rmi_apply_read_matches_plain(cuda, R, C, K, d):
+    rng = np.random.default_rng(R + C)
+    agg = torch.as_tensor(rng.normal(size=(R, d)).astype(np.float32))
+    cnt = torch.as_tensor(rng.integers(-1, 4, R).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(0, R + R // 8 + 1, C))
+    vec = torch.as_tensor(rng.normal(size=(C, d)).astype(np.float32))
+    dcnt = torch.as_tensor(rng.integers(-1, 2, C).astype(np.float32))
+    ridx = torch.as_tensor(rng.integers(0, R, K))
+    sr_ops.reset_launches()
+    got = sr_ops.rmi_apply_read(*(t.to(cuda) for t in (agg, cnt, idx, vec,
+                                                       dcnt, ridx)))
+    torch.cuda.synchronize()
+    assert sr_ops.LAUNCHES == {"segment_sum_rows": 1, "mean_rows_gather": 1}
+    want = sr_ref.rmi_apply_read_ref(agg.double(), cnt.double(), idx,
+                                     vec.double(), dcnt.double(), ridx)
+    mag = sr_ref.rmi_apply_read_ref(agg.abs(), cnt, idx, vec.abs(), dcnt,
+                                    ridx)[0]
+    assert bool(((got[0].cpu().double() - want[0]).abs()
+                 <= KA_TOL * (1 + mag)).all())
+    assert torch.equal(got[1].cpu().double(), want[1])
+    assert torch.equal(got[2].cpu(), want[2])
+    # the reads divide rows that agree within the bound above
+    n = want[1][ridx].clamp(min=1)[:, None]
+    assert bool(((got[3].cpu().double() - want[3]).abs()
+                 <= KA_TOL * (1 + mag[ridx]) / n + 1e-6 * (1 + want[3].abs()))
+                .all())
+
+
+def test_gather_and_apply_read_raise_under_grad(cuda):
+    x = torch.randn(8, 4, device=cuda, requires_grad=True)
+    e = torch.tensor([0, 1, 2], device=cuda)
+    with pytest.raises(RuntimeError, match="gather_segment_sum.*no backward"):
+        sr_ops.gather_segment_sum(x, e, e, 8)
+    with pytest.raises(RuntimeError, match="rmi_apply_read.*no backward"):
+        sr_ops.rmi_apply_read(x, torch.ones(8, device=cuda), e,
+                              torch.ones(3, 4, device=cuda),
+                              torch.ones(3, device=cuda), e)
+    with torch.no_grad():
+        assert sr_ops.gather_segment_sum(x, e, e, 8).shape == (8, 4)

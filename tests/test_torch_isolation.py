@@ -56,7 +56,15 @@ def test_import_leaves_jax_out():
             "repro_torch.core.aggregators, repro_torch.ft.chaos, "
             "repro_torch.ft.elastic, repro_torch.ft.checkpoint, "
             "repro_torch.launch.train, repro_torch.nn.module, "
-            "repro_torch.configs.base; "
+            "repro_torch.configs.base, repro_torch.graph.segment, "
+            "repro_torch.graph.gat, repro_torch.graph.pna, "
+            "repro_torch.graph.gatedgcn, repro_torch.graph.mp, "
+            "repro_torch.graph.so3, repro_torch.graph.nequip, "
+            "repro_torch.graph.dimenet, repro_torch.graph.triplets, "
+            "repro_torch.graph.sampler, repro_torch.nn.initializers, "
+            "repro_torch.configs.gnn_common, repro_torch.configs.pna, "
+            "repro_torch.configs.gatedgcn, repro_torch.configs.dimenet, "
+            "repro_torch.configs.nequip; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -92,9 +100,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         get_arch("two-tower-retrieval").build_reduced()
     from repro_torch.launch import train
     for arch, shape in (("mistral-nemo-12b", "train_4k"),
-                        ("two-tower-retrieval", "train_batch")):
+                        ("two-tower-retrieval", "train_batch"),
+                        ("gatedgcn", "full_graph_sm"),
+                        ("nequip", "molecule")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--arch", arch, "--shape", shape, "--reduced"])
+    for arch in ("pna", "gatedgcn", "dimenet", "nequip"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_arch(arch).build_reduced()
     # a mesh rank with no device named: CUDA, never the CPU unasked
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_stream_mesh
