@@ -306,6 +306,41 @@ the sampler's batch and its cuts):
   [gnn-cli] python -m repro_torch.launch.train --arch gatedgcn --shape
      full_graph_sm --steps 2, a subprocess on the card.
 
+Then Mixture-of-Experts, the other LM configs and the locality step (MOE
+and LOC's notes: the configurations, their cuts and tolerances):
+
+  [moe-parity] moonshot-v1-16b-a3b, llama4-maverick-400b-a17b,
+     internlm2-20b and mistral-large-123b at their REDUCED sizes (f32,
+     TF32 off), card vs CPU: logits, 8 greedy decode steps from an empty
+     cache, the loss with its aux and its gradients, one
+     lm_step("train_4k") Adam step; on the two MoE configs the dispatch
+     against dense_oracle where nothing drops and a planted fault (two
+     experts' wd swapped) the logits comparison must catch;
+  [moe-full] moonshot-v1-16b-a3b at its published widths and 48 layers,
+     bf16, weights drawn on the card: the kernel path against the
+     plain-attention path at S = 2048, both against f32 attention; one
+     layer's dispatch and dense oracle at T = 256 (dropless) against the
+     experts run in f32; one prefill_32k prefill at batch 1 (48 wgmma
+     flash launches, the dispatch's dropped share); the serve CLI (batch
+     4, 32 tokens) and a warm decode; tokens/s, peak memory, a profile
+     of one prefill and one decode step;
+  [moe-time] the flash kernel at moonshot's prefill layer (q, k, v [1,
+     32768, 16, 128], G = 1) against its plain version per block
+     against float64, then beside its bound, its plain version and
+     scaled_dot_product_attention (row 5m);
+  [moe-ep] one moonshot MoE layer on 4 gloo ranks sharing the card (16
+     experts, 2,048 tokens a rank, f32): at capacity factor 8 the
+     gathered outputs against dense_oracle, at 1.25 (pairs dropping)
+     against the same ranks' CPU run; all_to_all calls, bytes, seconds
+     blocked;
+  [gnn-locality] PNA at ogb_products' widths on a powerlaw_edges graph
+     (LOC), build_plan over 4 gloo ranks sharing the card: the global
+     single-rank step three times (its gradients' gap against itself),
+     then each rank's loss and gradients with local_update False and
+     True against the global step's, a dropped halo row the comparison
+     must catch; s a step, halo rows, bytes and seconds blocked, the
+     plan's host seconds, peak memory.
+
 After [mesh-full], [what-if]: the cost model fitted on [mesh-parity]'s
 telemetry trace prices other route_caps' wire at [mesh-full]'s measured
 gloo all_to_all rate (bytes over the seconds blocked in it).
@@ -6497,6 +6532,867 @@ def phase_gnn_cli(device):
           f"s with the interpreter's start): " + "; ".join(lines))
 
 
+
+# ------------------------------------------------------------ MoE phases
+# moonshot-v1-16b-a3b (src/repro/configs/moonshot_v1_16b_a3b.py:15-21) at
+# its published widths and all 48 layers, bf16, random weights drawn on
+# the card (~28.89 B parameters, 57.8 GB); prefill_32k's batch cut from 32
+# to 1, as [lm-full]'s. [moe-parity] runs the four configs of the slice at
+# their REDUCED sizes (f32), card vs CPU. [moe-ep]: one layer at
+# moonshot's widths on `ep_ranks` gloo ranks sharing the card (64 / 4 = 16
+# experts each), `ep_tokens` tokens a rank, f32, at each capacity factor
+# of `ep_cfs` (8: nothing drops, T K <= C S; 1.25: the config's).
+MOE = dict(arch="moonshot-v1-16b-a3b", shape="prefill_32k", check_s=2048,
+           layer_t=256, decode_tokens=32,
+           prefill_qkv=(1, 32768, 16, 16, 128),   # B, S, H, Kh, D: a layer
+           parity_archs=("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b",
+                         "internlm2-20b", "mistral-large-123b"),
+           parity_seq=64, parity_step=(256, 16, 8),
+           ep_ranks=4, ep_tokens=2048, ep_cfs=(8.0, 1.25), timeout=900)
+# [moe-parity], card vs CPU (TF32 off): logits and decode logits within
+# LM_PARITY_TOL x (1 + |cpu|) and equal greedy tokens; the loss within
+# ZOO_LOSS_TOL x |cpu|; gradients per leaf within MOE_GRAD_TOL x max |cpu|
+# (tests/test_torch_moe.py's bounds against JAX); after one Adam step the
+# parameters within ZOO_STATE_TOL, except where the gradient lies within
+# MOE_GRAD_TOL of the leaf's max of 0, where Adam's first step lr g /
+# (|g| + eps) may take either sign on the two devices (2 lr + ZOO_STATE_TOL
+# there: tests/test_torch_moe.py's assert_first_adam_step_close), and the
+# moments as [train-zoo-parity] holds them; the dispatch equal to
+# dense_oracle within MOE_EP_TOL x (1 + |oracle|) where nothing drops.
+MOE_GRAD_TOL = 1e-4
+# [moe-full] at check_s: the kernel path no farther from a path whose
+# attention runs in f32 than LM_PATH_RATIO x the plain path, as [lm-full];
+# but the kernel path within MOE_PATH_RATIO x the plain path's distance
+# from f32 of the plain path, not within [lm-full]'s LM_PATH_TOL: the
+# router's logits are bf16 (as JAX computes them), so bf16 rounding
+# anywhere flips near-tied top-6 choices, and a flipped pair changes its
+# token's FFN output whole. On an H100 at S = 2048 over 48 layers the
+# plain path lay 1.488e-01 from f32 attention and the kernel path
+# 1.520e-01, and the two 1.481e-01 apart (two bf16 paths, each a
+# perturbation of that size). One layer at layer_t tokens (dropless: T <= 4 E): the bf16 dispatch and the
+# bf16 dense oracle, each ||. - f32|| / ||f32|| <= MOE_BF16_TOL against
+# the layer's experts run in f32 on the same routing (x and the weights
+# as stored, the f32 router weights of the same top-k)
+MOE_BF16_TOL = 2.0 ** -6
+MOE_PATH_RATIO = 1.5
+# [moe-ep] f32, TF32 off: per element |diff| <= MOE_EP_TOL x (1 + |ref|)
+# against dense_oracle (cf 8) and against the same ranks' CPU run (cf
+# 1.25): f32 sums in another order over d = 2,048 then d_ff = 1,408
+# terms. MESH_TOL's 1e-5 holds sums over 64-602 terms; rounding grows as
+# the root of the terms summed, so sqrt(2048 / 602) = 1.84 of it, 2e-5
+# (an H100 run read 7.547e-06 and 6.735e-06). Tokens and router
+# lie on a grid (x in k / 8, -16 <= k <= 24; router in j / 512, -3 <= j
+# <= 4) so every router logit is exact in f32 whatever the summation order,
+# and the card, the CPU and the oracle route each token alike.
+MOE_EP_TOL = 2e-5
+
+
+def moe_leaves_within(tag, what, got, want, tol):
+    """Per leaf max |got - want| <= tol x max |want| (1e-12 for a zero
+    leaf). Returns the worst ratio err / max |want|."""
+    worst = 0.0
+    for name, w in want.items():
+        w = w.detach().cpu().double()
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        e = float((got[name].detach().cpu().double() - w).abs().max()) \
+            if w.numel() else 0.0
+        check(e <= max(tol * scale, 1e-12),
+              f"[{tag}] {what} {name}: {e} > {tol} x {scale}")
+        worst = max(worst, e / scale if scale else 0.0)
+    return worst
+
+
+def moe_first_step_within(tag, got, want, grads, lr=3e-4):
+    """Parameters after the first Adam step, card vs CPU (MOE_GRAD_TOL's
+    exemption, above). Returns the max error outside the exempt
+    elements and their count."""
+    import torch
+    worst, exempt = 0.0, 0
+    for name, w in want.items():
+        g = grads[name].cpu()
+        noise = g.abs() <= MOE_GRAD_TOL * float(g.abs().max())
+        err = (got[name].cpu() - w).abs()
+        bound = torch.where(noise, 2 * lr + ZOO_STATE_TOL, ZOO_STATE_TOL)
+        check(bool((err <= bound).all()), f"[{tag}] param {name} after "
+              f"one Adam step: max err {float(err.max())}")
+        worst = max(worst, float(torch.where(noise, 0.0, err).max()))
+        exempt += int((noise & (err > ZOO_STATE_TOL)).sum())
+    return worst, exempt
+
+
+def moe_logits_err(got, want):
+    """max |got - want| / (1 + |want|) (LM_PARITY_TOL's measure)."""
+    return float(((got.cpu() - want).abs() / (1 + want.abs())).max())
+
+
+def phase_moe_parity(device, moe=MOE):
+    """The four configs of the slice at their REDUCED sizes, built on the
+    CPU from a seed and copied to the card (f32, TF32 off): logits; 8
+    greedy decode steps from an empty cache; the loss with its aux and its
+    gradients; one lm_step("train_4k") Adam step. On the MoE configs the
+    dispatch against dense_oracle where nothing drops, and a planted fault
+    (two experts' wd swapped on the card) the logits comparison must
+    catch."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import lm_step, value_and_grad
+    from repro_torch.data.streams import token_batches
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.nn.module import param_tree
+    from repro_torch.optim import adam
+    cuda = device.type == "cuda"
+    rng = np.random.default_rng(SEED + 24)
+    B_step, S_step, accum = moe["parity_step"]
+    for arch in moe["parity_archs"]:
+        spec = get_arch(arch)
+        cpu = spec.build_reduced(device="cpu", seed=SEED, train=True)
+        card = spec.build_reduced(device=device, seed=SEED + 1, train=True)
+        card.load_state_dict(cpu.state_dict())
+        c = cpu.cfg
+        toks = torch.as_tensor(rng.integers(0, c.vocab,
+                                            (2, moe["parity_seq"])))
+        fa.reset_launches()
+        want = cpu.logits(toks)
+        e_logits = moe_logits_err(card.logits(toks.to(device)), want)
+        check(e_logits <= LM_PARITY_TOL, f"[moe-parity] {arch} logits card "
+                                         f"vs CPU {e_logits:.3e}")
+        if cuda:
+            check(fa.LAUNCHES["flash_attention"] == c.n_layers,
+                  f"[moe-parity] {arch} logits launched {fa.LAUNCHES}")
+        planted = None
+        moe_blocks = [b for b in card.blocks if b.kind == "moe"]
+        if moe_blocks:
+            with torch.no_grad():
+                for b in moe_blocks:
+                    b.ffn.wd[[0, 1]] = b.ffn.wd[[1, 0]].clone()
+                planted = moe_logits_err(card.logits(toks.to(device)), want)
+                for b in moe_blocks:
+                    b.ffn.wd[[0, 1]] = b.ffn.wd[[1, 0]].clone()
+            check(planted > LM_PARITY_TOL, f"[moe-parity] {arch}: two "
+                  f"experts' wd swapped reads {planted:.3e}, within the "
+                  f"bound")
+            # the dispatch is the oracle where nothing drops (T <= 4 E)
+            lay = moe_blocks[0].ffn
+            x = torch.randn(4 * lay.cfg.num_experts, c.d_model,
+                            generator=torch.Generator(device).manual_seed(
+                                SEED), device=device)
+            with torch.no_grad():
+                got, oracle = lay(x)[0], lay.dense_oracle(x)[0]
+            e_oracle = float(((got - oracle).abs()
+                              / (1 + oracle.abs())).max())
+            check(e_oracle <= MOE_EP_TOL, f"[moe-parity] {arch} dispatch "
+                                          f"vs dense_oracle {e_oracle:.3e}")
+        B, n = 4, 8
+        tok = torch.as_tensor(rng.integers(0, c.vocab, (B, 1)))
+        c_cpu, c_card = cpu.init_cache(B, n + 8), card.init_cache(B, n + 8)
+        t_cpu, t_card, e_dec = tok, tok.to(device), 0.0
+        for _ in range(n):
+            l_cpu, c_cpu = cpu.decode_step(c_cpu, t_cpu)
+            l_card, c_card = card.decode_step(c_card, t_card)
+            e_dec = max(e_dec, moe_logits_err(l_card, l_cpu))
+            t_cpu = torch.argmax(l_cpu[:, -1:], dim=-1)
+            t_card = torch.argmax(l_card[:, -1:], dim=-1)
+            check(torch.equal(t_card.cpu(), t_cpu),
+                  f"[moe-parity] {arch}: greedy tokens differ")
+        check(e_dec <= LM_PARITY_TOL, f"[moe-parity] {arch} decode logits "
+                                      f"card vs CPU {e_dec:.3e}")
+        labels = torch.roll(toks, -1, 1)
+        labels[0, -5:] = -100
+        lc, gc = value_and_grad(cpu, cpu.loss, param_tree(cpu), toks, labels)
+        lg, gg = value_and_grad(card, card.loss, param_tree(card),
+                                toks.to(device), labels.to(device))
+        e_loss = abs(float(lg) - float(lc)) / abs(float(lc))
+        check(e_loss <= ZOO_LOSS_TOL, f"[moe-parity] {arch} loss card "
+                                      f"{float(lg)} vs CPU {float(lc)}")
+        e_grad = moe_leaves_within("moe-parity", f"{arch} grad", gg, gc,
+                                   MOE_GRAD_TOL)
+        data = next(iter(token_batches(SEED, c.vocab, B_step, S_step, 1)))
+        runs = {}
+        for name, m in (("cpu", cpu), ("card", card)):
+            p = param_tree(m)
+            runs[name] = lm_step(m, "train_4k", grad_accum=accum)(
+                p, adam().init(p), *(torch.as_tensor(a, device=m.device)
+                                     for a in data))
+        (pc, sc, lc1), (pg, sg, lg1) = runs["cpu"], runs["card"]
+        e_step = abs(float(lg1) - float(lc1)) / abs(float(lc1))
+        check(e_step <= ZOO_LOSS_TOL, f"[moe-parity] {arch} step loss")
+        g_step = {k: v / 0.1 for k, v in sc["m"].items()}   # m = (1 - b1) g
+        e_param, exempt = moe_first_step_within("moe-parity", pg, pc,
+                                                g_step)
+        e_mom = max(moe_leaves_within("moe-parity", f"{arch} {mv}", sg[mv],
+                                      sc[mv], ZOO_MOMENT_RTOL)
+                    for mv in ("m", "v"))
+        for mv in ("m", "v"):
+            for k in sc[mv]:
+                e = float((sg[mv][k].cpu() - sc[mv][k]).abs().max())
+                check(e <= ZOO_STATE_TOL, f"[moe-parity] {arch} {mv} {k}")
+        print(f"[moe-parity] {arch} ({c.n_layers} layers, pattern "
+              f"{c.pattern}, d {c.d_model}, head dim {c.head_dim}"
+              + (f", {c.moe.num_experts} experts top-{c.moe.top_k}, "
+                 f"{c.moe.n_shared} shared" if c.moe else "")
+              + f"), card vs CPU: logits {e_logits:.3e}, {n} greedy decode "
+              f"steps x {B} equal tokens, logits {e_dec:.3e} (tolerance "
+              f"{LM_PARITY_TOL} x (1 + |cpu|)); loss {float(lc):.6f} rel "
+              f"{e_loss:.3e}; grads {e_grad:.3e} of a leaf's max (tolerance "
+              f"{MOE_GRAD_TOL}); one train_4k Adam step ({B_step} x "
+              f"{S_step}, grad_accum {accum}): loss rel {e_step:.3e}, "
+              f"params {e_param:.3e} ({exempt} elements past "
+              f"{ZOO_STATE_TOL} where |g| is within the gradient bound of "
+              f"0), moments {e_mom:.3e} of a leaf's max"
+              + (f"; dispatch vs dense_oracle {e_oracle:.3e}; planted fault "
+                 f"(experts 0, 1 wd swapped) reads {planted:.3e} "
+                 f"(must be > {LM_PARITY_TOL})" if moe_blocks else ""))
+        del cpu, card, runs
+        free_cuda()
+
+
+def moe_f32_reference(layer, x, ids):
+    """The layer's output in f32 on the given routing: x and the stored
+    weights cast to f32, each token's top-k experts weighted by the f32
+    router probabilities at `ids` renormalised, plus the shared experts."""
+    import torch
+    import torch.nn.functional as F
+    xf = x.float()
+    probs = torch.softmax((x @ layer.router.to(x.dtype)).float(), dim=-1)
+    w = probs.gather(1, ids)
+    w = w / w.sum(dim=-1, keepdim=True)
+    out = torch.zeros_like(xf)
+    for e in torch.unique(ids).tolist():
+        tok, slot = (ids == e).nonzero(as_tuple=True)
+        xe = xf[tok]
+        y = (F.silu(xe @ layer.wg[e].float()) * (xe @ layer.wu[e].float())) \
+            @ layer.wd[e].float()
+        out.index_add_(0, tok, y * w[tok, slot][:, None])
+    if layer.shared is not None:
+        s = layer.shared
+        out += (F.silu(xf @ s.wg.float()) * (xf @ s.wu.float())) \
+            @ s.wd.float()
+    return out
+
+
+def moe_drop_hooks(model):
+    """Forward hooks on every MoE layer that add up, on the device, the
+    (token, expert) pairs routed and the pairs past the capacity (the
+    sorted dispatch's drops: per expert, max(0, pairs - C)). Returns
+    (hooks, counts [routed, dropped])."""
+    import torch
+    from repro_torch.nn.moe import capacity
+    counts = torch.zeros(2, dtype=torch.int64, device=model.device)
+
+    def hook(mod, args, out):
+        x = args[0]
+        ids = mod.route(x)[0]
+        E, K = mod.cfg.num_experts, mod.cfg.top_k
+        C = capacity(x.shape[0], K, mod.cfg.capacity_factor, E, E)
+        per = torch.bincount(ids.reshape(-1), minlength=E)
+        counts[0] += ids.numel()
+        counts[1] += torch.clamp(per - C, min=0).sum()
+
+    hooks = [b.ffn.register_forward_hook(hook) for b in model.blocks
+             if b.kind == "moe"]
+    return hooks, counts
+
+
+def phase_moe_full(device, moe=MOE):
+    """moonshot-v1-16b-a3b at its published widths and depth: the kernel
+    path against the plain-attention path at check_s; one layer's dispatch
+    and dense oracle at layer_t tokens against f32; one prefill_32k
+    prefill (batch 1) with its flash launches and the dispatch's dropped
+    share; the serve CLI (batch 4) and a warm decode; tokens/s, peak
+    memory, and a profile of one prefill and one decode step. Returns the
+    flash launches counted over one prefill."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    from repro_torch.launch import serve
+    from repro_torch.nn import attention
+    from repro_torch.nn.module import param_bytes, param_count
+    cuda = device.type == "cuda"
+    spec = get_arch(moe["arch"])
+    S = spec.shapes[moe["shape"]].dims["seq"]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = spec.build(device=device, seed=SEED)
+    sync(model.lm_head)
+    cfg = model.cfg
+    m = cfg.moe
+    print(f"[moe-full] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads of "
+          f"{cfg.head_dim}, {m.num_experts} experts top-{m.top_k} of d_ff "
+          f"{m.d_ff} + {m.n_shared} shared, capacity factor "
+          f"{m.capacity_factor}, vocab {cfg.vocab}; {param_count(model)} "
+          f"params, {param_bytes(model)} bytes ({cfg.dtype}), drawn on the "
+          f"device in {time.perf_counter() - t0:.2f}s")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    # the kernel path against the plain-attention path, and both against
+    # attention in f32 (as [lm-full])
+    toks = torch.randint(0, cfg.vocab, (1, moe["check_s"]), generator=gen,
+                         device=device)
+    f32_attention = lambda q, k, v, causal=True: ref.attention_ref(
+        q.float(), k.float(), v.float(), causal).to(q.dtype)
+    h_kernel = model.hidden_states(toks)
+    with mock.patch.object(attention, "flash_attention", ref.attention_ref):
+        h_plain = model.hidden_states(toks)
+    with mock.patch.object(attention, "flash_attention", f32_attention):
+        h_f32 = model.hidden_states(toks)
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / b.float().norm())
+    path_err = rel(h_kernel, h_plain)
+    from_f32 = rel(h_kernel, h_f32), rel(h_plain, h_f32)
+    print(f"[moe-full] S={moe['check_s']}: kernel path vs plain-attention "
+          f"path: final hidden states ||diff||/||plain|| {path_err:.3e} "
+          f"(at most {MOE_PATH_RATIO}x the plain path's distance from f32 "
+          f"attention); vs f32 attention: kernel {from_f32[0]:.3e}, plain "
+          f"{from_f32[1]:.3e} (kernel at most {LM_PATH_RATIO}x plain)")
+    check(path_err <= MOE_PATH_RATIO * from_f32[1],
+          f"[moe-full] kernel path vs plain path: {path_err:.3e}, the plain "
+          f"path {from_f32[1]:.3e} from f32 attention")
+    check(from_f32[0] <= LM_PATH_RATIO * from_f32[1],
+          f"[moe-full] kernel path {from_f32[0]:.3e} from f32 attention, "
+          f"plain path {from_f32[1]:.3e}")
+    del h_kernel, h_plain, h_f32
+
+    # one layer's dispatch and oracle, dropless, against f32
+    check(moe["layer_t"] <= 4 * m.num_experts,
+          f"[moe-full] layer_t {moe['layer_t']} > 4 E: capacity applies")
+    lay = model.blocks[0].ffn
+    x = torch.randn(moe["layer_t"], cfg.d_model, generator=gen,
+                    device=device).to(lay.router.dtype)
+    with torch.no_grad():
+        got, _ = lay(x)
+        oracle, _ = lay.dense_oracle(x)
+        want = moe_f32_reference(lay, x, lay.route(x)[0])
+    e_call, e_oracle = rel(got, want), rel(oracle, want)
+    print(f"[moe-full] layer 0 at T={moe['layer_t']} (dropless: T <= 4 E) "
+          f"in {cfg.dtype}: dispatch {e_call:.3e}, dense_oracle "
+          f"{e_oracle:.3e} from the f32 experts on the same routing "
+          f"(||.-f32||/||f32||, tolerance {MOE_BF16_TOL}); dispatch vs "
+          f"oracle {rel(got, oracle):.3e}")
+    check(max(e_call, e_oracle) <= MOE_BF16_TOL,
+          f"[moe-full] layer 0: dispatch {e_call:.3e}, oracle "
+          f"{e_oracle:.3e} from f32")
+    del x, got, oracle, want
+
+    # one prefill of the assigned shape at batch 1: the launches and the
+    # dropped share (hooked), then a timed one and a profiled one
+    toks = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=device)
+    prefill = spec.step(model, moe["shape"])
+    hooks, counts = moe_drop_hooks(model)
+    fa.reset_launches()
+    logits = prefill(toks)
+    sync(logits)
+    launches = dict(fa.LAUNCHES)
+    for h in hooks:
+        h.remove()
+    routed, dropped = (int(v) for v in counts.tolist())
+    check(logits.shape == (1, cfg.vocab) and bool(logits.isfinite().all()),
+          "[moe-full] prefill logits misshapen or not finite")
+    if cuda:
+        check(launches["flash_attention"] == cfg.n_layers
+              and launches["flash_attention_wgmma"] == cfg.n_layers,
+              f"[moe-full] the prefill launched the flash kernels "
+              f"{launches} times, expected {cfg.n_layers}, all wgmma")
+    sync(toks)
+    t0 = time.perf_counter()
+    logits = prefill(toks)
+    sync(logits)
+    secs = time.perf_counter() - t0
+    print(f"[moe-full] prefill S={S} batch 1: {secs:.3f}s = "
+          f"{S / secs:.1f} tokens/s (second call); launches {launches}; "
+          f"logits finite; dispatch dropped {dropped} of {routed} (token, "
+          f"expert) pairs ({dropped / routed:.4f}) at capacity factor "
+          f"{m.capacity_factor}")
+    if cuda:
+        profile_call("moe-profile", f"one prefill S={S}",
+                     lambda: prefill(toks), top=10)
+    del model, prefill, logits, toks
+    free_cuda()
+
+    # the serve CLI: batch 4, greedy, from an empty cache
+    n = moe["decode_tokens"]
+    model, generated, secs = serve.main(
+        ["--arch", moe["arch"], "--tokens", str(n), "--device", str(device)])
+    check(generated.shape == (4, n) and int(generated.min()) >= 0
+          and int(generated.max()) < cfg.vocab,
+          "[moe-full] served tokens out of range")
+    cache = model.init_cache(4, n + 8)
+    tok = generated[:, :1].to(device)
+    sync(tok)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        lg, cache = model.decode_step(cache, tok)
+        tok = torch.argmax(lg[:, -1:], dim=-1)
+    sync(tok)
+    warm = time.perf_counter() - t0
+    if cuda:
+        profile_call("moe-profile", "one warm decode step, batch 4",
+                     lambda: model.decode_step(cache, tok), top=10)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    print(f"[moe-full] serve: {4 * n / secs:.1f} tokens/s over its {n} "
+          f"steps (first step included); warm decode batch 4: "
+          f"{4 * n / warm:.1f} tokens/s, {warm / n * 1e3:.2f} ms a step "
+          f"(the weights' {param_bytes(model)} bytes over "
+          f"{PEAK_BYTES_PER_S / 1e12} TB/s: "
+          f"{param_bytes(model) / PEAK_BYTES_PER_S * 1e3:.2f} ms); peak "
+          f"memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    if cuda:
+        check(peak < 76 * 2**30, f"[moe-full] peak {peak / 2**30:.2f} GiB")
+    del model, cache
+    free_cuda()
+    return launches
+
+
+def phase_moe_time(device, launches, max_err, moe=MOE):
+    """Row 5m: the kernel at moonshot's prefill layer (q, k, v [1, S, 16,
+    128] bf16, causal: MHA, G = 1) beside its bound, its plain version and
+    scaled_dot_product_attention (timed only, as a yardstick), in turns;
+    the kernel held to its plain version per block against float64 there
+    first (fa_check)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    q, k, v = make_qkv(gen, torch.bfloat16, *moe["prefill_qkv"])
+    err, excess, _ = fa_check(fa, ref, q, k, v, True)
+    free_cuda()
+    B, S, H, D = q.shape
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    runs = {"wgmma": [], "sdpa": []}
+    for name in ("wgmma", "sdpa", "sdpa", "wgmma"):
+        fn = {"wgmma": lambda: fa.flash_attention(q, k, v, causal=True),
+              "sdpa": sdpa}[name]
+        runs[name].append(time_ms(fn))
+    ms, lib_ms = (sum(r) / len(r) for r in runs.values())
+    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=True))
+    flops = 4 * D * H * B * (S * (S + 1) // 2)
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_OPS_PER_S
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes > t_ops else "operations"
+    rate = lambda t: f"{flops / t / 1e9:.1f} TFLOP/s"
+    print(f"[moe-time] flash_attention bf16 q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)} causal (moonshot's prefill layer, G = 1): vs "
+          f"plain max abs err {err:.3e}, worst block {excess:.3f} (limit "
+          f"1); in turns (wgmma, sdpa, sdpa, wgmma): wgmma kernel "
+          f"{runs['wgmma']} ms, mean {ms:.3f} ms ({rate(ms)}, "
+          f"{bound / ms:.3f} of the bound); scaled_dot_product_attention "
+          f"(flash backend) {runs['sdpa']} ms, mean {lib_ms:.3f} ms "
+          f"({rate(lib_ms)}); plain {plain_ms:.3f} ms; bound {bound:.3f} ms "
+          f"by {by} ({flops} FLOPs, {n_bytes} bytes)")
+    return {"name": "flash_attention (moonshot-v1-16b-a3b prefill layer)",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
+            "launches": launches["flash_attention_wgmma"],
+            "max_abs_err": max(max_err, err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def ep_weights(moe_cfg, d, experts, device):
+    """Expert e's (wg [d, h], wu [d, h], wd [h, d]), each drawn by
+    lecun_normal on `device` from a generator seeded SEED + 1000 + e, so
+    any process draws the same expert; stacked over `experts`."""
+    import torch
+    from repro_torch.nn.initializers import lecun_normal
+    out = {"wg": [], "wu": [], "wd": []}
+    h = moe_cfg.d_ff
+    for e in experts:
+        g = torch.Generator(device=device).manual_seed(SEED + 1000 + e)
+        out["wg"].append(lecun_normal((d, h), g, device))
+        out["wu"].append(lecun_normal((d, h), g, device))
+        out["wd"].append(lecun_normal((h, d), g, device))
+    return {k: torch.stack(v) for k, v in out.items()}
+
+
+def ep_inputs(moe_cfg, d, n_tokens, device):
+    """(router, shared {wg, wu, wd}, tokens x [n_tokens, d]) on `device`
+    from one seed: the router and x on MOE_EP_TOL's grid, the first 64
+    features of every token and their router rows leaning toward the
+    first rank's 16 experts (+0.125 on their logits, 0.6 of the logits'
+    spread across tokens), so that at capacity factor 1.25 some pairs
+    drop at that rank while every rank receives pairs."""
+    import torch
+    from repro_torch.nn.initializers import lecun_normal
+    g = torch.Generator(device=device).manual_seed(SEED + 999)
+    E, hs = moe_cfg.num_experts, moe_cfg.d_ff * moe_cfg.n_shared
+    router = torch.randint(-3, 4, (d, E), generator=g, device=device) / 512
+    router[:64, :16] += 1 / 512
+    shared = {"wg": lecun_normal((d, hs), g, device),
+              "wu": lecun_normal((d, hs), g, device),
+              "wd": lecun_normal((hs, d), g, device)}
+    x = torch.randint(-16, 17, (n_tokens, d), generator=g,
+                      device=device) / 8
+    x[:, :64] += 1.0
+    return router, shared, x
+
+
+def ep_layer(moe_cfg, d, router, shared, experts=None):
+    """An MoELayer holding `router` and the shared experts; its expert
+    slabs are `experts` ({wg, wu, wd} stacked over all E) or, on a rank
+    that holds only its slab, left on the meta device (no memory)."""
+    from repro_torch.nn.moe import MoELayer
+    lay = MoELayer(d, moe_cfg, device="meta")
+    state = {"router": router,
+             **{f"shared.{k}": v for k, v in shared.items()},
+             **(experts or {})}
+    lay.load_state_dict(state, strict=False, assign=True)
+    return lay
+
+
+def _moe_ep_rank(mesh, moe):
+    """This rank's 16 experts of moonshot's layer 0 shape, its
+    `ep_tokens` tokens, moe_ep_apply at each capacity factor on the card
+    (and, at the config's 1.25, on the CPU over the same gloo group).
+    Returns {(cf, where): (out, calls, seconds)} and the drops."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG
+    from repro_torch.dist.moe_ep import moe_ep_apply
+    from repro_torch.nn.moe import capacity
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, S, T = CONFIG.d_model, mesh.size, moe["ep_tokens"]
+    E = CONFIG.moe.num_experts
+    e_loc = E // S
+    lo = mesh.rank * e_loc
+    slab = ep_weights(CONFIG.moe, d, range(lo, lo + e_loc), mesh.device)
+    router, shared, x = ep_inputs(CONFIG.moe, d, S * T, mesh.device)
+    x = x[mesh.rank * T:(mesh.rank + 1) * T]
+    out, drops = {}, {}
+    for cf in moe["ep_cfs"]:
+        cfg = dataclasses.replace(CONFIG.moe, capacity_factor=cf,
+                                  ep_axis=("model",))
+        places = [("card", mesh)] + ([("cpu", mesh.on("cpu"))]
+                                     if cf == CONFIG.moe.capacity_factor
+                                     else [])
+        for where, m in places:
+            mv = lambda t: t.to(m.device)
+            lay = ep_layer(cfg, d, mv(router), {k: mv(v) for k, v in
+                                                shared.items()})
+            params = {"router": lay.router,
+                      **{k: mv(v) for k, v in slab.items()}}
+            m.reset_calls()
+            xm = mv(x)
+            sync(xm)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                y = moe_ep_apply(lay, params, xm, m)
+            sync(y)
+            out[cf, where] = (y.cpu(), dict(m.calls),
+                              time.perf_counter() - t0)
+        ids = lay.route(mv(x))[0]
+        C = capacity(T, CONFIG.moe.top_k, cf, S, E)
+        per_dest = torch.bincount((ids // e_loc).reshape(-1), minlength=S)
+        drops[cf] = (int(torch.clamp(per_dest - C, min=0).sum()),
+                     ids.numel(), C, per_dest.tolist())
+    peak = torch.cuda.max_memory_allocated(mesh.device) \
+        if mesh.device.type == "cuda" else 0
+    return out, drops, peak
+
+
+def phase_moe_ep(device, moe=MOE):
+    """One MoE layer at moonshot's widths over `ep_ranks` gloo ranks that
+    share the card, f32: at capacity factor 8 the gathered outputs equal
+    dense_oracle on all the tokens (run after the ranks exit), at 1.25 the
+    same ranks' CPU run; all_to_all calls, bytes and seconds blocked."""
+    import torch
+    from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    n, T = moe["ep_ranks"], moe["ep_tokens"]
+    d = CONFIG.d_model
+    t0 = time.perf_counter()
+    ranks = spawn_stream_mesh(n, _moe_ep_rank, backend="gloo",
+                              device=str(device), args=(moe,),
+                              timeout=moe["timeout"])
+    wall = time.perf_counter() - t0
+    e_cpu = 0.0
+    cf_drop = CONFIG.moe.capacity_factor
+    for r, (out, drops, peak) in enumerate(ranks):
+        got, want = out[cf_drop, "card"][0], out[cf_drop, "cpu"][0]
+        e = float(((got - want).abs() / (1 + want.abs())).max())
+        check(e <= MOE_EP_TOL, f"[moe-ep] rank {r} cf {cf_drop}: card vs "
+                               f"CPU {e:.3e}")
+        e_cpu = max(e_cpu, e)
+    for r, (out, drops, peak) in enumerate(ranks):
+        for cf in moe["ep_cfs"]:
+            y, calls, secs = out[cf, "card"]
+            a2a = calls.get("all_to_all", [0, 0.0, 0])
+            print(f"[moe-ep] rank {r} cf {cf}: pairs to each rank "
+                  f"{drops[cf][3]}, capacity {drops[cf][2]} rows a "
+                  f"destination, dropped {drops[cf][0]} of {drops[cf][1]}; "
+                  f"all_to_all {a2a[0]} calls, "
+                  f"{a2a[2]} bytes sent, {a2a[1]:.3f} s blocked of "
+                  f"{secs:.3f} s (card)"
+                  + (f"; CPU run {out[cf, 'cpu'][2]:.3f} s"
+                     if (cf, "cpu") in out else "")
+                  + f"; peak {peak / 2**30:.2f} GiB")
+    check(all(drops[8.0][0] == 0 for _, drops, _ in ranks)
+          if 8.0 in moe["ep_cfs"] else True,
+          "[moe-ep] pairs dropped at capacity factor 8")
+    # the oracle on all the tokens, one process, after the ranks exit
+    experts = ep_weights(CONFIG.moe, d, range(CONFIG.moe.num_experts),
+                         device)
+    router, shared, x = ep_inputs(CONFIG.moe, d, n * T, device)
+    lay = ep_layer(CONFIG.moe, d, router, shared, experts)
+    with torch.no_grad():
+        oracle = torch.cat([lay.dense_oracle(x[i:i + 1024])[0].cpu()
+                            for i in range(0, n * T, 1024)])
+    got = torch.cat([out[8.0, "card"][0] for out, _, _ in ranks])
+    e_oracle = float(((got - oracle).abs() / (1 + oracle.abs())).max())
+    check(e_oracle <= MOE_EP_TOL, f"[moe-ep] cf 8 vs dense_oracle "
+                                  f"{e_oracle:.3e}")
+    slab_bytes = sum(v.numel() * v.element_size() for v in experts.values())
+    print(f"[moe-ep] {n} gloo ranks on one card, {T} tokens a rank, d "
+          f"{d}, {CONFIG.moe.num_experts // n} experts a rank (the slabs "
+          f"{slab_bytes} bytes in all, f32): cf 8 vs dense_oracle on the "
+          f"gathered tokens {e_oracle:.3e}, cf {cf_drop} card vs the same "
+          f"ranks' CPU run {e_cpu:.3e} (tolerance {MOE_EP_TOL} x (1 + "
+          f"|ref|)); {wall:.1f} s with the ranks' start")
+    del experts, lay, oracle
+    free_cuda()
+
+
+# [gnn-locality]: PNA at ogb_products' published widths
+# (src/repro/perf/variants.py:33-36: d_feat 100, hidden 75, 4 layers, 47
+# classes, avg_log_deg 3.2) on a powerlaw_edges graph (alpha 0.5, no
+# community structure) cut 20x in nodes and edges from ogb_products'
+# 2,449,029 / 61,859,140 (mean in-degree kept, 25.3; nodes rounded to a
+# multiple of the ranks), its node ids relabelled by a seeded
+# permutation, 100 standard-normal features, 47 uniform classes, every
+# node labelled. Cut 20x, not 10x: at a tenth (244,904 nodes, 6,185,914
+# edges) each rank held 16-18 GiB and the four ran the card out of
+# memory (on an H100), the global step alone 51.74 GiB. And
+# relabelled: powerlaw_edges gives the low ids the high degrees, so the
+# block partition handed rank 0 half the edges (3,088,277 of 6,185,914,
+# 27.4 GiB); relabelled, each rank receives ~1/4 of them.
+# build_plan over `ranks` gloo ranks that share the card, each rank's
+# step held to the global single-rank step on the card. Loss within
+# LOC_LOSS_TOL x max(1, |loss|) (the reference's contract,
+# tests/test_perf_machinery.py:36-94). Gradients per leaf within
+# max(LOC_GRAD_TOL x max |global|, LOC_GAP x the gap of the global step
+# against itself: run again (the card's atomic index_add_ reorders its
+# sums from run to run) and run on the same graph with its node ids and
+# edge order permuted), taking each leaf's larger gap. PNA's f32
+# gradients are ill-conditioned (R17: its std aggregator's Σm²/n -
+# (Σm/n)² cancels, and so do the reductions over nodes of its terms):
+# this phase run on the CPU at 4,000 nodes, where sums run in a fixed
+# order, put the global step's own f32 gradient up to 1.21e-3 of a
+# leaf's max from float64 and the ranks' that far from the global
+# step's (they summed closer to float64), past LOC_GRAD_TOL and the
+# CPU's small gap; on an H100 the gap term carries it (the ranks
+# 1.534e-4 of a leaf's max from the global step at most, against gaps
+# up to 2.144e-4; a dropped halo row 1.6e-2 to 1.5e-1). The 1e-5
+# contract on the updated parameters is held on the CPU only
+# (tests/test_torch_locality.py).
+LOC = dict(n_nodes=122_452, n_edges=3_092_957, alpha=0.5, d_feat=100,
+           hidden=75, layers=4, classes=47, avg_log_deg=3.2, ranks=4,
+           timeout=900)
+LOC_LOSS_TOL, LOC_GRAD_TOL, LOC_GAP = 1e-5, 1e-4, 4.0
+
+
+def loc_graph(loc=LOC):
+    """(senders, receivers, x, labels, seconds) from numpy seeds; the
+    node ids of powerlaw_edges relabelled by a seeded permutation."""
+    from repro_torch.graph.graphs import powerlaw_edges
+    rng = np.random.default_rng(SEED + 25)
+    t0 = time.perf_counter()
+    edges = powerlaw_edges(rng, loc["n_nodes"], loc["n_edges"],
+                           loc["alpha"])
+    edges = rng.permutation(loc["n_nodes"])[edges]
+    x = rng.standard_normal((loc["n_nodes"], loc["d_feat"]),
+                            dtype=np.float32)
+    labels = rng.integers(0, loc["classes"], loc["n_nodes"])
+    return edges[:, 0], edges[:, 1], x, labels, time.perf_counter() - t0
+
+
+def loc_model(loc, device):
+    from repro_torch.graph.pna import PNA
+    return PNA(loc["d_feat"], loc["hidden"], loc["layers"], loc["classes"],
+               loc["avg_log_deg"], seed=SEED, device=device)
+
+
+def _loc_rank(mesh, loc, plan, x, labels):
+    """Each case's (loss, gradients) on this rank, a timed step each,
+    the exchange's calls, and the planted fault (rank 0 drops the first
+    halo row it sends rank 1)."""
+    import torch
+    from repro_torch.dist import gnn_locality as gl
+    from repro_torch.nn.module import param_tree
+    from repro_torch.optim import adam
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = loc_model(loc, mesh.device)
+    batch = gl.rank_batch(plan, mesh.rank, x, labels,
+                          np.ones(len(labels), bool), mesh.device)
+    out = {}
+    for case, local in (("global layers", False), ("local update", True),
+                        ("dropped halo row", False)):
+        if case == "dropped halo row" and mesh.rank == 0:
+            batch["send_mask"] = batch["send_mask"].clone()
+            batch["send_mask"][1, 0] = False
+        step = gl.make_locality_train_step(model, loc["classes"], mesh,
+                                           local_update=local)
+        params = param_tree(model)
+        mesh.reset_calls()
+        loss, grads = step.grads_fn(params, batch)
+        calls = {k: list(v) for k, v in mesh.calls.items()}
+        sync(loss)
+        t0 = time.perf_counter()
+        new, _, _ = step(params, adam().init(params), batch)
+        sync(next(iter(new.values())))
+        out[case] = (float(loss), {k: v.cpu() for k, v in grads.items()},
+                     calls, time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(mesh.device) \
+        if mesh.device.type == "cuda" else 0
+    return out, peak
+
+
+def loc_breaches(loss, grads, ref_loss, ref_grads, gap):
+    """What of one rank's (loss, grads) misses the global step's (LOC's
+    bounds); [] when it passes."""
+    out = []
+    if abs(loss - ref_loss) > LOC_LOSS_TOL * max(1.0, abs(ref_loss)):
+        out.append(f"loss {loss} vs {ref_loss}")
+    for k, w in ref_grads.items():
+        e = float((grads[k] - w).abs().max())
+        bound = max(LOC_GRAD_TOL * float(w.abs().max()), LOC_GAP * gap[k])
+        if e > bound:
+            out.append(f"grad {k}: {e} > {bound}")
+    return out
+
+
+def phase_gnn_locality(device, loc=LOC):
+    """The locality plan on the host, the global single-rank step twice on
+    the card (its gradients' run-to-run gap), then `ranks` gloo ranks on
+    the card: with local_update False and True each rank's loss and
+    gradients against the global step's, a planted fault the comparison
+    must catch; s a step, halo rows and bytes a layer, seconds blocked in
+    the exchange, the plan's host seconds, peak memory."""
+    import torch
+    from repro_torch.configs.base import value_and_grad
+    from repro_torch.dist.gnn_locality import build_plan
+    from repro_torch.graph.graphs import Graph
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    from repro_torch.nn.module import param_tree
+    cuda = device.type == "cuda"
+    s, r, x, labels, graph_s = loc_graph(loc)
+    N, S = loc["n_nodes"], loc["ranks"]
+    t0 = time.perf_counter()
+    plan = build_plan(s, r, N, S)
+    plan_s = time.perf_counter() - t0
+    halo = plan.send_mask.sum(axis=(0, 2))          # rows each rank gets
+    print(f"[gnn-locality] graph: {N} nodes, {len(s)} powerlaw_edges "
+          f"(alpha {loc['alpha']}) in {graph_s:.2f} s; build_plan over {S} "
+          f"ranks {plan_s:.2f} s (host): n_loc {plan.n_loc}, e_cap "
+          f"{plan.senders_local.shape[1]}, r_cap {plan.r_cap}; halo rows "
+          f"a rank {halo.tolist()} ({halo.sum() / N:.3f} of the nodes "
+          f"over all ranks)")
+
+    # the global step on one rank, twice: the second on the same graph
+    # with its node ids and its edge order permuted (seeded), so the two
+    # differ by f32 sums taken in another order and grouping, over edges
+    # and over nodes, as the ranks' partial sums differ from the global's
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = loc_model(loc, device)
+    prng = np.random.default_rng(SEED + 26)
+    new_id = prng.permutation(N)
+    order = prng.permutation(len(s))
+    old_id = np.argsort(new_id)
+    graphs = ((s, r, x, labels), (s, r, x, labels),
+              (new_id[s[order]], new_id[r[order]], x[old_id], labels[old_id]))
+    runs, secs = [], []
+    for gs, gr, gx, gy in graphs:
+        g = Graph(senders=torch.as_tensor(gs, dtype=torch.int64,
+                                          device=device),
+                  receivers=torch.as_tensor(gr, dtype=torch.int64,
+                                            device=device),
+                  x=torch.as_tensor(gx, device=device))
+        y = torch.as_tensor(gy, device=device)
+
+        def global_loss():
+            logp = torch.log_softmax(model(g).float(), dim=-1)
+            return -torch.gather(logp, -1, y[:, None]).mean()
+
+        sync(g.x)
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(model, global_loss, param_tree(model))
+        sync(loss)
+        secs.append(time.perf_counter() - t0)
+        runs.append((float(loss), {k: v.cpu() for k, v in grads.items()}))
+        del g, y, grads
+    peak_global = torch.cuda.max_memory_allocated() if cuda else 0
+    ref_loss, ref_grads = runs[0]
+    gap = {k: max(float((run[1][k] - v).abs().max()) for run in runs[1:])
+           for k, v in ref_grads.items()}
+    print(f"[gnn-locality] global step on one rank: loss {ref_loss:.6f} "
+          f"(again: {runs[1][0]:.6f}; nodes and edges permuted: "
+          f"{runs[2][0]:.6f}); loss and gradients "
+          f"{', '.join(f'{t:.3f}' for t in secs)} s; the gradients' gap "
+          f"between them (the larger of the two against the first) "
+          f"{max(gap.values()):.3e} at most "
+          f"({sum(v > 0 for v in gap.values())} of {len(gap)} leaves "
+          f"differ); peak {peak_global / 2**30:.2f} GiB")
+    del model, runs
+    free_cuda()
+
+    t0 = time.perf_counter()
+    ranks = spawn_stream_mesh(S, _loc_rank, backend="gloo",
+                              device=str(device),
+                              args=(loc, plan, x, labels),
+                              timeout=loc["timeout"])
+    wall = time.perf_counter() - t0
+    scale = {n: float(w.abs().max()) or 1.0 for n, w in ref_grads.items()}
+    print("[gnn-locality] per leaf, of its max |grad|: the global runs' gap;"
+          " rank 0's error with local_update False, True, and with a dropped"
+          " halo row")
+    for n in ref_grads:
+        errs = [float((ranks[0][0][c][1][n] - ref_grads[n]).abs().max())
+                / scale[n] for c in ("global layers", "local update",
+                                     "dropped halo row")]
+        print(f"[gnn-locality]   {n}: gap {gap[n] / scale[n]:.3e}; "
+              + ", ".join(f"{e:.3e}" for e in errs))
+    for case in ("global layers", "local update"):
+        worst = 0.0
+        for k, (out, peak) in enumerate(ranks):
+            loss, grads, calls, step_s = out[case]
+            bad = loc_breaches(loss, grads, ref_loss, ref_grads, gap)
+            check(not bad, f"[gnn-locality] {case}, rank {k}: {bad[:4]}")
+            worst = max([worst] + [float((grads[n] - w).abs().max())
+                                   / float(w.abs().max())
+                                   for n, w in ref_grads.items()
+                                   if float(w.abs().max())])
+        halo_c = ranks[0][0][case][2].get("halo", [0, 0.0, 0])
+        back_c = ranks[0][0][case][2].get("halo backward", [0, 0.0, 0])
+        print(f"[gnn-locality] {case}: loss {ranks[0][0][case][0]:.6f} "
+              f"(global {ref_loss:.6f}); gradients at most {worst:.3e} of a "
+              f"leaf's max from the global step's; s a step (forward, "
+              f"backward, all_reduce, clip, Adam) "
+              f"{[round(o[case][3], 4) for o, _ in ranks]}; rank 0's halo "
+              f"exchange {halo_c[0]} calls ({loc['layers']} a forward), "
+              f"{halo_c[2]} bytes sent, {halo_c[1]:.3f} s blocked; its "
+              f"backward {back_c[0]} calls, {back_c[2]} bytes, "
+              f"{back_c[1]:.3f} s")
+    planted = [loc_breaches(o["dropped halo row"][0],
+                            o["dropped halo row"][1], ref_loss, ref_grads,
+                            gap) for o, _ in ranks]
+    check(all(planted), f"[gnn-locality] a dropped halo row passes the "
+                        f"comparison on some rank: {planted}")
+    print(f"[gnn-locality] planted fault (rank 0 drops one halo row it "
+          f"sends rank 1): every rank fails the comparison, e.g. "
+          f"{planted[1][:2]}; peaks a rank "
+          f"{[round(p / 2**30, 2) for _, p in ranks]} GiB; {wall:.1f} s "
+          f"with the ranks' start; the graph has no community structure, "
+          f"so its halo (an upper bound on a co-purchase graph's) holds "
+          f"nearly every vertex")
+
+
 def main():
     try:
         import torch
@@ -6605,6 +7501,14 @@ def main():
     del gnn_batch
     free_cuda()
     phase("gnn-cli", phase_gnn_cli, device)
+    free_cuda()
+    phase("moe-parity", phase_moe_parity, device)
+    moe_launches = phase("moe-full", phase_moe_full, device)
+    result["kernels"].append(phase("moe-time", phase_moe_time, device,
+                                   moe_launches, fa_err))
+    free_cuda()
+    phase("moe-ep", phase_moe_ep, device)
+    phase("gnn-locality", phase_gnn_locality, device)
     print("[card] all times above on this card:")
     print(card)
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

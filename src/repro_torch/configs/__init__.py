@@ -15,6 +15,11 @@ _MODULES = {
     "dimenet": "repro_torch.configs.dimenet",
     "pna": "repro_torch.configs.pna",
     "gatedgcn": "repro_torch.configs.gatedgcn",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "llama4-maverick-400b-a17b":
+        "repro_torch.configs.llama4_maverick_400b_a17b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
 }
 ARCH_IDS = tuple(_MODULES)
 

@@ -66,13 +66,13 @@ class LMLayout:
 
     Every leaf under "groups" is stacked [n_groups, ...] by `jax.vmap`;
     group g's block "b<j>" is layer g * len(cfg.pattern) + j, so
-    "groups.b0.attn.wq"[g] maps to "blocks.<g>.attn.wq". Arrays keep
+    "groups.b0.attn.wq"[g] maps to "blocks.<g>.attn.wq". An MoE block's
+    FFN keeps JAX's names under it: "groups.b1.ffn.wg" [n_groups, E, d,
+    h] gives "blocks.<2g+1>.ffn.wg" [E, d, h], and "ffn.router",
+    "ffn.wu", "ffn.wd" and "ffn.shared.{wg, wu, wd}" alike. Arrays keep
     their dtype and JAX's [in, out] layout."""
 
     def __init__(self, cfg):
-        if cfg.moe is not None:
-            raise NotImplementedError("MoE blocks are not ported (ROADMAP "
-                                      "Queue 1 item 14)")
         self.cfg = cfg
 
     def to_port(self, tree: dict) -> dict:

@@ -1055,6 +1055,7 @@ extern "C" int d3_flash_attention(
     }
   } else if (dtype == 1) {
     switch (D) {
+      case 8: return launch_f32<8>(q, k, v, o, p, s);
       case 16: return launch_f32<16>(q, k, v, o, p, s);
       case 32: return launch_f32<32>(q, k, v, o, p, s);
       case 64: return launch_f32<64>(q, k, v, o, p, s);

@@ -108,6 +108,27 @@ class StreamMesh:
         self._count(kind, t0, buf.numel() * buf.element_size())
         return out
 
+    def exchange(self, buf, kind: str = "all_to_all"):
+        """The tiled all_to_all, differentiable: buf [size * C, ...] ->
+        [size * C, ...], row block j to rank j and block j of the result
+        from rank j (JAX's `lax.all_to_all(..., tiled=True)` on the
+        leading axis). Its backward is the same exchange of the
+        cotangent, counted under f"{kind} backward"."""
+        return _Exchange.apply(buf, self, kind)
+
+    def all_reduce_grads(self, grads: dict, kind: str = "grad_all_reduce"):
+        """{name: gradient} summed over the ranks, in f32: one collective
+        over the leaves packed end to end (JAX's psum of a gradient
+        tree). Returns a new dict of f32 tensors."""
+        flat = torch.cat([g.detach().float().reshape(-1)
+                          for g in grads.values()])
+        total = self.all_reduce(flat, kind=kind)
+        out, at = {}, 0
+        for name, g in grads.items():
+            out[name] = total[at:at + g.numel()].reshape(g.shape)
+            at += g.numel()
+        return out
+
     def all_reduce(self, t, op=dist.ReduceOp.SUM, kind: str = "all_reduce"):
         """Elementwise reduction over the ranks (a new tensor)."""
         t0 = time.perf_counter()
@@ -138,3 +159,18 @@ class StreamMesh:
         dist.all_to_all_single(out, buf, group=self.group)
         self._count(kind, t0, rows.numel() * rows.element_size())
         return out[(self.rank - 1) % n]
+
+
+class _Exchange(torch.autograd.Function):
+    """`StreamMesh.exchange`: a tiled all_to_all whose transpose is
+    itself (block j of rank i's cotangent goes back to rank j's block
+    i)."""
+
+    @staticmethod
+    def forward(ctx, buf, mesh, kind):
+        ctx.mesh, ctx.kind = mesh, kind
+        return mesh.all_to_all(buf, kind)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_to_all(grad, f"{ctx.kind} backward"), None, None

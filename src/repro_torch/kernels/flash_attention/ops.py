@@ -8,8 +8,9 @@ strides, so nothing is transposed or broadcast here.
 The source holds three kernels, and the wrapper picks one by dtype and
 head dim: bf16 at D in `WGMMA_HEAD_DIMS` (64, 128; the model's 128) goes
 to the Hopper kernel (TMA ring, warp-specialised producer, wgmma
-consumers), bf16 at D 16 or 32 to the mma.sync kernel, f32 to the
-CUDA-core kernel. The wrapper runs its plain version (`ref.py`) for CPU
+consumers), bf16 at D 16 or 32 to the mma.sync kernel, f32 (D in
+`F32_HEAD_DIMS`, 8 too: the reduced internlm2-20b and mistral-large-123b
+configs' head dim) to the CUDA-core kernel. The wrapper runs its plain version (`ref.py`) for CPU
 tensors and, for CUDA tensors, launches the chosen kernel or raises: it
 never drops back to another kernel or to the plain version.
 
@@ -36,6 +37,7 @@ from repro_torch.kernels.flash_attention import ref
 LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
+F32_HEAD_DIMS = (8,) + HEAD_DIMS
 WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 # a TMA tensor map takes byte strides below 2^40
@@ -103,8 +105,10 @@ def _check_cuda(q, k, v) -> None:
     if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"the kernel takes bf16 or f32 q, k, v of one "
                          f"type; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
+    dims = F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
+    if q.shape[-1] not in dims:
+        raise ValueError(f"head dim {q.shape[-1]} not in {dims} "
+                         f"({q.dtype})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         # 16-byte rows for cp.async and TMA: last dim contiguous, strides
         # in 16 B

@@ -1,6 +1,7 @@
 """Serving launcher: the streaming-GNN online pipeline (d3gnn-sage), LM
-batched greedy decode (mistral-nemo-12b) or two-tower user-tower requests
-(two-tower-retrieval), selected by --arch.
+batched greedy decode (mistral-nemo-12b, moonshot-v1-16b-a3b,
+llama4-maverick-400b-a17b, internlm2-20b, mistral-large-123b) or
+two-tower user-tower requests (two-tower-retrieval), selected by --arch.
 
 Counterpart of `repro/launch/serve.py`, with the same flags plus --device,
 --dims and --requests; the GNN and LM paths print the same line. The JAX
@@ -17,14 +18,21 @@ their shapes are train shapes (repro_torch.launch.train runs them).
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mistral-nemo-12b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch moonshot-v1-16b-a3b --tokens 32              # full width
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch moonshot-v1-16b-a3b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch two-tower-retrieval --requests 64             # full width
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch two-tower-retrieval --reduced --device cpu
 
 The weights are random (torch.Generator, seed 0): the pinned RMI and
-cross-part counts do not depend on their values. The LM and the two-tower
-model run at full width unless --reduced is given (the JAX launcher
-always builds the reduced LM, ROADMAP Queue 3).
+cross-part counts do not depend on their values. The LMs and the
+two-tower model run at full width unless --reduced is given (the JAX
+launcher always builds the reduced LM, ROADMAP Queue 3). In bf16
+mistral-nemo-12b, internlm2-20b and moonshot-v1-16b-a3b fit one 80 GB
+card whole; llama4-maverick-400b-a17b and mistral-large-123b do not, and
+run --reduced there.
 """
 from __future__ import annotations
 

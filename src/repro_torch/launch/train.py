@@ -32,6 +32,8 @@ of the reference (ROADMAP R14, R15), and nowhere else:
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch mistral-nemo-12b --shape train_4k --steps 3 --reduced
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch moonshot-v1-16b-a3b --shape train_4k --steps 3 --reduced
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch two-tower-retrieval --shape train_batch --steps 3 \\
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \\

@@ -1,10 +1,10 @@
-"""Weight initializers the graph zoo draws from, f32.
+"""Weight initializers (lecun / glorot / he / normal), f32.
 
-Counterparts of `repro/nn/initializers.py`'s `lecun_normal` and
-`normal(std)`, drawn with a `torch.Generator` (torch cannot reproduce
-`jax.random`: the parity tests convert the JAX `init`'s parameters
-instead). Each returns a new f32 tensor of `shape` on `device`; the
-generator must live on that device.
+Counterparts of `repro/nn/initializers.py`, drawn with a
+`torch.Generator` (torch cannot reproduce `jax.random`: the parity tests
+convert the JAX `init`'s parameters instead, and hold the draws here to
+their statistics). Each returns a new f32 tensor of `shape` on `device`;
+the generator must live on that device.
 """
 from __future__ import annotations
 
@@ -42,12 +42,48 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
                                      generator=generator)
 
 
-def lecun_normal(shape, generator: Optional[torch.Generator] = None,
-                 device=None) -> torch.Tensor:
-    """JAX's lecun_normal for any shape (fan_in from `fans`)."""
-    shape = tuple(shape)
-    return lecun_normal_(torch.empty(shape, device=device), fans(shape)[0],
-                         generator)
+def variance_scaling(scale: float, mode: str, distribution: str,
+                     in_axis: int = -2, out_axis: int = -1):
+    """JAX's variance_scaling: init(shape, generator=None, device=None,
+    in_axis=, out_axis=, batch_axes=()) draws with variance scale /
+    max(1, fan), the fan ("fan_in", "fan_out" or "fan_avg") taken over
+    the shape without its `batch_axes` (a stack of E matrices [E, d, h]
+    with batch_axes=(0,) has fan_in d, not E d). "truncated_normal" cuts
+    at 2 sigma and rescales to the variance (TRUNC_STD), "normal" and
+    "uniform" (on +-sqrt(3 var)) draw it directly."""
+    if mode not in ("fan_in", "fan_out", "fan_avg"):
+        raise ValueError(mode)
+    if distribution not in ("truncated_normal", "normal", "uniform"):
+        raise ValueError(distribution)
+
+    def init(shape, generator: Optional[torch.Generator] = None,
+             device=None, in_axis: int = in_axis, out_axis: int = out_axis,
+             batch_axes: tuple = ()) -> torch.Tensor:
+        shape = tuple(shape)
+        batch = {a % len(shape) for a in batch_axes}
+        fan_in, fan_out = fans(tuple(s for i, s in enumerate(shape)
+                                     if i not in batch), in_axis, out_axis)
+        denom = {"fan_in": fan_in, "fan_out": fan_out,
+                 "fan_avg": (fan_in + fan_out) / 2}[mode]
+        var = scale / max(1.0, denom)
+        w = torch.empty(shape, device=device)
+        with torch.no_grad():
+            if distribution == "truncated_normal":
+                std = math.sqrt(var) / TRUNC_STD
+                return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std,
+                                             2.0 * std, generator=generator)
+            if distribution == "normal":
+                return w.normal_(0.0, math.sqrt(var), generator=generator)
+            lim = math.sqrt(3 * var)
+            return w.uniform_(-lim, lim, generator=generator)
+
+    return init
+
+
+lecun_normal = variance_scaling(1.0, "fan_in", "truncated_normal")
+glorot_uniform = variance_scaling(1.0, "fan_avg", "uniform")
+glorot_normal = variance_scaling(1.0, "fan_avg", "truncated_normal")
+he_normal = variance_scaling(2.0, "fan_in", "truncated_normal")
 
 
 def normal(std: float = 0.02):

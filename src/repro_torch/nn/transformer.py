@@ -1,5 +1,5 @@
-"""Decoder-only transformer (dense): prefill, KV-cache decode and the
-training loss.
+"""Decoder-only transformer (dense + MoE): prefill, KV-cache decode and
+the training loss.
 
 Counterpart of `repro/nn/transformer.py`. The JAX model scans over stacked
 layer groups; here the layers are an `nn.ModuleList` run in a Python loop
@@ -11,10 +11,11 @@ on the host; a model built for training (`train=True`) keeps the f32
 parameters, as the JAX package holds them, and every layer casts at use.
 
 Ported: prefill (`hidden_states`, `logits`), decode (`init_cache`,
-`decode_step`) and `loss` (the chunked, rematerialised next-token CE) of
-dense blocks; with `cfg.remat` each layer is checkpointed under grad
-(JAX's `jax.checkpoint` of a group). MoE blocks wait for their slice
-(ROADMAP Queue 1 item 14).
+`decode_step`) and `loss` (the chunked, rematerialised next-token CE,
+plus 0.01 x the MoE layers' summed load-balance loss when `cfg.moe` is
+set); with `cfg.remat` each layer is checkpointed under grad (JAX's
+`jax.checkpoint` of a group). A group of `cfg.pattern` holds dense
+blocks and, with `cfg.moe`, one MoE block last (`nn/moe.py`).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.nn.attention import GQAAttention
 from repro_torch.nn.layers import Embedding, RMSNorm, SwiGLU, init_param, lecun
+from repro_torch.nn.moe import MoEConfig, MoELayer
 
 
 @dataclass(frozen=True)
@@ -40,7 +42,7 @@ class TransformerConfig:
     head_dim: int
     d_ff: int
     vocab: int
-    moe: Optional[object] = None  # an MoE config: not ported yet
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 500000.0
     dtype: str = "bfloat16"
     loss_chunks: int = 8          # sequence chunks for the CE loss head
@@ -65,33 +67,46 @@ class TransformerConfig:
 
 
 class Block(nn.Module):
-    """Pre-norm block: x += attn(norm(x)); x += ffn(norm(x))."""
+    """Pre-norm block: x += attn(norm(x)); x += ffn(norm(x)). kind "moe"
+    runs the FFN as an MoELayer over the [B * S, d] tokens."""
 
     def __init__(self, cfg: TransformerConfig, kind: str, device=None,
                  generator: Optional[torch.Generator] = None,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if kind != "dense":
-            raise NotImplementedError(
-                f"{kind!r} blocks are not ported: MoE layers belong to the "
-                "off-path zoo (ROADMAP Queue 1 item 14)")
+        if kind not in ("dense", "moe"):
+            raise ValueError(f"block kind {kind!r}: dense or moe")
+        self.kind = kind
         c, dt = cfg, dtype or cfg.torch_dtype
         self.norm1 = RMSNorm(c.d_model, dtype=dt, device=device)
         self.attn = GQAAttention(c.d_model, c.n_heads, c.n_kv, c.head_dim,
                                  c.rope_theta, dtype=dt, device=device,
                                  generator=generator, q_chunk=c.q_chunk)
         self.norm2 = RMSNorm(c.d_model, dtype=dt, device=device)
-        self.ffn = SwiGLU(c.d_model, c.d_ff, dtype=dt, device=device,
-                          generator=generator)
+        self.ffn = MoELayer(c.d_model, c.moe, dtype=dt, device=device,
+                            generator=generator) if kind == "moe" else \
+            SwiGLU(c.d_model, c.d_ff, dtype=dt, device=device,
+                   generator=generator)
+
+    def _ffn(self, h):
+        """(ffn(h), aux): an MoE block's over the flattened tokens, a
+        dense block's with aux None (no aux loss)."""
+        if self.kind == "dense":
+            return self.ffn(h), None
+        B, S, d = h.shape
+        y, aux = self.ffn(h.reshape(B * S, d))
+        return y.reshape(B, S, d), aux
 
     def forward(self, x, positions):
+        """-> (x, aux: None for a dense block)."""
         x = x + self.attn(self.norm1(x), positions)
-        return x + self.ffn(self.norm2(x))
+        h, aux = self._ffn(self.norm2(x))
+        return x + h, aux
 
     def decode(self, x, ck, cv, cache_len):
         h, ck, cv = self.attn.decode(self.norm1(x), ck, cv, cache_len)
         x = x + h
-        return x + self.ffn(self.norm2(x)), ck, cv
+        return x + self._ffn(self.norm2(x))[0], ck, cv
 
 
 class TransformerLM(nn.Module):
@@ -118,22 +133,26 @@ class TransformerLM(nn.Module):
 
     # ---- forward ----
     def _hidden(self, tokens):
-        """tokens [B,S] -> final hidden [B,S,d] in cfg.dtype; under grad
-        each block is checkpointed when cfg.remat (nothing saved but its
+        """tokens [B,S] -> (final hidden [B,S,d] in cfg.dtype, the blocks'
+        aux losses summed, f32): JAX's `hidden_states`. Under grad each
+        block is checkpointed when cfg.remat (nothing saved but its
         input, as JAX's nothing_saveable policy)."""
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
         x = self.embed(tokens.to(self.device)).to(self.cfg.torch_dtype)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.blocks:
-            x = checkpoint(blk, x, positions, use_reentrant=False) if remat \
-                else blk(x, positions)
-        return self.final_norm(x)
+            x, a = checkpoint(blk, x, positions, use_reentrant=False) \
+                if remat else blk(x, positions)
+            if a is not None:
+                aux = aux + a
+        return self.final_norm(x), aux
 
     @torch.no_grad()
     def hidden_states(self, tokens):
         """tokens [B,S] -> final hidden [B,S,d] (after the final norm)."""
-        return self._hidden(tokens)
+        return self._hidden(tokens)[0]
 
     def loss(self, tokens, labels):
         """Mean next-token CE (labels = tokens shifted by the caller; -100
@@ -141,8 +160,9 @@ class TransformerLM(nn.Module):
         hidden states in cfg.loss_chunks sequence chunks (fewer where S
         does not divide), each chunk's logits and CE recomputed in the
         backward (checkpointed), so no [tokens, vocab] logits tensor ever
-        lives whole; the CE sums and valid counts add up in f32."""
-        x = self._hidden(tokens)
+        lives whole; the CE sums and valid counts add up in f32. An MoE
+        model adds 0.01 x the summed load-balance loss (JAX's `loss`)."""
+        x, aux = self._hidden(tokens)
         labels = labels.to(self.device)
         B, S, d = x.shape
         n_chunks = min(self.cfg.loss_chunks, S)
@@ -156,7 +176,8 @@ class TransformerLM(nn.Module):
                                labels[:, i * c:(i + 1) * c], self.lm_head,
                                use_reentrant=False)
             tot, cnt = tot + ce, cnt + n
-        return tot / torch.clamp(cnt, min=1)
+        loss = tot / torch.clamp(cnt, min=1)
+        return loss + 0.01 * aux if self.cfg.moe is not None else loss
 
     @torch.no_grad()
     def logits(self, tokens):

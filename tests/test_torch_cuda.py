@@ -146,8 +146,27 @@ def test_flash_mma_sync_yardstick_matches_plain_and_counts_nothing(cuda):
         **TOL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T,G", [(70, 70, 4), (33, 100, 1), (129, 65, 2)])
+def test_flash_f32_at_head_dim_8_matches_plain(cuda, causal, S, T, G):
+    """f32 at D = 8, the reduced internlm2-20b and mistral-large-123b
+    configs' head dim (the CUDA-core kernel only)."""
+    rng = np.random.default_rng(S + T + G)
+    q, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+               .to(cuda) for shape in ((2, S, 2 * G, 8), (2, T, 2, 8),
+                                       (2, T, 2, 8)))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES == {"flash_attention": 1, "flash_attention_wgmma": 0}
+    np.testing.assert_allclose(got.cpu().numpy(), ref.attention_ref(
+        q, k, v, causal=causal).cpu().numpy(), **TOL[torch.float32])
+
+
 def test_flash_attention_raises_on_what_it_does_not_take(cuda):
     q = torch.zeros(1, 8, 4, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros(1, 8, 4, 8, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
     q = torch.zeros(1, 8, 4, 32, device=cuda, dtype=torch.float16)
@@ -1266,3 +1285,149 @@ def test_gather_and_apply_read_raise_under_grad(cuda):
                               torch.ones(3, device=cuda), e)
     with torch.no_grad():
         assert sr_ops.gather_segment_sum(x, e, e, 8).shape == (8, 4)
+
+
+# Mixture-of-Experts on the card: plain PyTorch (JAX computes the
+# dispatch outside any Pallas kernel), held to the CPU run of the same
+# layer at the CPU parity tests' f32 bound, 1e-5 * (1 + |cpu|), TF32 off.
+# The tokens and the router sit on a grid (x in k / 8, router in j / 64,
+# 32-wide rows) so the router logits are exact on both devices and every
+# (token, expert) pair routes alike, drops included.
+def _moe_grid_case(E=4, K=2, T=96, cf=1.25, n_shared=1, seed=0):
+    from repro_torch.nn.moe import MoEConfig, MoELayer
+    g = torch.Generator().manual_seed(seed)
+    lay = MoELayer(32, MoEConfig(num_experts=E, top_k=K, d_ff=16,
+                                 n_shared=n_shared, capacity_factor=cf),
+                   device="cpu", generator=g)
+    with torch.no_grad():
+        lay.router.copy_(torch.randint(-32, 33, (32, E), generator=g) / 64)
+        lay.router[:4, :2] += 1.0
+    x = torch.randint(-16, 17, (T, 32), generator=g) / 8.0
+    x[:, :4] += 1.0                      # leans toward experts 0 and 1
+    return lay, x
+
+
+def test_moe_ties_and_dispatch_on_the_card_match_the_cpu(cuda):
+    import copy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lay, x = _moe_grid_case()
+    card = copy.deepcopy(lay).to(cuda)
+    ids_cpu = lay.route(x)[0]
+    assert torch.equal(card.route(x.to(cuda))[0].cpu(), ids_cpu)
+    dropped = int((torch.bincount(ids_cpu.reshape(-1), minlength=4)
+                   - int(96 * 2 * 1.25 / 4)).clamp(min=0).sum())
+    assert dropped > 0
+    for fn in ("forward", "dense_oracle"):
+        want, aux = getattr(lay, fn)(x)
+        got, aux_card = getattr(card, fn)(x.to(cuda))
+        err = (got.cpu() - want).abs()
+        assert bool((err <= 1e-5 * (1 + want.abs())).all()), (fn, err.max())
+        assert abs(float(aux_card) - float(aux)) <= 1e-5 * float(aux)
+    # ties: a zero router makes every expert equally likely, and the lower
+    # indices win on both devices, as jax.lax.top_k orders them
+    with torch.no_grad():
+        card.router.zero_()
+    assert torch.equal(card.route(x.to(cuda))[0].cpu(),
+                       torch.tensor([[0, 1]] * 96))
+
+
+def _moe_ep_card_rank(mesh, sd, x, cf):
+    from repro_torch.nn.moe import MoEConfig, MoELayer
+    outs = {}
+    for name, m in (("card", mesh), ("cpu", mesh.on("cpu"))):
+        lay = MoELayer(32, MoEConfig(num_experts=4, top_k=2, d_ff=16,
+                                     n_shared=1, capacity_factor=cf,
+                                     ep_axis=("model",)), device=m.device)
+        lay.load_state_dict(sd)
+        T = x.shape[0] // m.size
+        xl = x[m.rank * T:(m.rank + 1) * T].to(m.device)
+        with torch.no_grad():
+            outs[name] = lay(xl, mesh=m)[0].cpu()
+    return outs
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.25])
+def test_moe_ep_on_the_card_matches_the_cpu(cuda, cf):
+    """2 gloo ranks on the card: the EP outputs equal the same ranks' CPU
+    run, and at capacity_factor 8 (nothing drops) the dense oracle."""
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lay, x = _moe_grid_case()
+    ranks = spawn_stream_mesh(2, _moe_ep_card_rank, backend="gloo",
+                              device="cuda", args=(lay.state_dict(), x, cf),
+                              timeout=300)
+    got = torch.cat([r["card"] for r in ranks])
+    want = torch.cat([r["cpu"] for r in ranks])
+    assert bool(((got - want).abs() <= 1e-5 * (1 + want.abs())).all())
+    if cf == 8.0:
+        oracle = lay.dense_oracle(x)[0].detach()
+        assert bool(((got - oracle).abs() <= 1e-5 * (1 + oracle.abs()))
+                    .all())
+
+
+def _locality_card_rank(mesh, sd, plan, x, labels, local):
+    from repro_torch.dist.gnn_locality import (make_locality_train_step,
+                                               rank_batch)
+    from repro_torch.graph.pna import PNA
+    from repro_torch.nn.module import param_tree
+    from repro_torch.optim import adam
+    out = {}
+    for name, m in (("card", mesh), ("cpu", mesh.on("cpu"))):
+        model = PNA(8, 16, 2, 4, 1.5, device=m.device)
+        model.load_state_dict(sd)
+        step = make_locality_train_step(model, 4, m, local_update=local)
+        params = param_tree(model)
+        batch = rank_batch(plan, m.rank, x, labels, np.ones(len(labels),
+                                                             bool), m.device)
+        new, _, loss = step(params, adam().init(params), batch)
+        out[name] = (float(loss), {k: v.cpu() for k, v in new.items()})
+    return out
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_locality_step_on_the_card_matches_the_cpu(cuda, local):
+    """tests/test_torch_locality.py's graph on 4 gloo ranks sharing the
+    card: loss within 1e-5 * max(1, |cpu|), updated parameters within
+    1e-5 of the same ranks' CPU run."""
+    from repro_torch.dist.gnn_locality import build_plan
+    from repro_torch.graph.pna import PNA
+    from repro_torch.launch.mesh import spawn_stream_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    s, r = rng.integers(0, 64, 300), rng.integers(0, 64, 300)
+    x = rng.normal(size=(64, 8)).astype(np.float32)
+    labels = rng.integers(0, 4, 64)
+    sd = PNA(8, 16, 2, 4, 1.5, device="cpu").state_dict()
+    ranks = spawn_stream_mesh(4, _locality_card_rank, backend="gloo",
+                              device="cuda",
+                              args=(sd, build_plan(s, r, 64, 4), x, labels,
+                                    local), timeout=300)
+    for out in ranks:
+        lc, pc = out["cpu"]
+        lg, pg = out["card"]
+        assert abs(lg - lc) <= 1e-5 * max(1.0, abs(lc))
+        for k in pc:
+            assert float((pg[k] - pc[k]).abs().max()) <= 1e-5, k
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "llama4-maverick-400b-a17b"])
+def test_reduced_moe_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    from repro_torch.configs import get_arch
+    from repro_torch.data.streams import token_batches
+    from repro_torch.nn.module import param_tree
+    from repro_torch.optim import adam
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = get_arch(arch)
+    cpu, card = _copy_train_model(spec, cuda)
+    runs = {}
+    for model in (cpu, card):
+        step = spec.step(model, "train_4k")
+        p = param_tree(model)
+        s = adam().init(p)
+        runs[model.device.type] = out = []
+        for toks, labels in token_batches(0, model.cfg.vocab, 256, 32, 2):
+            p, s, loss = step(p, s, torch.as_tensor(toks, device=model.device),
+                              torch.as_tensor(labels, device=model.device))
+            out.append((loss, p, s))
+    _assert_train_runs_match(runs["cpu"], runs["cuda"])

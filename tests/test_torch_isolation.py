@@ -64,7 +64,12 @@ def test_import_leaves_jax_out():
             "repro_torch.graph.sampler, repro_torch.nn.initializers, "
             "repro_torch.configs.gnn_common, repro_torch.configs.pna, "
             "repro_torch.configs.gatedgcn, repro_torch.configs.dimenet, "
-            "repro_torch.configs.nequip; "
+            "repro_torch.configs.nequip, repro_torch.nn.moe, "
+            "repro_torch.dist.moe_ep, repro_torch.dist.gnn_locality, "
+            "repro_torch.configs.moonshot_v1_16b_a3b, "
+            "repro_torch.configs.llama4_maverick_400b_a17b, "
+            "repro_torch.configs.internlm2_20b, "
+            "repro_torch.configs.mistral_large_123b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -92,6 +97,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     spec = get_arch("mistral-nemo-12b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spec.step(spec.build_reduced(), "prefill_32k")
+    for arch in ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b",
+                 "internlm2-20b", "mistral-large-123b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", arch, "--reduced"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "two-tower-retrieval"])
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -387,8 +387,10 @@ def test_d3gnn_step_runs_an_empty_tick():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(KeyError, match="unported"):
-        get_arch("llama4-maverick-400b-a17b")
+    """Once the paths that raised: the train step (ported with the zoo's
+    steps) and the MoE / remaining LM configs (ported with nn/moe.py).
+    Each of the four archs now resolves, builds and takes JAX's
+    parameters."""
     # the train step is ported now: it runs (parity with JAX's lm_step in
     # tests/test_torch_train_zoo.py)
     from repro_torch.nn.module import param_tree
@@ -401,15 +403,19 @@ def test_unported_paths_raise():
         params, adam().init(params), toks, torch.roll(toks, -1, 1))
     assert bool(loss.isfinite()) and int(state["t"]) == 1
     assert not torch.equal(new["lm_head"], params["lm_head"])
-    from repro.configs.llama4_maverick_400b_a17b import REDUCED as jmoe
-    from repro_torch.nn.transformer import TransformerConfig
-    moe = TransformerConfig(**{f: getattr(jmoe, f) for f in (
-        "name", "n_layers", "d_model", "n_heads", "n_kv", "head_dim",
-        "d_ff", "vocab", "moe")})
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TransformerLM(moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        lm_params_from_numpy({}, moe)
+    # the four configs of the MoE slice build and convert (their parity
+    # with JAX: tests/test_torch_moe.py)
+    for arch in ("llama4-maverick-400b-a17b", "moonshot-v1-16b-a3b",
+                 "internlm2-20b", "mistral-large-123b"):
+        spec = get_arch(arch)
+        assert spec.family == "lm" and spec.shapes is LM_SHAPES
+        jm = jax_get_arch(arch).build_reduced()
+        tree = jax.tree.map(np.asarray,
+                            jax.jit(jm.init)(jax.random.key(0)))
+        port = spec.build_reduced(device="cpu")
+        assert port.cfg.pattern == jm.cfg.pattern
+        port.load_state_dict(lm_params_from_numpy(tree, port.cfg))
+        assert param_count(port) == jax_param_count(tree)
 
 
 # ------------------------------------------------------------- serve CLI
