@@ -266,9 +266,11 @@ Then the zoo's train steps, after the serve phases free their memory:
   [lm-train] mistral-nemo-12b's published widths and train_4k shape
      (256 x 4096 tokens a step, bf16 compute over f32 parameters and
      Adam), 2 of its 40 layers, grad_accum 128: the first microbatch's
-     loss falls along its gradient; 2 steps on token_batches: finite
+     loss falls along its gradient; 1 step on token_batches: finite
      losses, step 0's at the init's (JAX's constant 3e-4 raises the loss
-     at this width), no flash launch; seconds a step, tokens/s, the
+     at this width), no flash launch, then the updated parameters' loss
+     on the first microbatch finite, moved from the init's and not blown
+     up; seconds a step, tokens/s, the
      step's FLOPs and their bf16 bound, peak memory, one microbatch's
      forward and backward under torch.profiler;
   [rs-train] two-tower-retrieval's published widths and train_batch
@@ -340,6 +342,30 @@ and LOC's notes: the configurations, their cuts and tolerances):
      True against the global step's, a dropped halo row the comparison
      must catch; s a step, halo rows, bytes and seconds blocked, the
      plan's host seconds, peak memory.
+
+Then the tooling (`launch/dryrun.py`, `roofline/`, `perf/`):
+
+  [dryrun-meta] `run_cell` on the `meta` device over every cell at the
+     single production mesh (the 40 assigned and d3gnn-sage) and the five
+     LMs' train_4k at the multi-pod mesh: published models, per-device
+     bytes under the family rules, the step traced under the analyzer
+     (the LMs at 1 and 2 layer groups and microbatches, extrapolated);
+     every cell must pass; its JAX-style [ok] line, the cells' count,
+     seconds and failures;
+  [dryrun-card] the one-card cells on the card (mistral-nemo-12b
+     prefill_32k at batch 1, two-tower serve_p99 on the cut user table,
+     d3gnn-sage's tick at 512 parts on live records, which must emit):
+     first call, step s, peak memory, op GFLOP, the terms and the share
+     of the roofline the step reached at the cell's peak rate (989
+     TFLOP/s bf16; 67 f32), with the card's power limit; kernels 5, 4, 1
+     and 2 launched over the cells (counts reset before, read after);
+     mistral-nemo's prefill at S = 2,048: kernel 5 charged the causal
+     pairs' products (the closed form), the plain attention's masked
+     pairs charged apart (the closed form), the totals equal, kernel 5's
+     bytes fewer; the two-tower cell's FLOPs through kernel 4 equal to
+     its plain version's;
+  [perf-variants] the nine variants of perf/variants.py on `meta` at the
+     single mesh: each one's per-rank GFLOP and collective GB by kind.
 
 After [mesh-full], [what-if]: the cost model fitted on [mesh-parity]'s
 telemetry trace prices other route_caps' wire at [mesh-full]'s measured
@@ -5326,14 +5352,18 @@ def phase_rs_time(device, launches, max_err, rs=RS):
 # parameters and Adam, depth cut from 40 layers to `lm_layers` (1.887 B
 # f32 parameters, 7.55 GB; Adam's update holds ~8 such trees), the batch
 # in `lm_accum` microbatches of 2 x 4096, `lm_steps` steps on
-# token_batches(seed 0). [rs-train]: two-tower-retrieval at its published
-# widths, batch 65,536 and temperature, f32, the tables cut to
+# token_batches(seed 0) (one: a step takes ~49 s, and the script, with
+# the tooling's phases, took 1,134.9 s of its 1,200 s limit with two),
+# then the loss of the updated parameters on the first microbatch.
+# [rs-train]: two-tower-retrieval at its published widths, batch 65,536
+# and temperature, f32, the tables cut to
 # configs/two_tower_retrieval.py's TRAIN_USER_VOCAB / TRAIN_ITEM_VOCAB,
 # `rs_steps` steps. [train-zoo-parity]: the reduced configs, card vs CPU
 # (TF32 off), `parity_steps` steps of lm_step on [256, parity_seq] tokens
 # (grad_accum 8) and of train_batch at `rs_parity_batch`.
-ZOO = dict(lm_layers=2, lm_accum=128, lm_steps=2, rs_steps=3,
-           parity_seq=32, parity_steps=2, rs_parity_batch=256, descent=0.05)
+ZOO = dict(lm_layers=2, lm_accum=128, lm_steps=1, rs_steps=3,
+           parity_seq=32, parity_steps=2, rs_parity_batch=256, descent=0.05,
+           moved=1.0, blowup=3.0)
 # [lm-train]'s loss falls along its gradient: on the first microbatch,
 # params - t g with t = descent / ||g||^2 (a first-order fall of `descent`
 # nats) must lower the loss by at least half that. JAX's recipe itself
@@ -5341,7 +5371,11 @@ ZOO = dict(lm_layers=2, lm_accum=128, lm_steps=2, rs_steps=3,
 # first step moves every weight by ~lr sign(g), so an output of a
 # 5,120-wide row moves by ~lr sum |x_i| ~ 1.2, as large as the outputs
 # themselves. Step 0's loss, the init's, lies within [ln V, ln V + 1]
-# (logits of unit spread: ln V + 1/2)
+# (logits of unit spread: ln V + 1/2). After the step the loss on the
+# first microbatch must be finite, moved by at least `moved` nats from
+# the init's (the recipe's first step raised it 12.300 -> 23.052 on the
+# next batch in two-step runs; a step that updates nothing moves it by
+# 0) and below `blowup` x ln V
 # card vs CPU after a train step: loss within ZOO_LOSS_TOL x |cpu|,
 # parameters and Adam's moments within ZOO_STATE_TOL absolute, and the
 # moments also within ZOO_MOMENT_RTOL x max |cpu| per leaf (v ~ 1e-3 g^2
@@ -5634,7 +5668,9 @@ def phase_lm_train(device, z=ZOO):
     the gradient of the first microbatch is a descent direction (ZOO's
     `descent`); then `lm_steps` steps of lm_step through the spec's entry
     point on token_batches: finite losses, step 0's at the init's, no
-    flash launch; step seconds, tokens/s, the FLOPs' bf16 bound, peak
+    flash launch, the updated parameters' loss on the first microbatch
+    finite, moved and not blown up (ZOO's `moved`, `blowup`); step
+    seconds, tokens/s, the FLOPs' bf16 bound, peak
     memory, and one microbatch's forward and backward under
     torch.profiler."""
     import dataclasses
@@ -5710,10 +5746,21 @@ def phase_lm_train(device, z=ZOO):
         secs.append(time.perf_counter() - t0)
         print(f"[lm-train] step {len(losses) - 1}: loss {losses[-1]:.6f} "
               f"in {secs[-1]:.3f} s ({B * S / secs[-1]:.1f} tokens/s)")
+    # the update itself: the updated parameters' loss on microbatch 0,
+    # through value_and_grad as loss0 (the training route)
+    after = float(value_and_grad(model, model.loss, params, toks0,
+                                 labs0)[0])
     launches = fa.LAUNCHES["flash_attention"]
     check(all(math.isfinite(x) for x in losses), f"[lm-train] losses "
                                                   f"{losses}")
     ln_v = math.log(cfg.vocab)
+    print(f"[lm-train] after {len(losses)} step(s), microbatch 0's loss "
+          f"{after:.6f} (at the init {float(loss0):.6f}; ln V {ln_v:.4f})")
+    check(math.isfinite(after) and abs(after - float(loss0)) >= z["moved"]
+          and after <= z["blowup"] * ln_v,
+          f"[lm-train] the updated parameters' loss {after} on microbatch "
+          f"0: not finite, moved less than {z['moved']} from the init's "
+          f"{float(loss0)}, or above {z['blowup']} ln V")
     check(ln_v <= losses[0] <= ln_v + 1, f"[lm-train] step 0's loss "
                                          f"{losses[0]} is not the init's "
                                          f"(ln V = {ln_v})")
@@ -7393,6 +7440,152 @@ def phase_gnn_locality(device, loc=LOC):
           f"nearly every vertex")
 
 
+# ------------------------------------------------------------- tooling
+DRYRUN = dict(multi_lms=("llama4-maverick-400b-a17b", "moonshot-v1-16b-a3b",
+                         "mistral-large-123b", "mistral-nemo-12b",
+                         "internlm2-20b"), check_seq=2048)
+
+
+def phase_dryrun_meta(d=DRYRUN):
+    """Every single-mesh cell (d3gnn-sage included) and the LMs'
+    train_4k on the multi-pod mesh through `run_cell` on meta; all must
+    pass."""
+    from repro_torch.configs import all_cells
+    from repro_torch.launch import dryrun
+    cells = [(a, s, False) for a, s in all_cells(include_extra=True)]
+    cells += [(a, "train_4k", True) for a in d["multi_lms"]]
+    t0, failures = time.perf_counter(), []
+    for arch, shape, multi in cells:
+        tag = f"{arch} x {shape} x {'multi' if multi else 'single'}"
+        try:
+            print(dryrun.ok_line(tag, dryrun.run_cell(arch, shape, multi)))
+        except Exception as e:  # noqa: BLE001 - every cell is reported
+            failures.append(f"{tag}: {e!r}")
+            print(f"[FAIL] {tag}: {e!r}")
+    print(f"[dryrun-meta] {len(cells)} cells, "
+          f"{time.perf_counter() - t0:.1f}s, {len(failures)} failures")
+    check(not failures, f"dry-run cells failed: {failures}")
+
+
+def _counted(fn, *args):
+    from repro_torch.roofline.analysis import analyze_step
+    r = analyze_step(fn, *args)
+    return (r["op_flops"], r["op_bytes"], r["op_masked_flops"],
+            r["_counter"].kernels.get("flash_attention", [0, 0, 0])[1])
+
+
+def dryrun_count_checks(device, d=DRYRUN):
+    """The analyzer through kernels 5 and 4 against their plain versions
+    on the same model and inputs. Flash: the kernel is charged the
+    causal pairs' products, L x 4 H D S (S + 1) / 2 at batch 1 (the
+    closed form of row 5's bound), the plain attention's aten products
+    (every pair) less their masked share, L x 4 H D S (S - 1) / 2, come
+    to the same total, and the kernel counts fewer bytes. The bag: equal
+    FLOPs."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import ref as eb_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.nn import attention
+    from repro_torch.recsys import embedding_bag
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    spec = get_arch("mistral-nemo-12b")
+    model = spec.build(device=device, seed=SEED)
+    step = spec.step(model, "prefill_32k")
+    tok = torch.randint(0, model.cfg.vocab, (1, d["check_seq"]),
+                        generator=gen, device=device)
+    fa_ops.reset_launches()
+    kern = _counted(step, tok)
+    check(fa_ops.LAUNCHES["flash_attention_wgmma"] == model.cfg.n_layers,
+          f"flash launched {fa_ops.LAUNCHES} in the counted prefill")
+    with mock.patch.object(attention, "flash_attention",
+                           fa_ref.attention_ref):
+        plain = _counted(step, tok)
+    cfg, S = model.cfg, d["check_seq"]
+    per_pair = cfg.n_layers * 4 * cfg.n_heads * cfg.head_dim
+    visible, masked = S * (S + 1) // 2, S * (S - 1) // 2
+    print(f"[dryrun-card] mistral-nemo-12b prefill S={S}: kernel 5 "
+          f"{kern[0]} FLOPs ({kern[3]} of them the kernel's), "
+          f"{kern[1]} bytes; plain attention {plain[0]} FLOPs and "
+          f"{plain[2]} masked, {plain[1]} bytes; closed form: the "
+          f"attention's causal pairs {per_pair * visible}, masked "
+          f"{per_pair * masked}")
+    check(kern[3] == per_pair * visible, "kernel 5's FLOPs "
+          "are not the causal pairs' products")
+    check(kern[2] == 0 and plain[2] == per_pair * masked, "the masked "
+          "pairs' products are not charged apart in closed form")
+    check(kern[0] == plain[0], "kernel 5's FLOPs differ from the plain "
+          "attention's")
+    check(kern[1] < plain[1], "kernel 5 counts no fewer bytes than the "
+          "plain attention")
+    del model, step
+    free_cuda()
+    spec = get_arch("two-tower-retrieval")
+    model = spec.build(device=device, seed=SEED)
+    step = spec.step(model, "serve_p99")
+    c = model.cfg
+    ids = torch.randint(0, c.user_vocab, (spec.shapes["serve_p99"].dims[
+        "batch"], c.user_fields, c.max_ids_per_field), generator=gen,
+        device=device, dtype=torch.int64).to(torch.int32)
+    kern = _counted(step, {"user_ids": ids})
+    with mock.patch.object(embedding_bag.ops, "embedding_bag",
+                           eb_ref.embedding_bag_ref):
+        plain = _counted(step, {"user_ids": ids})
+    print(f"[dryrun-card] two-tower serve_p99: kernel 4 {kern[0]} FLOPs "
+          f"{kern[1]} bytes; plain lookup {plain[0]} FLOPs {plain[1]} "
+          "bytes")
+    check(kern[0] == plain[0], "kernel 4's FLOPs differ from the plain "
+          "lookup's")
+    del model, step
+    free_cuda()
+
+
+def phase_dryrun_card(device, card):
+    """The one-card cells, one real step each (counts reset before, read
+    after: kernels 5, 4, 1 and 2 must launch; the d3gnn tick, on live
+    records, must emit), then the count checks."""
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.segment_reduce import ops as sr_ops
+    from repro_torch.launch import dryrun
+    for m in (fa_ops, eb_ops, sr_ops):
+        m.reset_launches()
+    for arch, shape in dryrun.CARD_CELLS:
+        r = dryrun.run_cell(arch, shape, False, device="cuda")
+        print(dryrun.ok_line(f"{arch} x {shape} x card", r))
+        print(f"[dryrun-card] {arch} {shape}: first call "
+              f"{r['first_call_s']:.3f} s, step {r['step_s']:.4f} s, peak "
+              f"{r['peak_memory_gb']:.3f} GiB, op {r['op_gflops']:.3f} "
+              f"GFLOP, {r['op_bytes_gb']:.3f} GiB; t_compute "
+              f"{r['t_compute_s']} s, t_memory {r['t_memory_s']} s "
+              f"({r['bottleneck']}); {r['roofline_fraction_measured']:.4f} "
+              f"of the roofline at {r['peak_flops'] / 1e12:.0f} TFLOP/s and "
+              f"3.35 TB/s ({card}); reduced {r['reduced']}; kernels "
+              f"{ {k: v['calls'] for k, v in r['kernels'].items()} }"
+              + (f"; live load {r['load']}, layer 1 emitted "
+                 f"{r['emitted']} rows" if "load" in r else ""))
+        check("load" not in r or r["emitted"] > 0, f"[dryrun-card] the "
+              f"{arch} tick on live records emitted nothing: {r.get('load')}")
+        free_cuda()
+    launches = {**fa_ops.LAUNCHES, **eb_ops.LAUNCHES, **sr_ops.LAUNCHES}
+    print(f"[dryrun-card] launches over the cells: {launches}")
+    for k in ("flash_attention", "embedding_bag", "segment_sum_rows",
+              "mean_rows_gather"):
+        check(launches[k] > 0, f"{k} never launched in [dryrun-card]")
+    dryrun_count_checks(device)
+    return launches
+
+
+def phase_perf_variants():
+    from repro_torch.perf import run as perf_run
+    from repro_torch.perf.variants import VARIANTS
+    for name in VARIANTS:
+        r = perf_run.run_variant(name)
+        print(perf_run.ok_line(r))
+        check(r["op_gflops"] > 0, f"{name} counted no FLOPs")
+
+
 def main():
     try:
         import torch
@@ -7509,6 +7702,10 @@ def main():
     free_cuda()
     phase("moe-ep", phase_moe_ep, device)
     phase("gnn-locality", phase_gnn_locality, device)
+    free_cuda()
+    phase("dryrun-meta", phase_dryrun_meta)
+    phase("dryrun-card", phase_dryrun_card, device, card)
+    phase("perf-variants", phase_perf_variants)
     print("[card] all times above on this card:")
     print(card)
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Counterpart of `repro/configs/__init__.py`, over the architectures ported
-so far. Each module defines SPEC: configs.base.ArchSpec.
+Counterpart of `repro/configs/__init__.py`. Each module defines SPEC:
+configs.base.ArchSpec. `ARCH_IDS` lists every registered architecture;
+`all_cells` walks the dry run's cells in the reference's order.
 """
 from __future__ import annotations
 
@@ -22,6 +23,12 @@ _MODULES = {
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
 }
 ARCH_IDS = tuple(_MODULES)
+# the ten assigned architectures in the reference's order
+# (`repro/configs/__init__.py:ARCH_IDS`), which `all_cells` follows
+CELL_ARCH_IDS = ("llama4-maverick-400b-a17b", "moonshot-v1-16b-a3b",
+                 "mistral-large-123b", "mistral-nemo-12b", "internlm2-20b",
+                 "nequip", "dimenet", "pna", "gatedgcn",
+                 "two-tower-retrieval")
 
 
 def get_arch(arch_id: str):
@@ -29,3 +36,11 @@ def get_arch(arch_id: str):
         raise KeyError(f"unknown or unported arch {arch_id!r}; ported: "
                        f"{sorted(_MODULES)}")
     return import_module(_MODULES[arch_id]).SPEC
+
+
+def all_cells(include_extra: bool = False) -> list:
+    """Every (arch, shape) cell, in the reference's order: the 40
+    assigned (10 archs x 4 shapes), then the paper's own model
+    (d3gnn-sage) with include_extra."""
+    ids = CELL_ARCH_IDS + (("d3gnn-sage",) if include_extra else ())
+    return [(a, s) for a in ids for s in get_arch(a).shapes]

@@ -14,6 +14,9 @@ Counterpart of `repro/configs/base.py`. An ArchSpec bundles:
   * input_specs(model, shape) -> {name: (shape tuple, torch dtype)}
   * step(model, shape) -> the train or serve step callable
   * optimizer:     "adam" | "adam8bit", what `make_optimizer` builds
+  * tune_for_mesh(model, mesh) -> model, donate_inputs(shape) -> input
+    names, batch_style "positional" | "dict": what the dry run
+    (`launch/dryrun.py`) reads, as JAX's does
 
 A train step is functional, as JAX's: train_step(params, opt_state,
 ...) -> (params, opt_state, loss), params a flat {state_dict name:
@@ -58,6 +61,9 @@ class ArchSpec:
     input_specs: Callable[[Any, str], dict]     # (model, shape_name) -> specs
     step: Callable[[Any, str], Callable]        # (model, shape_name) -> fn
     notes: str = ""
+    tune_for_mesh: Callable[[Any, Any], Any] = lambda model, mesh: model
+    donate_inputs: Callable[[str], tuple] = lambda shape_name: ()
+    batch_style: str = "positional"   # "positional" | "dict" (one batch arg)
     optimizer: str = "adam"           # "adam" | "adam8bit" (state-quantized)
 
 
@@ -128,8 +134,29 @@ def lm_input_specs(model, shape_name: str) -> dict:
             "cache_len": ((B,), torch.int64)}
 
 
-def lm_step(model, shape_name: str, optimizer=None, grad_accum: int = 8,
-            opt_name: str = "adam"):
+def lm_tune_for_mesh(model, mesh):
+    """JAX's `lm_tune_for_mesh` sets the residual stream's activation
+    spec, ((data axes), None, "model"), which only GSPMD reads: the port
+    has no partitioner, so this records the spec on the model as
+    `act_pspec` for the dry run's report and changes no computation."""
+    dp = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    model.act_pspec = (dp, None, "model")
+    return model
+
+
+def lm_donate(shape_name: str) -> tuple:
+    """Input names donated to outputs (decode caches alias in place)."""
+    if LM_SHAPES[shape_name].kind == "decode":
+        return ("cache_k", "cache_v")
+    return ()
+
+
+# microbatches a train_4k step sums (JAX's `lm_step` default)
+GRAD_ACCUM = 8
+
+
+def lm_step(model, shape_name: str, optimizer=None,
+            grad_accum: int = GRAD_ACCUM, opt_name: str = "adam"):
     """The train, prefill or decode step of `model` (a TransformerLM) for
     one of LM_SHAPES. The serve steps use the model's own parameters;
     the train step takes them as an argument (JAX's `lm_step`) and

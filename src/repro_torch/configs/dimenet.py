@@ -41,5 +41,6 @@ SPEC = ArchSpec(
         t_factor=T_FACTOR),
     step=lambda model, s, optimizer=None: make_gnn_train_step(
         model, GNN_SHAPES[s], needs_triplets=True, optimizer=optimizer),
+    batch_style="dict",
     notes="triplet-gather regime; T_max = 4*E (the angular basis is "
           "bessel x cos-series, scipy-free, same flops).")

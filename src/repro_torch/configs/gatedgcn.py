@@ -33,5 +33,6 @@ SPEC = ArchSpec(
     input_specs=lambda model, s: gnn_input_specs(
         GNN_SHAPES[s], needs_pos=False, needs_triplets=False),
     step=make_node_task_step,
+    batch_style="dict",
     notes="edge-featured MPNN with gated aggregation; LayerNorm replaces "
           "BatchNorm for streaming compatibility.")

@@ -11,8 +11,9 @@ holds 16.1 B parameters: one card runs REDUCED.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import (ArchSpec, LM_SHAPES, lm_input_specs,
-                                      lm_step)
+from repro_torch.configs.base import (ArchSpec, LM_SHAPES, lm_donate,
+                                      lm_input_specs, lm_step,
+                                      lm_tune_for_mesh)
 from repro_torch.nn.moe import MoEConfig
 from repro_torch.nn.transformer import TransformerConfig, TransformerLM
 
@@ -42,4 +43,6 @@ SPEC = ArchSpec(
     shapes=LM_SHAPES,
     input_specs=lm_input_specs,
     step=lm_step,
+    tune_for_mesh=lm_tune_for_mesh,
+    donate_inputs=lm_donate,
     notes="MoE 128e top-1 every 2nd layer + 1 shared expert; ~400B total.")

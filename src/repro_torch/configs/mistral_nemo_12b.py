@@ -7,8 +7,9 @@ Counterpart of `repro/configs/mistral_nemo_12b.py`.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import (ArchSpec, LM_SHAPES, lm_input_specs,
-                                      lm_step)
+from repro_torch.configs.base import (ArchSpec, LM_SHAPES, lm_donate,
+                                      lm_input_specs, lm_step,
+                                      lm_tune_for_mesh)
 from repro_torch.nn.transformer import TransformerConfig, TransformerLM
 
 CONFIG = TransformerConfig(
@@ -30,4 +31,6 @@ SPEC = ArchSpec(
     shapes=LM_SHAPES,
     input_specs=lm_input_specs,
     step=lm_step,
+    tune_for_mesh=lm_tune_for_mesh,
+    donate_inputs=lm_donate,
     notes="128k-context dense GQA; head_dim 128 != d_model/n_heads.")

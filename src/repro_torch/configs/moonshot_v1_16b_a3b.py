@@ -9,8 +9,9 @@ experts with per-expert d_ff=1408, MoE in every layer. Counterpart of
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import (ArchSpec, LM_SHAPES, lm_input_specs,
-                                      lm_step)
+from repro_torch.configs.base import (ArchSpec, LM_SHAPES, lm_donate,
+                                      lm_input_specs, lm_step,
+                                      lm_tune_for_mesh)
 from repro_torch.nn.moe import MoEConfig
 from repro_torch.nn.transformer import TransformerConfig, TransformerLM
 
@@ -39,4 +40,6 @@ SPEC = ArchSpec(
     shapes=LM_SHAPES,
     input_specs=lm_input_specs,
     step=lm_step,
+    tune_for_mesh=lm_tune_for_mesh,
+    donate_inputs=lm_donate,
     notes="kimi/moonlight fine-grained MoE, 64e top-6 + 2 shared.")

@@ -37,5 +37,6 @@ SPEC = ArchSpec(
         GNN_SHAPES[s], needs_pos=True, needs_triplets=False),
     step=lambda model, s, optimizer=None: make_gnn_train_step(
         model, GNN_SHAPES[s], needs_triplets=False, optimizer=optimizer),
+    batch_style="dict",
     notes="irrep tensor-product regime; positions synthesized for the "
           "non-molecular shapes.")

@@ -45,5 +45,6 @@ SPEC = ArchSpec(
     input_specs=lambda model, s: gnn_input_specs(
         GNN_SHAPES[s], needs_pos=False, needs_triplets=False),
     step=make_node_task_step,
+    batch_style="dict",
     notes="multi-aggregator SpMM regime; all four aggregators are synopses "
           "(std via (sum, sum_sq, n)).")

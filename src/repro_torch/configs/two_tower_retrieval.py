@@ -7,7 +7,8 @@ user 10^8 rows, item 10^7 rows x dim 256, f32. `CONFIG` is the published
 config verbatim; `build()` cuts the user table to fit one card
 (ONE_CARD_USER_VOCAB), and `build(train=True)` both tables, to leave room
 for their gradients and Adam's moments (TRAIN_USER_VOCAB,
-TRAIN_ITEM_VOCAB). `input_specs` gives (shape, dtype) pairs without
+TRAIN_ITEM_VOCAB); on the `meta` device it builds CONFIG whole.
+`input_specs` gives (shape, dtype) pairs without
 allocating; `step` returns the train and serve steps.
 
 Shapes:
@@ -109,17 +110,30 @@ def step(model, shape_name: str, optimizer=None):
                                                 batch["cand_ids"])
 
 
+def build(device=None, seed: int = 0, train: bool = False) -> TwoTower:
+    """The model at one card's cut of the tables (ONE_CARD_USER_VOCAB to
+    serve; TRAIN_USER_VOCAB / TRAIN_ITEM_VOCAB to train), or, on the
+    `meta` device, where nothing is allocated, the published CONFIG
+    whole (the dry run's)."""
+    if device is not None and torch.device(device).type == "meta":
+        cfg = CONFIG
+    elif train:
+        cfg = replace(CONFIG, user_vocab=TRAIN_USER_VOCAB,
+                      item_vocab=TRAIN_ITEM_VOCAB)
+    else:
+        cfg = replace(CONFIG, user_vocab=ONE_CARD_USER_VOCAB)
+    return TwoTower(cfg, device, seed)
+
+
 SPEC = ArchSpec(
     name="two-tower-retrieval", family="recsys",
-    build=lambda device=None, seed=0, train=False: TwoTower(
-        replace(CONFIG, user_vocab=TRAIN_USER_VOCAB,
-                item_vocab=TRAIN_ITEM_VOCAB) if train else
-        replace(CONFIG, user_vocab=ONE_CARD_USER_VOCAB), device, seed),
+    build=build,
     build_reduced=lambda device=None, seed=0, train=False: TwoTower(
         REDUCED, device, seed),
     shapes=SHAPES,
     input_specs=input_specs,
     step=step,
+    batch_style="dict",
     notes="embedding lookup is the hot path; build() cuts the user table "
           "to 50,000,384 rows for one 80 GB card, build(train=True) the "
           "tables to 5,000,192 and 500,224 rows.")

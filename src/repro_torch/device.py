@@ -15,3 +15,13 @@ def resolve_device(device=None) -> torch.device:
                 "default; pass device='cpu' to run it on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def seeded_generator(device, seed: int):
+    """A `torch.Generator` on `device` seeded with `seed`, or None on the
+    `meta` device: a meta build (the dry run's) allocates shapes only and
+    draws nothing, and torch has no generator there."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)

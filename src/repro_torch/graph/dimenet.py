@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.graph import segment
 from repro_torch.graph.graphs import Graph
 from repro_torch.graph.nequip import bessel_basis, per_graph_sum
@@ -81,10 +81,12 @@ class DimeNet(nn.Module):
                  seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         d = d_hidden
         self.d_in, self.n_classes, self.cutoff = d_in, n_classes, cutoff
         self.n_radial, self.n_spherical = n_radial, n_spherical
+        self.d_hidden, self.n_blocks = d, n_blocks
+        self.n_bilinear = n_bilinear
         self.embed_x = Linear(d_in, d, generator=gen, device=dev)
         self.embed_m = MLP((2 * d + n_radial, d), act=F.silu, generator=gen,
                            device=dev)

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.graph import segment
 from repro_torch.graph.graphs import Graph
 from repro_torch.nn.initializers import lecun_normal
@@ -60,7 +60,7 @@ class GAT(nn.Module):
                  seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         self.dims, self.n_classes = tuple(dims), n_classes
         n = len(self.dims) - 1
         self.layers = nn.ModuleList(

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.graph import segment
 from repro_torch.graph.graphs import Graph
 from repro_torch.nn.layers import LayerNorm, Linear
@@ -57,8 +57,9 @@ class GatedGCN(nn.Module):
                  device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         self.d_in, self.n_classes = d_in, n_classes
+        self.d_hidden, self.n_layers = d_hidden, n_layers
         self.embed_x = Linear(d_in, d_hidden, generator=gen, device=dev)
         self.embed_e = Linear(max(d_edge_in, 1), d_hidden, generator=gen,
                               device=dev)

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.graph import segment
 from repro_torch.graph.graphs import Graph
 from repro_torch.graph.so3 import coupling_tensor, real_sph_harm
@@ -133,9 +133,10 @@ class NequIP(nn.Module):
                  device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         self.d_in, self.mult, self.l_max = d_in, mult, l_max
         self.n_rbf, self.cutoff, self.n_classes = n_rbf, cutoff, n_classes
+        self.n_layers = n_layers
         self.embed = Linear(d_in, mult, generator=gen, device=dev)
         self.layers = nn.ModuleList(
             NequIPLayer(mult, l_max, n_rbf, avg_degree, gen, dev)

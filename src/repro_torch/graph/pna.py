@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.graph import segment
 from repro_torch.graph.graphs import Graph, in_degree
 from repro_torch.nn.layers import MLP, Linear
@@ -56,8 +56,9 @@ class PNA(nn.Module):
                  device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         self.d_in, self.n_classes = d_in, n_classes
+        self.d_hidden, self.n_layers = d_hidden, n_layers
         dims = [d_in] + [d_hidden] * n_layers
         self.layers = nn.ModuleList(
             PNALayer(dims[i], dims[i + 1], avg_log_deg, generator=gen,

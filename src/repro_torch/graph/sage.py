@@ -161,9 +161,9 @@ class GCN(nn.Module):
     def __init__(self, dims: Sequence[int], n_classes: int = 0,
                  seed: int = 0, device=None):
         super().__init__()
-        from repro_torch.device import resolve_device
+        from repro_torch.device import resolve_device, seeded_generator
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         self.dims, self.n_classes = tuple(dims), n_classes
         n = len(self.dims) - 1
         self.layers = nn.ModuleList(

@@ -16,7 +16,10 @@ kernel 1's semantics, so on the card it runs on `csrc/segment_reduce.cu`
 to the ids.
 
 The wrapper runs its plain versions (`ref.py`) for CPU tensors and, for
-CUDA tensors, launches the kernels or raises. `LAUNCHES` counts kernel
+CUDA tensors, launches the kernels or raises. On the `meta` device (the dry
+run's) each entry allocates its output and launches nothing; each
+kernel call notes its operands (`repro_torch.work.note`) for an
+operation counter to price. `LAUNCHES` counts kernel
 launches (a plain integer; `reset_launches()` zeroes it) so a run can show
 that its path went through the kernel; the backward's launches count
 under kernel 1's `segment_reduce.ops.LAUNCHES`.
@@ -27,6 +30,7 @@ import ctypes
 
 import torch
 
+from repro_torch import work
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.embedding_bag import ref
 from repro_torch.kernels.segment_reduce import ops as seg_ops
@@ -75,6 +79,9 @@ def _forward(table, ids, mode: str):
     (V, d), (B, W) = table.shape, ids.shape
     out = torch.empty(B, d, dtype=torch.float32, device=table.device)
     if B * d == 0:
+        return out
+    work.note("embedding_bag", ids=ids, out=out)
+    if table.device.type == "meta":
         return out
     rc = _lib().d3_embedding_bag(
         table.data_ptr(), ids.data_ptr(), out.data_ptr(), V, d, B, W,

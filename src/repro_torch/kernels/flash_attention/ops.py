@@ -14,6 +14,11 @@ configs' head dim) to the CUDA-core kernel. The wrapper runs its plain version (
 tensors and, for CUDA tensors, launches the chosen kernel or raises: it
 never drops back to another kernel or to the plain version.
 
+On the `meta` device (the dry run's) the wrapper checks and allocates
+its output and launches nothing: the kernel's shape function. Each call
+notes its operands (`repro_torch.work.note`) for an operation counter
+to price.
+
 `LAUNCHES` counts kernel launches (plain integers; `reset_launches()`
 zeroes them) so a run can show that its path went through the kernels:
 "flash_attention" every launch, "flash_attention_wgmma" those of the
@@ -31,6 +36,7 @@ import ctypes
 
 import torch
 
+from repro_torch import work
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention import ref
 
@@ -139,10 +145,12 @@ def flash_attention(q, k, v, causal: bool = True):
                          "does)", q, k, v)
     wgmma = uses_wgmma(q)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if out.numel():
+    if out.numel() and q.device.type != "meta":
         _launch(q, k, v, out, causal, wgmma)
         LAUNCHES["flash_attention"] += 1
         LAUNCHES["flash_attention_wgmma"] += int(wgmma)
+    if out.numel():
+        work.note("flash_attention", q=q, k=k, v=v, out=out, causal=causal)
     return out
 
 

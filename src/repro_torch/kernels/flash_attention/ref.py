@@ -5,11 +5,16 @@ CUDA kernel against it on the card. It computes what the Pallas kernel
 (`repro/kernels/flash_attention/kernel.py`) computes, in one pass over each
 query chunk instead of an online softmax over kv blocks: f32 scores, masked
 to -1e30, p = exp(s - max) cast to v's type before p @ v (kernel.py:61),
-and acc / max(sum p, 1e-30) in q's type.
+and acc / max(sum p, 1e-30) in q's type. Its products run over every
+(query, key) pair; a causal call notes its operands
+(`repro_torch.work.note`) so that an operation counter charges the
+masked pairs' products as masked work.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch import work
 
 NEG_INF = -1e30
 
@@ -39,4 +44,6 @@ def attention_ref(q, k, v, causal: bool = True, q_chunk: int = 256):
         acc = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype).float(), vf)
         out[:, s0:s0 + c] = (acc / denom).permute(0, 3, 1, 2, 4).reshape(
             B, c, H, D).to(q.dtype)
+    if causal:
+        work.note("masked_attention", q=q, k=k, v=v, out=out)
     return out

@@ -24,7 +24,10 @@ that requires grad raises (`cuda_lib.refuse_grad`) rather than return
 an output without a graph.
 
 All are bit-exact copies of the shipped rows (NaN, Inf and -0.0
-included); the Pallas backend is exact only for finite rows. `LAUNCHES`
+included); the Pallas backend is exact only for finite rows. On the
+`meta` device (the dry run's) both entries allocate their outputs and
+launch nothing; each notes its operands (`repro_torch.work.note`) for an
+operation counter to price. `LAUNCHES`
 counts kernel launches per entry (`reset_launches()` zeroes it) so a run
 can show that its path went through the kernel.
 """
@@ -34,6 +37,7 @@ import ctypes
 
 import torch
 
+from repro_torch import work
 from repro_torch.dist import wire
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.route_pack import ref
@@ -148,6 +152,8 @@ def route_pack(rows, order, slot_s, starts, n_dev: int, cap: int):
     width = rows.shape[1]
     out = torch.empty((n_slots, width), dtype=torch.float32, device=dev)
     if width > 0:
+        work.note("route_pack", order=order, starts=starts, out=out)
+    if width > 0 and dev.type != "meta":
         _raise_on(_lib().d3_route_pack(
             rows.data_ptr(), order.data_ptr(), starts.data_ptr(),
             out.data_ptr(), n_dev, cap, width,
@@ -217,6 +223,9 @@ def route_lane(ring, lane, plan, n_dev: int, cap: int):
     send = torch.empty((n_dev * cap, W), dtype=torch.float32, device=dev)
     new_ring = torch.empty((K, W), dtype=torch.float32, device=dev)
     if W > 0:
+        work.note("route_lane", order=order, starts=starts, send=send,
+                  new_ring=new_ring)
+    if W > 0 and dev.type != "meta":
         table = _DESC(*desc)
         _raise_on(_lib().d3_route_lane(
             ring.data_ptr(), K, ctypes.addressof(table), len(desc) // 4,

@@ -17,7 +17,10 @@ CUDA tensors, launches its kernel or raises; the kernels have no
 backward, so a CUDA call under autograd with an input that requires
 grad raises (`cuda_lib.refuse_grad`) rather than return an output
 without a graph. The embedding bag's backward calls `deliver_rows` on
-the gradient, which requires none. `LAUNCHES` counts kernel
+the gradient, which requires none. On the `meta` device (the dry
+run's) kernels A and B check and allocate their outputs and launch
+nothing; each call notes its operands (`repro_torch.work.note`) for an
+operation counter to price. `LAUNCHES` counts kernel
 launches per wrapper (plain integers; `reset_launches()` zeroes them) so
 a run can show that its path went through the kernels; every form of
 kernel A counts under "segment_sum_rows".
@@ -28,6 +31,7 @@ import ctypes
 
 import torch
 
+from repro_torch import work
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.segment_reduce import ref
 
@@ -209,6 +213,12 @@ def deliver_rows(vec, row_ptr, order=None, cnt=None, base=None,
     flag = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return out, cnt_out, flag
+    work.note("segment_sum_rows", mode=mode,
+              n_rec=vec.shape[0] if order is None else order.shape[0],
+              cnt=cnt, row_ptr=row_ptr, order=order, base=base,
+              base_cnt=base_cnt, out=out, cnt_out=cnt_out, flag=flag)
+    if dev.type == "meta":
+        return out, cnt_out, flag
     set_mode = mode == "set"
     if set_mode:
         plan, n_shares = None, -(-n // SHARE)
@@ -286,6 +296,9 @@ def mean_rows_gather(agg, cnt, rows):
     k, d = rows.shape[0], agg.shape[1]
     out = torch.empty((k, d), dtype=torch.float32, device=dev)
     if k == 0 or d == 0:
+        return out
+    work.note("mean_rows_gather", rows=rows, cnt=cnt, out=out)
+    if dev.type == "meta":
         return out
     v = _vec_width(d, [(agg, d), (out, d)])
     lib = _lib()

@@ -15,6 +15,9 @@ parts, joined by a `torch.distributed` process group. A
                          in each and return their results (rank order).
   survivor_mesh()      : the mesh after losing data columns (the live
                          reshard's target, `D3Pipeline.reshard`).
+  make_production_mesh(): the dry run's target mesh, a descriptor with no
+                         devices (`ProductionMesh`); `data_axes` and
+                         `all_axes` read its axes.
 
 Building a mesh is collective over the WORLD: every process calls it, in
 the same order, because every subgroup (the mesh's own, one per stage row,
@@ -28,11 +31,13 @@ device.
 """
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import tempfile
 import time
 import traceback
+from dataclasses import dataclass
 from datetime import timedelta
 from pathlib import Path
 
@@ -202,3 +207,40 @@ def spawn_stream_mesh(n: int, fn, *, backend: str, device, args=(),
                 for r in range(n)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+@dataclass(frozen=True)
+class ProductionMesh:
+    """A named grid of devices that holds no device: what the dry run's
+    sharding rules read of a mesh (`axis_names`, `shape` by name, `size`),
+    as `dist/sharding.py` reads them. Building one touches neither the
+    process group nor CUDA."""
+    axis_names: tuple
+    dims: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.dims)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The dry run's production mesh (`repro/launch/mesh.py:15`): (16, 16)
+    over ("data", "model"), 256 devices, or (2, 16, 16) over ("pod",
+    "data", "model"), 512."""
+    if multi_pod:
+        return ProductionMesh(("pod", "data", "model"), (2, 16, 16))
+    return ProductionMesh(("data", "model"), (16, 16))
+
+
+def data_axes(mesh) -> tuple:
+    """The data-parallel axes: ("pod", "data") on multi-pod, else
+    ("data",)."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def all_axes(mesh) -> tuple:
+    return tuple(mesh.axis_names)

@@ -10,6 +10,12 @@ causal mask (the kernel has no backward). Decode attends one new token against t
 JAX package leaves it to XLA; so does the sequence-sharded decode
 (`decode_attend_partial` on each shard of the cache, then
 `combine_partial_decodes`, the flash-decoding log-sum-exp merge).
+
+The plain causal paths (`mha_chunked`, and `mha` under the causal mask
+in `GQAAttention.forward`) compute every (query, key) pair and note
+their operands (`repro_torch.work.note`), so that an operation counter
+charges the masked pairs' products as masked work, as the kernel
+charges none.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch import work
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.nn.layers import init_param, lecun
 from repro_torch.nn.rotary import apply_rope
@@ -77,7 +84,11 @@ def mha_chunked(q, k, v, q_chunk: int = 256, causal: bool = True,
             logits = torch.where(kv_pos <= q_pos, logits, NEG_INF)
         w = torch.softmax(logits, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bkgqt,btkd->bqkgd", w, v))
-    return torch.cat(outs, dim=1).reshape(B, S, H, D)
+    out = torch.cat(outs, dim=1).reshape(B, S, H, D)
+    if causal:
+        work.note("masked_attention", q=q, k=k, v=v, out=out,
+                  q_offset=q_offset)
+    return out
 
 
 def decode_attend(q, cache_k, cache_v, valid):
@@ -166,6 +177,7 @@ class GQAAttention(nn.Module):
             out = mha_chunked(q, k, v, q_chunk=self.q_chunk, causal=True)
         else:
             out = mha(q, k, v, mask=causal_mask(S, S, device=x.device))
+            work.note("masked_attention", q=q, k=k, v=v, out=out)
         return out.reshape(B, S, -1) @ self.wo.to(x.dtype)
 
     def decode(self, x, cache_k, cache_v, cache_len):

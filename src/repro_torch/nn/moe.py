@@ -142,6 +142,7 @@ class MoELayer(nn.Module):
                              generator)
         self.shared = SwiGLU(d, h * cfg.n_shared, dtype=dtype, device=device,
                              generator=generator) if cfg.n_shared else None
+        self.ep_mesh = None       # the EP dispatch's mesh in a model
 
     def route(self, x):
         """x [T, d] -> (expert ids [T, k], weights [T, k], probs [T, E])."""
@@ -152,9 +153,12 @@ class MoELayer(nn.Module):
 
     def forward(self, x, mesh=None):
         """x [T, d] (the caller flattens batch x seq). With cfg.ep_axis the
-        expert-parallel dispatch over `mesh` (a StreamMesh, required)."""
+        expert-parallel dispatch over `mesh` (a StreamMesh, required), or
+        over `self.ep_mesh` when none is passed: a model's blocks call
+        the layer without one, so whoever builds an EP model sets it
+        (`perf/variants.py:moonshot_train_ep`)."""
         if self.cfg.ep_axis:
-            return self._ep_call(x, mesh)
+            return self._ep_call(x, self.ep_mesh if mesh is None else mesh)
         T, d = x.shape
         cfg = self.cfg
         E, K = cfg.num_experts, cfg.top_k

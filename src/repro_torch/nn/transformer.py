@@ -26,7 +26,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.nn.attention import GQAAttention
 from repro_torch.nn.layers import Embedding, RMSNorm, SwiGLU, init_param, lecun
 from repro_torch.nn.moe import MoEConfig, MoELayer
@@ -119,7 +119,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = seeded_generator(self.device, seed)
         dt = torch.float32 if train else cfg.torch_dtype
         self.embed = Embedding(cfg.vocab, cfg.d_model, dtype=dt,
                                device=self.device, generator=gen)

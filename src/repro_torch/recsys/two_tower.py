@@ -26,7 +26,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.nn.layers import MLP
 from repro_torch.recsys.embedding_bag import EmbeddingBag
 
@@ -58,7 +58,7 @@ class TwoTower(nn.Module):
         super().__init__()
         self.cfg = c = cfg
         self.device = resolve_device(device)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = seeded_generator(self.device, seed)
         self.user_emb = EmbeddingBag(c.user_vocab, c.embed_dim,
                                      device=self.device, generator=gen)
         self.item_emb = EmbeddingBag(c.item_vocab, c.embed_dim,

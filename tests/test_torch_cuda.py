@@ -1431,3 +1431,57 @@ def test_reduced_moe_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
                               torch.as_tensor(labels, device=model.device))
             out.append((loss, p, s))
     _assert_train_runs_match(runs["cpu"], runs["cuda"])
+
+
+# ------------------------------------------------------------ tooling
+def test_analyzer_reads_the_plain_flops_through_kernels_5_and_4(cuda):
+    """The roofline's count does not change when a kernel replaces its
+    plain version: flash attention (wgmma, bf16 D = 128) is charged the
+    causal pairs' products, 4 B H D S (S + 1) / 2, as the plain version
+    is through its aten products on the card less their masked share,
+    and fewer bytes (no scores); the bag lookup no FLOPs, as its plain
+    gather, and fewer bytes."""
+    from repro_torch.roofline.analysis import analyze_step
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, S, H, Kh, D = 1, 512, 8, 2, 128
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device=cuda,
+                           dtype=torch.bfloat16) for h in (H, Kh, Kh))
+    ops.reset_launches()
+    kern = analyze_step(ops.flash_attention, q, k, v)
+    plain = analyze_step(ref.attention_ref, q, k, v)
+    assert ops.LAUNCHES["flash_attention_wgmma"] == 1
+    causal = 4 * B * H * D * S * (S + 1) // 2
+    assert kern["op_flops"] == plain["op_flops"] == causal
+    assert kern["op_masked_flops"] == 0
+    assert plain["op_flops"] + plain["op_masked_flops"] == 4 * B * H * S * S * D
+    assert kern["op_bytes"] < plain["op_bytes"]
+    table = torch.randn(10_000, 256, generator=g, device=cuda)
+    ids = torch.randint(-1, 10_000, (512, 8), generator=g, device=cuda)
+    eb_ops.reset_launches()
+    kern = analyze_step(eb_ops.embedding_bag, table, ids)
+    plain = analyze_step(eb_ref.embedding_bag_ref, table, ids)
+    assert eb_ops.LAUNCHES["embedding_bag"] == 1
+    assert kern["op_flops"] == plain["op_flops"] == 0
+    assert 0 < kern["op_bytes"] < plain["op_bytes"]
+
+
+def test_dryrun_card_cell_of_a_reduced_lm_prefill(cuda, tmp_path,
+                                                  monkeypatch):
+    """`run_cell(..., device="cuda")` on mistral-nemo-12b's prefill cell
+    with the REDUCED model (f32, 4 layers): a JSON with the card's peak
+    memory, the step's seconds and the flash launches counted."""
+    import json
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    spec = get_arch("mistral-nemo-12b")
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    monkeypatch.setattr(dryrun, "get_arch", lambda a: replace(
+        spec, build=spec.build_reduced))
+    r = dryrun.run_cell("mistral-nemo-12b", "prefill_32k", False,
+                        device="cuda")
+    saved = json.loads((tmp_path / "mistral-nemo-12b__prefill_32k__card"
+                        ".json").read_text())
+    assert saved["peak_memory_gb"] > 0 and saved["step_s"] > 0
+    assert saved["kernels"]["flash_attention"]["calls"] == 4
+    assert r["reduced"]["batch"] == {"published": 32, "run": 1}

@@ -69,7 +69,12 @@ def test_import_leaves_jax_out():
             "repro_torch.configs.moonshot_v1_16b_a3b, "
             "repro_torch.configs.llama4_maverick_400b_a17b, "
             "repro_torch.configs.internlm2_20b, "
-            "repro_torch.configs.mistral_large_123b; "
+            "repro_torch.configs.mistral_large_123b, "
+            "repro_torch.launch.dryrun, repro_torch.dist.sharding, "
+            "repro_torch.dist.dry_mesh, repro_torch.roofline.op_analyzer, "
+            "repro_torch.roofline.analysis, repro_torch.roofline.report, "
+            "repro_torch.roofline.model_flops, repro_torch.perf.run, "
+            "repro_torch.perf.variants, repro_torch.work; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
