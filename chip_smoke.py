@@ -367,6 +367,20 @@ Then the tooling (`launch/dryrun.py`, `roofline/`, `perf/`):
   [perf-variants] the nine variants of perf/variants.py on `meta` at the
      single mesh: each one's per-rank GFLOP and collective GB by kind.
 
+Then the JAX package's four examples as the port's entry points
+(`src/repro_torch/examples/`), at their default sizes on the card:
+
+  [examples] `python -m repro_torch.examples.streaming_serve --ranks 4`
+     (four gloo ranks sharing the card, the live 4 -> 2 reshard) as a
+     subprocess, beside quickstart, train_streaming_gnn in both modes,
+     streaming_serve and arch_zoo --arch all, each through its main(argv)
+     in this process: each one's OK line, its wall, and its lines holding
+     the JAX example's integers (ticks, emitted, messages, materialized,
+     votes, steps, flush ticks, the query counts, the restored step, the
+     reshard's moved share, the output shapes), which must equal
+     EXAMPLE_PINS; kernels 1, 2, 4 and 5 launched by the in-process
+     examples (counts reset before, read after).
+
 After [mesh-full], [what-if]: the cost model fitted on [mesh-parity]'s
 telemetry trace prices other route_caps' wire at [mesh-full]'s measured
 gloo all_to_all rate (bytes over the seconds blocked in it).
@@ -7586,6 +7600,125 @@ def phase_perf_variants():
         check(r["op_gflops"] > 0, f"{name} counted no FLOPs")
 
 
+# ------------------------------------------------------------ examples
+# The lines of each example's printout that hold the JAX example's
+# integers, as `examples/<name>.py` prints them at the same flags on the
+# CPU (the weights are random, so losses are not pinned; walls, rates and
+# latencies are not compared). streaming_serve restores the cut it saved.
+def _serve_pins(recovered):
+    return ("checkpointed at tick 16 (emitted so far: 0, queries "
+            "answered: 25)", f"recovered checkpoint step=16; {recovered}",
+            "emitted=317 reduce_msgs=8689 cross_part=6929",
+            "queries resolved=93 (ok=18, device-answered=93, dropped=0, "
+            "shed=0, degraded_ticks=0)", "staleness ticks p50=0 max=25",
+            "embedding table size: 313 (read_nodes on 8 vids: 8)",
+            "serve driver OK")
+
+
+EXAMPLE_PINS = {
+    "quickstart": (
+        "mesh: {'data': 1}",
+        "ticks=11 emitted=130 reduce_msgs=2010 cross_part=1708 "
+        "replication=1.67", "embeddings materialized: 130;",
+        "StartTraining votes: 8/8", "quickstart OK"),
+    "train_streaming_gnn": (
+        "phase 0: steps=42 ", "phase 1: steps=89 ", "phase 2: steps=136 ",
+        "online continual-training driver OK"),
+    "train_streaming_gnn --mode halt-flush": (
+        "phase 0: votes=8 flush_ticks=3 ", "phase 1: votes=8 flush_ticks=3 ",
+        "phase 2: votes=8 flush_ticks=3 ",
+        "halt-flush continual-training driver OK"),
+    "streaming_serve": _serve_pins("single-shard relay"),
+    "streaming_serve --ranks 4": _serve_pins(
+        "live reshard 4->2 shards moved 75% of logical parts"),
+    "arch_zoo": tuple("decode logits (2, 1, 512)" for _ in range(5)) + tuple(
+        "forward out (64, 7), finite=True" for _ in range(4)) + (
+        "retrieval (1, 8)",),
+}
+
+
+def _example_pins(name, lines):
+    """Every pinned fragment in the printout, each on its own line (in
+    order), and no backlog left by the online driver."""
+    rest = list(lines)
+    for pin in EXAMPLE_PINS[name]:
+        hit = next((i for i, x in enumerate(rest) if pin in x), None)
+        check(hit is not None, f"[examples] {name}: no line holds {pin!r} "
+                               f"in {lines}")
+        rest = rest[hit + 1:]
+    check(all("backlog=" not in x or x.endswith("backlog=0")
+              for x in lines), f"[examples] {name}: backlog left {lines}")
+
+
+def phase_examples(device):
+    """The four examples on the card (see the docstring's [examples]);
+    on another device (a rehearsal) with --device."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    from importlib import import_module
+
+    import torch
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.segment_reduce import ops as sr_ops
+    tmp = tempfile.mkdtemp(prefix="examples-")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    mesh_name = "streaming_serve --ranks 4"
+    on = [] if device.type == "cuda" else ["--device", str(device)]
+    t_mesh = time.perf_counter()
+    # its output goes to files: a pipe nobody reads until the end can fill
+    log_out, log_err = (open(Path(tmp) / n, "w+") for n in ("out", "err"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.streaming_serve",
+         "--ranks", "4", "--ckpt-dir", str(Path(tmp) / "ranks4"), *on],
+        env=env, cwd=str(ROOT), stdout=log_out, stderr=log_err, text=True)
+    try:
+        for m in (fa_ops, eb_ops, sr_ops):
+            m.reset_launches()
+        for name in EXAMPLE_PINS:
+            if name == mesh_name:
+                continue
+            mod, *argv = name.split()
+            if mod == "streaming_serve":
+                argv += ["--ckpt-dir", str(Path(tmp) / "one")]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):  # echoed below
+                say = import_module(f"repro_torch.examples.{mod}").main(
+                    argv + on)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            _example_pins(name, say.lines)
+            print(f"[examples] {name}: {secs:.2f} s on the card; "
+                  + " | ".join(say.lines))
+        launches = {**fa_ops.LAUNCHES, **eb_ops.LAUNCHES, **sr_ops.LAUNCHES}
+        print(f"[examples] launches over the in-process examples: "
+              f"{launches}")
+        for k in ("segment_sum_rows", "mean_rows_gather", "flash_attention",
+                  "embedding_bag"):
+            check(launches[k] > 0, f"[examples] {k} never launched")
+        proc.wait(timeout=600)
+        secs = time.perf_counter() - t_mesh
+        out, err = (f.seek(0) or f.read() for f in (log_out, log_err))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_out.close()
+        log_err.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = out.strip().splitlines()
+    check(proc.returncode == 0, f"[examples] {mesh_name} exited "
+                                f"{proc.returncode}:\n{out}\n{err[-4000:]}")
+    _example_pins(mesh_name, lines)
+    print(f"[examples] {mesh_name}: {secs:.2f} s from its start beside the "
+          f"others, the ranks' start included; " + " | ".join(lines))
+    free_cuda()
+
+
 def main():
     try:
         import torch
@@ -7706,6 +7839,7 @@ def main():
     phase("dryrun-meta", phase_dryrun_meta)
     phase("dryrun-card", phase_dryrun_card, device, card)
     phase("perf-variants", phase_perf_variants)
+    phase("examples", phase_examples, device)
     print("[card] all times above on this card:")
     print(card)
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

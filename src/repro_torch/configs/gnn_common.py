@@ -32,7 +32,7 @@ from repro_torch.configs.base import (ShapeSpec, clipped_update,
                                       value_and_grad)
 from repro_torch.graph.graphs import Graph
 from repro_torch.graph.nequip import per_graph_sum
-from repro_torch.graph.sage import masked_ce
+from repro_torch.graph.sage import output_loss
 from repro_torch.graph.sampler import sample_capacities
 
 GNN_SHAPES = {
@@ -112,11 +112,9 @@ def gnn_loss(model, shape: ShapeSpec, needs_triplets: bool):
         g = batch_graph(batch, n_graphs)
         extra = ((batch["t_kj"], batch["t_ji"], batch["t_mask"])
                  if needs_triplets else ())
-        out = model(g, *extra)
-        if classes:
-            return masked_ce(out, batch["labels"],
-                             batch["label_mask"] & batch["node_mask"])
-        return torch.mean(torch.square(out.float() - batch["targets"]))
+        targets = ((batch["labels"], batch["label_mask"] & batch["node_mask"])
+                   if classes else batch["targets"])
+        return output_loss(model(g, *extra), targets, classes)
 
     return loss_fn
 

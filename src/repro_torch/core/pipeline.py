@@ -999,18 +999,21 @@ class D3Pipeline:
         Block sharding keeps parts contiguous, so the survivor count is
         the largest divisor of n_parts below the current D that keeps the
         stage grid. Collective over the world, as `reshard`: every process
-        calls it; a mesh narrower than the world takes the decision from
-        its rank 0."""
+        calls it, and every one takes the decision of the mesh's first
+        world rank. Each rank feeds its mitigator its own wall clock, so a
+        wall spike on one rank flags on that rank alone: deciding from
+        each rank's own flags would send some ranks into the reshard's
+        collectives and not the others (JAX decides once, in its one
+        host process)."""
         from repro_torch.ft.elastic import rescale_parts
         from repro_torch.launch.mesh import survivor_mesh
         if self.straggler is None or self.mesh is None:
             return None
         slow = (self.straggler.persistent_stragglers()
                 if self.active and self._n_data > 1 else [])
-        if len(self.mesh.world_ranks) < dist.get_world_size():
-            box = [slow]
-            dist.broadcast_object_list(box, src=self.mesh.world_ranks[0])
-            slow = box[0]
+        box = [slow]
+        dist.broadcast_object_list(box, src=self.mesh.world_ranks[0])
+        slow = box[0]
         if not slow or self._n_data <= 1:
             return None
         old_d = self._n_data

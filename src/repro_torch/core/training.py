@@ -16,7 +16,7 @@ gradients over a leading [P] axis, then the parameters are averaged.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -87,10 +87,65 @@ class TrainResult:
     flush_ticks: int
 
 
-class TrainingCoordinator:
-    """Majority-vote start, halt+flush, train, rebuild, resume (§4.3.1),
-    on a one-device pipeline.
+class MeshView:
+    """A mesh pipeline's state in the reference's global layout, for the
+    coordinator: JAX's coordinator computes on the sharded pipeline's
+    global arrays, and here every rank gathers them
+    (`ft/checkpoint.gather_tree`, collective over the mesh), runs the same
+    arithmetic on them, and `commit` writes its own block of the rebuilt
+    layers and sink back into the pipeline. The parameters are replicated,
+    so each rank updates its own copy alike."""
 
+    def __init__(self, pipe):
+        from repro_torch.ft.checkpoint import (gather_tree, pipeline_tree,
+                                               tree_unflatten)
+        tree = tree_unflatten(pipeline_tree(pipe),
+                              [leaf for _, leaf in gather_tree(pipe)])
+        self.pipe = pipe
+        self.topo, self.sink = tree["topo"], tree["sink"]
+        self.sink_seen = tree["sink_seen"]
+        S = pipe.n_stages
+        # layer l = r * S + s is round r's state, stage s's slice on a grid
+        self._states = [
+            st if S == 1 else replace(st, **{
+                f.name: getattr(st, f.name)[l % S] for f in fields(st)})
+            for l in range(len(pipe.layers))
+            for st in [tree["layers"][l // S]]]
+
+    def __getattr__(self, name):      # cfg, part, device, layers, params...
+        return getattr(self.pipe, name)
+
+    def layer_state(self, l: int):
+        return self._states[l]
+
+    def set_layer_state(self, l: int, ls) -> None:
+        self._states[l] = ls
+
+    def commit(self) -> None:
+        """This rank's block of the rebuilt features, caches and sink into
+        the pipeline (window timers, sketches and defer rings stay)."""
+        pipe, mesh = self.pipe, self.pipe.mesh
+        P = self.pipe.cfg.n_parts // mesh.n_data
+        lo = mesh.data_index * P
+        block = lambda x: x[lo:lo + P]                       # noqa: E731
+        for l in range(len(pipe.layers)):
+            if l % pipe.n_stages != mesh.stage_index:
+                continue
+            st, new = pipe.layer_state(l), self._states[l]
+            pipe.set_layer_state(l, replace(
+                st, **{k: block(getattr(new, k)) for k in (
+                    "feat", "has_feat", "x_sent", "has_sent", "agg",
+                    "agg_cnt")},
+                red_pending=torch.zeros_like(st.red_pending),
+                fwd_pending=torch.zeros_like(st.fwd_pending)))
+        pipe.sink, pipe.sink_seen = block(self.sink), block(self.sink_seen)
+
+
+class TrainingCoordinator:
+    """Majority-vote start, halt+flush, train, rebuild, resume (§4.3.1).
+
+    On a mesh every rank calls `train` (it is collective): each computes
+    on the gathered global state (`MeshView`), as JAX's one program does.
     head: the output operator (a Linear, e.g. GraphSAGE(...,
     n_classes=C).head); head_params its {"w", "b"} tree. Both paths
     consume the same validated TrainConfig."""
@@ -129,14 +184,17 @@ class TrainingCoordinator:
     def train(self, epochs: int | None = None) -> TrainResult:
         epochs = self.cfg.epochs if epochs is None else epochs
         flush_ticks = self.pipe.flush()            # stale-free guarantee
+        view = self.pipe if self.pipe.mesh is None else MeshView(self.pipe)
         label_arr, label_mask = self._device_labels()
         losses = []
         for _ in range(epochs):
             loss, head_grads, part_grads = self._full_batch_grads(
-                label_arr, label_mask)
+                label_arr, label_mask, view)
             losses.append(float(loss))
             self._apply_alg3(head_grads, part_grads)
-        self._rebuild()                            # phases 2 and 3
+        self._rebuild(view)                        # phases 2 and 3
+        if view is not self.pipe:
+            view.commit()
         return TrainResult(losses=losses, votes=self.votes(),
                            flush_ticks=flush_ticks)
 
@@ -153,9 +211,10 @@ class TrainingCoordinator:
         dev = self.pipe.device
         return (torch.as_tensor(arr).to(dev), torch.as_tensor(mask).to(dev))
 
-    def _full_batch_grads(self, label_arr, label_mask):
-        """Loss + per-part grads via the layered backward."""
-        pipe = self.pipe
+    def _full_batch_grads(self, label_arr, label_mask, pipe=None):
+        """Loss + per-part grads via the layered backward (over `pipe`, the
+        pipeline or its MeshView)."""
+        pipe = pipe or self.pipe
         states = [pipe.layer_state(l) for l in range(len(pipe.layers))]
         mask = label_mask & pipe.sink_seen
 
@@ -212,10 +271,11 @@ class TrainingCoordinator:
         self.head_params = tree_map(lambda a, b: a + b, self.head_params,
                                     upd)
 
-    def _rebuild(self):
+    def _rebuild(self, pipe=None):
         """Phases 2+3: layer-by-layer re-aggregation and update with the
-        refreshed model; refreshes the engine caches and the sink."""
-        pipe = self.pipe
+        refreshed model; refreshes the engine caches and the sink (of
+        `pipe`, the pipeline or its MeshView)."""
+        pipe = pipe or self.pipe
         feat = pipe.layer_state(0).feat
         has = pipe.layer_state(0).has_feat
         params = pipe.params

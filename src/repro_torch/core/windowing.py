@@ -100,6 +100,11 @@ def cms_delta(shape, keys, weights):
         0, flat.reshape(-1), w.reshape(-1)).reshape(depth, width)
 
 
+def cms_update(cms, keys, weights, decay: float = 1.0):
+    """Add `weights` at `keys`; optionally decay the whole sketch first."""
+    return cms * decay + cms_delta(cms.shape, keys, weights)
+
+
 def cms_query(cms, keys):
     idx = cms_hash(keys, *cms.shape)
     return torch.gather(cms, 1, idx).min(dim=0).values

@@ -23,6 +23,7 @@ from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.graph import segment
 from repro_torch.graph.graphs import Graph
 from repro_torch.graph.nequip import bessel_basis, per_graph_sum
+from repro_torch.graph.sage import output_loss
 from repro_torch.nn.initializers import lecun_normal, normal
 from repro_torch.nn.layers import MLP, Linear
 
@@ -130,3 +131,9 @@ class DimeNet(nn.Module):
         if self.n_classes:
             return out
         return per_graph_sum(out[..., 0], g)
+
+    def loss(self, g: Graph, targets, t_kj, t_ji, t_mask):
+        """Cross-entropy over (labels, label_mask) targets with classes,
+        else the energies' MSE (JAX's `loss`)."""
+        return output_loss(self(g, t_kj, t_ji, t_mask), targets,
+                           self.n_classes)

@@ -20,6 +20,7 @@ from torch import nn
 from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.graph import segment
 from repro_torch.graph.graphs import Graph
+from repro_torch.graph.sage import masked_ce
 from repro_torch.nn.layers import LayerNorm, Linear
 
 
@@ -76,3 +77,8 @@ class GatedGCN(nn.Module):
         for layer in self.layers:
             x, e = layer(g, x, e)
         return self.head(x) if self.head is not None else x
+
+    def loss(self, g: Graph, labels, label_mask):
+        """Masked-mean cross-entropy of the head's logits (JAX's
+        `loss`)."""
+        return masked_ce(self(g), labels, label_mask)

@@ -10,7 +10,7 @@ same arrays for both packages; they come back as CPU tensors.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -36,6 +36,9 @@ class Graph:
     @property
     def n_edges(self) -> int:
         return self.senders.shape[0]
+
+    def replace(self, **kw) -> "Graph":
+        return replace(self, **kw)
 
 
 def in_degree(g: Graph) -> torch.Tensor:

@@ -28,6 +28,7 @@ from torch import nn
 from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.graph import segment
 from repro_torch.graph.graphs import Graph
+from repro_torch.graph.sage import output_loss
 from repro_torch.graph.so3 import coupling_tensor, real_sph_harm
 from repro_torch.nn.initializers import lecun_normal
 from repro_torch.nn.layers import MLP, Linear
@@ -166,3 +167,8 @@ class NequIP(nn.Module):
         if self.n_classes:
             return out                                      # [N, n_classes]
         return per_graph_sum(out[..., 0], g)
+
+    def loss(self, g: Graph, targets, *_):
+        """MSE energy loss (molecule shapes) or CE over (labels,
+        label_mask) targets (node classification): JAX's `loss`."""
+        return output_loss(self(g), targets, self.n_classes)

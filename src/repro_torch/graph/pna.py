@@ -16,6 +16,7 @@ from torch import nn
 from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.graph import segment
 from repro_torch.graph.graphs import Graph, in_degree
+from repro_torch.graph.sage import masked_ce
 from repro_torch.nn.layers import MLP, Linear
 
 
@@ -71,3 +72,8 @@ class PNA(nn.Module):
         for layer in self.layers:
             x = layer(g, x)
         return self.head(x) if self.head is not None else x
+
+    def loss(self, g: Graph, labels, label_mask):
+        """Masked-mean cross-entropy of the head's logits (JAX's
+        `loss`)."""
+        return masked_ce(self(g), labels, label_mask)

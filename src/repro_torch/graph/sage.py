@@ -53,6 +53,17 @@ def masked_ce(logits, labels, label_mask):
     return torch.sum(ce) / torch.clamp(torch.sum(label_mask), min=1)
 
 
+def output_loss(out, targets, n_classes: int):
+    """The graph zoo's loss on a model's output (JAX's DimeNet / NequIP
+    `loss`): with classes, targets = (labels, label_mask) and the
+    masked-mean cross-entropy; else the mean squared error of the f32
+    energies against targets."""
+    if n_classes:
+        labels, mask = targets
+        return masked_ce(out, labels, mask)
+    return torch.mean(torch.square(out.to(torch.float32) - targets))
+
+
 class SAGELayer(nn.Module):
     agg_kind = "mean"   # aggregator synopsis kind (property of the type)
 

@@ -103,6 +103,10 @@ class Embedding(nn.Module):
     def forward(self, ids):
         return F.embedding(ids, self.table)
 
+    def attend(self, x):
+        """Tied-output-head logits: x @ table.T."""
+        return x @ self.table.to(x.dtype).T
+
 
 class MLP(nn.Module):
     """Linear layers of widths dims = (in, h1, ..., out) with `act`

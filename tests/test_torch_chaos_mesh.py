@@ -18,11 +18,21 @@ the answered qids and their ok flags, the rescale plan, the tick the
 mitigation fires at and the parts each shard owns after it. The mesh
 recovery (`simulate_failure_and_recover`, 4 -> 2 ranks) runs JAX's
 weights: its sink is within 1e-5 of JAX's and 1e-4 of the oracle.
+
+The fail-slow drills feed the straggler mitigator a synthetic wall
+schedule, and each tick also feeds it the tick's live wall. A live wall
+depends on the box's load, so on both sides the drills run with a fixed
+clock standing in for `time` in the pipeline module (`fixed_clock`):
+every live wall reads 0 s and the outcome is the schedule's alone. A
+third port drill puts one load-like wall spike into one rank's live feed
+(`spiked_feed`): the mesh still takes one decision, so its report equals
+JAX's unspiked one.
 """
 import os
 import pickle
 import subprocess
 import sys
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +60,52 @@ def make_stream(seed=2, n_edges=120):
     feats = {v: rng.normal(size=D).astype(np.float32)
              for v in range(N_NODES)}
     return edges, feats
+
+
+class FixedClock:
+    """Stands in for a pipeline module's `time` module: `perf_counter`
+    reads one constant, so every live wall the straggler feed sees is 0 s
+    (both pipeline modules read no other clock)."""
+
+    @staticmethod
+    def perf_counter() -> float:
+        return 0.0
+
+
+@contextmanager
+def fixed_clock(module):
+    """Run with `FixedClock` as `module.time` (a pipeline module)."""
+    saved = module.time
+    module.time = FixedClock
+    try:
+        yield
+    finally:
+        module.time = saved
+
+
+SPIKE_RANK, SPIKE_S = 2, 60.0
+
+
+@contextmanager
+def spiked_feed(rank: int):
+    """On world rank SPIKE_RANK, add a SPIKE_S s wall to the live feed of
+    the first tick, as a loaded box stalls one rank: that rank's EWMA
+    then stays far above the drill's slow walls, so its own flags never
+    persist while the other ranks' do."""
+    import repro_torch.core.pipeline as tpipe
+    saved = tpipe.D3Pipeline._trace_ticks
+
+    def trace_ticks(self, occ_rows, tick0, wall_s, *rest, **kw):
+        if tick0 == 0:
+            wall_s += SPIKE_S
+        return saved(self, occ_rows, tick0, wall_s, *rest, **kw)
+
+    if rank == SPIKE_RANK:
+        tpipe.D3Pipeline._trace_ticks = trace_ticks
+    try:
+        yield
+    finally:
+        tpipe.D3Pipeline._trace_ticks = saved
 
 
 def _answers(ans: dict) -> dict:
@@ -129,10 +185,15 @@ def _port_rank(world, params, tmp):
         out["failstop", driver] = _failstop_summary(tchaos.scenario_failstop(
             tchaos.ChaosConfig(driver=driver), Path(tmp) / f"fs-{driver}",
             device=world.device))
-    out["slow"] = _slow_summary(tchaos.scenario_slow_shard(
-        tchaos.ChaosConfig(), device=world.device))
-    out["slow-stage"] = _slow_summary(tchaos.scenario_slow_shard(
-        tchaos.ChaosConfig(), d_old=2, n_stages=2, device=world.device))
+    import repro_torch.core.pipeline as tpipe
+    with fixed_clock(tpipe):
+        out["slow"] = _slow_summary(tchaos.scenario_slow_shard(
+            tchaos.ChaosConfig(), device=world.device))
+        out["slow-stage"] = _slow_summary(tchaos.scenario_slow_shard(
+            tchaos.ChaosConfig(), d_old=2, n_stages=2, device=world.device))
+        with spiked_feed(world.rank):
+            out["slow-spiked"] = _slow_summary(tchaos.scenario_slow_shard(
+                tchaos.ChaosConfig(), device=world.device))
     out["recover"] = _recover_rank(world, params, str(Path(tmp) / "rec"))
     return out
 
@@ -156,10 +217,12 @@ def jax_reference(path, tmp):
     for driver in ("tick", "super"):
         out["failstop", driver] = _failstop_summary(jchaos.scenario_failstop(
             jchaos.ChaosConfig(driver=driver), Path(tmp) / f"jfs-{driver}"))
-    out["slow"] = _slow_summary(jchaos.scenario_slow_shard(
-        jchaos.ChaosConfig()))
-    out["slow-stage"] = _slow_summary(jchaos.scenario_slow_shard(
-        jchaos.ChaosConfig(), d_old=2, n_stages=2))
+    import repro.core.pipeline as jpipe
+    with fixed_clock(jpipe):
+        out["slow"] = _slow_summary(jchaos.scenario_slow_shard(
+            jchaos.ChaosConfig()))
+        out["slow-stage"] = _slow_summary(jchaos.scenario_slow_shard(
+            jchaos.ChaosConfig(), d_old=2, n_stages=2))
 
     def make():
         model = JaxSAGE(DIMS)
@@ -261,6 +324,18 @@ def test_chaos_slow_shard_mitigated(runs):
         assert rep["n_data_after"] == 2
         assert sum(len(p) for p in rep["parts_after"]) == 4
         assert rep["dropped"] == 0 and rep["route_dropped"] == 0
+        assert rep == ref["slow"]
+
+
+def test_one_rank_wall_spike_leaves_the_slow_drill_unchanged(runs):
+    """One rank's live feed spikes on the first tick (`spiked_feed`), so
+    that rank alone never holds a persistent flag: the mesh still
+    reshards once, all four ranks together, and the report is JAX's
+    unspiked one."""
+    ref, port, _ = runs
+    reps = [p["slow-spiked"] for p in port]
+    assert [r is not None for r in reps] == [True, False, True, False]
+    for rep in (r for r in reps if r is not None):
         assert rep == ref["slow"]
 
 

@@ -74,13 +74,33 @@ def test_import_leaves_jax_out():
             "repro_torch.dist.dry_mesh, repro_torch.roofline.op_analyzer, "
             "repro_torch.roofline.analysis, repro_torch.roofline.report, "
             "repro_torch.roofline.model_flops, repro_torch.perf.run, "
-            "repro_torch.perf.variants, repro_torch.work; "
+            "repro_torch.perf.variants, repro_torch.work, "
+            "repro_torch.examples, repro_torch.examples.quickstart, "
+            "repro_torch.examples.streaming_serve, "
+            "repro_torch.examples.train_streaming_gnn, "
+            "repro_torch.examples.arch_zoo; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("quickstart", []), ("quickstart", ["--stage", "2"]),
+    ("streaming_serve", ["--edges", "10"]),
+    ("streaming_serve", ["--edges", "10", "--ranks", "4"]),
+    ("train_streaming_gnn", []),
+    ("train_streaming_gnn", ["--mode", "halt-flush"]),
+    ("arch_zoo", ["--arch", "pna"])])
+def test_examples_raise_without_cuda(monkeypatch, name, argv):
+    """The examples' CLIs run on the card unless --device names another;
+    the mesh forms refuse before they start a rank."""
+    from importlib import import_module
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        import_module(f"repro_torch.examples.{name}").main(argv)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
