@@ -18,6 +18,8 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from repro_torch.telemetry import spans
+
 
 def _map(fn, *batches):
     """Apply fn field-wise over same-typed batches -> a new batch."""
@@ -230,9 +232,17 @@ def stack_batches(batches, device):
     """Stack same-capacity numpy-leaf batches along a new leading tick
     axis and move each field to `device` in ONE asynchronous copy
     (super-tick staging; capacities derive from PipelineConfig, so shapes
-    agree)."""
+    agree). The launch log counts the bytes staged (`upload.bytes`) and,
+    from each batch's host `valid` column, the bytes of its valid rows
+    (`upload.live_bytes`)."""
     if not batches:
         raise ValueError("cannot stack an empty batch list")
+    leaves = [getattr(batches[0], f.name) for f in fields(batches[0])]
+    total = sum(a.nbytes for a in leaves)
+    cap = batches[0].valid.shape[0]
+    live = sum(int(np.count_nonzero(b.valid)) for b in batches)
+    spans.count("upload.bytes", total * len(batches))
+    spans.count("upload.live_bytes", total // cap * live if cap else 0)
     return _map(lambda *xs: _upload(np.stack(xs), device), *batches)
 
 

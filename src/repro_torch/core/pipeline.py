@@ -62,14 +62,26 @@ model's modules). Progress stays on the device until `train_stats()`
 reads it; `serve/train_session.py:TrainSession` drives both drivers.
 train_cap=0 runs exactly the program without the plane.
 
-The telemetry plane (PipelineConfig.telemetry=True, `telemetry/`): the
-tick's occupancy gauges carry exact values and every tick appends one row
-to a `TraceRecorder` (`save_trace()` -> .npz): the [21] device occupancy
-row, host timings, wire bytes and ingest counts. The rows (and the per-part
-busy vector) ride the drivers' one stats read, so the super-tick driver
-still syncs once a super-tick; `_trace_ticks` also feeds the
-`ft/stragglers.py` mitigator. Telemetry observes and changes nothing:
-every other stat and the state are bit-equal to a run without it.
+The telemetry plane (`telemetry/`) has two parts. The device occupancy
+trace (PipelineConfig.telemetry=True): the tick's occupancy gauges carry
+exact values and every tick appends one row to a `TraceRecorder`
+(`save_trace()` -> .npz): the [21] device occupancy row, host timings,
+wire bytes and ingest counts. The rows (and the per-part busy vector)
+ride the drivers' one stats read, so the super-tick driver still syncs
+once a super-tick; `_trace_ticks` also feeds the `ft/stragglers.py`
+mitigator. Telemetry observes and changes nothing: every other stat and
+the state are bit-equal to a run without it. The launch log
+(`telemetry/spans.py`), always on: each driver call writes one record a
+launch with its five contiguous host phases (stage, upload, dispatch,
+wait, post), the staging spans inside `stage` (stage.partition,
+stage.features, stage.queries, stage.labels, stage.pack) and the
+launch's counters (edges, feats, queries, labels, upload.bytes,
+upload.live_bytes); the construction writes one "build" record.
+StreamMetrics' host_seconds and wall_seconds are read from these
+records. While torch's profiler is on, the phases, the spans and the
+tick program's stages (`d3.tick`, `d3.tick.*`, `d3.layer.*`) are also
+`record_function` ranges; off, none is entered and no device value is
+read.
 Checkpoints of the whole pipeline are `ft/checkpoint.py`'s
 (`CheckpointManager.save_pipeline` / `restore_pipeline`).
 """
@@ -109,6 +121,7 @@ from repro_torch.serve.query import (KIND_LINK, QSTAT_FIELDS,
                                      query_answer_stage,
                                      query_batch_from_numpy, wire_width,
                                      zero_query_stats)
+from repro_torch.telemetry import spans
 from repro_torch.telemetry.trace import TRACE_DEVICE_COLS, TraceRecorder
 
 
@@ -338,8 +351,10 @@ class StreamMetrics:
     outbox_part_peak: int = 0          # max per-tick PER-PART eviction
                                        # demand (outbox_cap >= n_parts x
                                        # this drops nothing)
-    host_seconds: float = 0.0          # host-side staging time
-    wall_seconds: float = 0.0
+    host_seconds: float = 0.0          # host staging: the launch
+                                       # records' stage + upload phases
+                                       # (telemetry/spans.py)
+    wall_seconds: float = 0.0          # the launch records' walls
     busy_logical: Optional[np.ndarray] = None
 
     @property
@@ -472,7 +487,14 @@ class D3Pipeline:
         train: optional TrainConfig — the online training plane (needs
         cfg.train_cap > 0 and a model with a head, n_classes > 0).
         device: where a pipeline without a mesh runs — CUDA unless given;
-        raises without CUDA."""
+        raises without CUDA.
+        The construction's seconds go to the launch log as one "build"
+        record (`telemetry/spans.py`), under this pipeline's `span_id`."""
+        self.span_id = spans.new_pipeline()
+        with spans.build(self.span_id):
+            self._build(model, cfg, mesh, train, device)
+
+    def _build(self, model, cfg, mesh, train, device) -> None:
         if mesh is not None and not isinstance(mesh, StreamMesh):
             raise TypeError(f"mesh must be a dist.mesh.StreamMesh, got "
                             f"{type(mesh).__name__}")
@@ -1108,10 +1130,12 @@ class D3Pipeline:
                 words = torch.cat([words, words.new_zeros(1)])
             parts.append(words.view(torch.int64))
         flat = torch.cat(parts)
+        spans.phase("wait")
         if self.mesh is None:
             rows = flat.cpu()[None]
         else:
             rows = self.mesh.all_gather(flat).cpu()
+        spans.phase("post")
         out = self._unstack_stats(rows, nR)
         F, P = len(SCALAR_FIELDS), stats_all[0].busy.shape[0]
         host_extra = [int(v) for v in rows[0, nR * (F + P):n_int - n_occ]]
@@ -1190,45 +1214,55 @@ class D3Pipeline:
         master coordinates (the last label of a vid wins); vids the
         partitioner has never seen are skipped."""
         cfg = self.cfg
+        # the launch log's ingest counts and staging spans
+        spans.count("edges", len(edges) if edges is not None else 0)
+        spans.count("feats", len(feats) if feats else 0)
+        spans.count("queries", len(queries) if queries else 0)
+        spans.count("labels", len(labels) if labels else 0)
         if edges is not None and len(edges):
-            e_rows, r1, v1 = self.part.ingest_edges(edges)
+            with spans.span("stage.partition"):
+                e_rows, r1, v1 = self.part.ingest_edges(edges)
         else:
             e_rows, r1, v1 = self._empty_edge_rows, None, None
         # feature events may create vertices (cold features)
         f_parts, f_slots, f_vecs = [], [], []
         if feats:
-            coalesced = {}
-            for vid, vec in feats:        # host-side coalescing (last wins)
-                coalesced[int(vid)] = vec
-            for vid, vec in coalesced.items():
-                p, s = self.part.locate_master(vid)
-                f_parts.append(p)
-                f_slots.append(s)
-                f_vecs.append(vec)
+            with spans.span("stage.features"):
+                coalesced = {}
+                for vid, vec in feats:    # host-side coalescing (last wins)
+                    coalesced[int(vid)] = vec
+                for vid, vec in coalesced.items():
+                    p, s = self.part.locate_master(vid)
+                    f_parts.append(p)
+                    f_slots.append(s)
+                    f_vecs.append(vec)
         r2, v2 = self.part.drain_allocations()
         if r1 is not None:
             r_rows = {k: np.concatenate([r1[k], r2[k]]) for k in r2}
             v_rows = {k: np.concatenate([v1[k], v2[k]]) for k in v2}
         else:
             r_rows, v_rows = r2, v2
-        eb = ev.edge_batch_from_numpy(e_rows, cfg.edge_tick_cap, device)
-        rb = ev.repl_batch_from_numpy(r_rows, max(2 * cfg.edge_tick_cap, 1),
-                                      device)
-        vb = ev.vertex_batch_from_numpy(
-            v_rows, max(2 * cfg.edge_tick_cap + cfg.feat_cap, 1), device)
-        fb = ev.feat_batch_from_numpy(
-            np.asarray(f_parts, np.int64), np.asarray(f_slots, np.int64),
-            np.asarray(f_vecs, np.float32).reshape(len(f_parts), -1)
-            if f_parts else np.zeros((0, self.d_in), np.float32),
-            cfg.feat_cap, self.d_in, device)
+        with spans.span("stage.pack"):
+            eb = ev.edge_batch_from_numpy(e_rows, cfg.edge_tick_cap, device)
+            rb = ev.repl_batch_from_numpy(
+                r_rows, max(2 * cfg.edge_tick_cap, 1), device)
+            vb = ev.vertex_batch_from_numpy(
+                v_rows, max(2 * cfg.edge_tick_cap + cfg.feat_cap, 1), device)
+            fb = ev.feat_batch_from_numpy(
+                np.asarray(f_parts, np.int64), np.asarray(f_slots, np.int64),
+                np.asarray(f_vecs, np.float32).reshape(len(f_parts), -1)
+                if f_parts else np.zeros((0, self.d_in), np.float32),
+                cfg.feat_cap, self.d_in, device)
         if queries:
             if cfg.query_cap <= 0:
                 raise ValueError("queries submitted but "
                                  "PipelineConfig.query_cap=0")
-            q_rows = self._resolve_queries(
-                queries, self.now if issue_tick is None else issue_tick)
-            qb = query_batch_from_numpy(q_rows, cfg._query_admissions(),
-                                        self.d_out, device)
+            with spans.span("stage.queries"):
+                q_rows = self._resolve_queries(
+                    queries, self.now if issue_tick is None else issue_tick)
+            with spans.span("stage.pack"):
+                qb = query_batch_from_numpy(q_rows, cfg._query_admissions(),
+                                            self.d_out, device)
         else:
             qb = (self._empty_queries if device is not None
                   else self._empty_queries_np)
@@ -1236,16 +1270,18 @@ class D3Pipeline:
             if cfg.train_cap <= 0:
                 raise ValueError("labels submitted but "
                                  "PipelineConfig.train_cap=0")
-            gold = {}
-            for vid, y in labels:
-                m = self.part.locate_master(int(vid), create=False)
-                if m is not None:
-                    gold[m] = int(y)
-            lb = ev.label_batch_from_numpy(
-                np.asarray([m[0] for m in gold], np.int64),
-                np.asarray([m[1] for m in gold], np.int64),
-                np.asarray(list(gold.values()), np.int64), cfg.train_cap,
-                device)
+            with spans.span("stage.labels"):
+                gold = {}
+                for vid, y in labels:
+                    m = self.part.locate_master(int(vid), create=False)
+                    if m is not None:
+                        gold[m] = int(y)
+            with spans.span("stage.pack"):
+                lb = ev.label_batch_from_numpy(
+                    np.asarray([m[0] for m in gold], np.int64),
+                    np.asarray([m[1] for m in gold], np.int64),
+                    np.asarray(list(gold.values()), np.int64),
+                    cfg.train_cap, device)
         else:
             lb = (self._empty_labels if device is not None
                   else self._empty_labels_np)
@@ -1269,16 +1305,19 @@ class D3Pipeline:
         answers or None, QueryStats or None, occupancy row or None)."""
         outbox_cap = self.cfg.capacities().outbox
         part0 = self.router.part0()
-        topo = st.apply_vertex_batch(topo, vb, part0)
-        topo = st.apply_repl_batch(topo, rb, part0)
-        topo = st.apply_edge_batch(topo, eb, part0)
+        with spans.region("tick.topology"):
+            topo = st.apply_vertex_batch(topo, vb, part0)
+            topo = st.apply_repl_batch(topo, rb, part0)
+            topo = st.apply_edge_batch(topo, eb, part0)
         # does this tick ingest anything that could move state? (the
         # batches are replicated: every rank votes alike); consistent link
         # heads fire only when the whole tick is provably still
-        batch_work = (fb.valid.any() | eb.valid.any() | rb.valid.any()
-                      if self.cfg.query_cap else None)
-        queries, wire, adm_drop, n_adm = query_admit_stage(
-            queries, qb, states, sink, sink_seen, self.router, batch_work)
+        with spans.region("tick.query_admit"):
+            batch_work = (fb.valid.any() | eb.valid.any() | rb.valid.any()
+                          if self.cfg.query_cap else None)
+            queries, wire, adm_drop, n_adm = query_admit_stage(
+                queries, qb, states, sink, sink_seen, self.router,
+                batch_work)
         wire_d = None
         inbox = fb
         new_states, stats_all = [], []
@@ -1296,24 +1335,28 @@ class D3Pipeline:
             new_states.append(ls)
             stats_all.append(stats)
         # sink: final-layer emissions materialize the embedding table
-        sink, sink_seen = _sink_update_body(sink, sink_seen, inbox, part0)
+        with spans.region("tick.sink"):
+            sink, sink_seen = _sink_update_body(sink, sink_seen, inbox,
+                                                part0)
         # query plane: answer point queries from the fresh sink
-        queries, answers, qstats = query_answer_stage(
-            queries, wire_d, qb, adm_drop, n_adm, new_states, sink,
-            sink_seen, now, stats_all, self.router)
+        with spans.region("tick.query_answer"):
+            queries, answers, qstats = query_answer_stage(
+                queries, wire_d, qb, adm_drop, n_adm, new_states, sink,
+                sink_seen, now, stats_all, self.router)
         # training plane: one windowed online step through the live state
         # (stats scalars are already reduced over the mesh)
         if self.train_cfg is not None:
-            ts = self.train_state
-            moved = sum(moved_msgs(s) for s in stats_all)
-            self.train_state = train_stage(
-                self.train_cfg, self._head,
-                [(layer, ts.params[f"l{li}"])
-                 for li, layer in enumerate(self.layers)],
-                [(ls.feat, ls.agg, ls.agg_cnt) for ls in new_states], topo,
-                sink, sink_seen, ts, lb, inbox, now, moved, self.router,
-                part0, self.delivery)
-            self._sync_params_from_train()
+            with spans.region("tick.train"):
+                ts = self.train_state
+                moved = sum(moved_msgs(s) for s in stats_all)
+                self.train_state = train_stage(
+                    self.train_cfg, self._head,
+                    [(layer, ts.params[f"l{li}"])
+                     for li, layer in enumerate(self.layers)],
+                    [(ls.feat, ls.agg, ls.agg_cnt) for ls in new_states],
+                    topo, sink, sink_seen, ts, lb, inbox, now, moved,
+                    self.router, part0, self.delivery)
+                self._sync_params_from_train()
         occ = (_occ_row(stats_all, qstats, self.train_state, self.router)
                if self.cfg.telemetry else None)
         return (topo, new_states, sink, sink_seen, queries, stats_all,
@@ -1435,20 +1478,22 @@ class D3Pipeline:
         """Run one tick's device program (the 1-D one, or the pipelined
         one on a 2-D mesh) on the pipeline's state. Returns (stats, one a
         layer or a round; answers; QueryStats; occupancy row; the idle
-        counters [R] on a 2-D mesh, else None)."""
-        if self.n_stages > 1:
+        counters [R] on a 2-D mesh, else None). The tick runs inside the
+        profiler range `d3.tick` while the profiler is on."""
+        with spans.region("tick"):
+            if self.n_stages > 1:
+                (self.topo, self.states, self.sink, self.sink_seen,
+                 self.queries, self.stage_ring, stats_all, idle, answers,
+                 qstats, occ) = self._tick_program_2d(
+                    self.topo, self.states, self.sink, self.sink_seen,
+                    self.queries, self.stage_ring, fb, eb, rb, vb, qb, lb,
+                    now, wconf)
+                return stats_all, answers, qstats, occ, idle
             (self.topo, self.states, self.sink, self.sink_seen, self.queries,
-             self.stage_ring, stats_all, idle, answers, qstats,
-             occ) = self._tick_program_2d(
+             stats_all, answers, qstats, occ) = self._tick_program(
                 self.topo, self.states, self.sink, self.sink_seen,
-                self.queries, self.stage_ring, fb, eb, rb, vb, qb, lb, now,
-                wconf)
-            return stats_all, answers, qstats, occ, idle
-        (self.topo, self.states, self.sink, self.sink_seen, self.queries,
-         stats_all, answers, qstats, occ) = self._tick_program(
-            self.topo, self.states, self.sink, self.sink_seen, self.queries,
-            fb, eb, rb, vb, qb, lb, now, wconf)
-        return stats_all, answers, qstats, occ, None
+                self.queries, fb, eb, rb, vb, qb, lb, now, wconf)
+            return stats_all, answers, qstats, occ, None
 
     def _sync_params_from_train(self) -> None:
         """Mirror the live trained parameters into the model's modules, so
@@ -1494,30 +1539,34 @@ class D3Pipeline:
         tick's answers and query counters, in one read)."""
         self._need_active()
         wconf = window or self.cfg.window
-        t0 = time.perf_counter()
-        eb, rb, vb, fb, qb, lb = self._build_batches(
-            edges, feats, self.device, queries=queries, labels=labels)
-        host_s = time.perf_counter() - t0
-        now = torch.tensor(self.now, dtype=torch.int64, device=self.device)
-        tick0 = self.now
-        stats_all, answers, qstats, occ, idle = self._run_program(
-            fb, eb, rb, vb, qb, lb, now, wconf)
-        self.now += 1
-        on = answers is not None
-        qx = [getattr(qstats, f) for f in QSTAT_FIELDS] if on else []
-        staged = [idle.sum()] if idle is not None else []
-        host_stats, host_x, host_ans, host_occ = self._stats_to_host(
-            stats_all, *staged, *qx, answers=[answers] if on else None,
-            occ=[occ] if occ is not None else None)
-        if idle is not None:
-            self.metrics.stage_idle += host_x.pop(0)
-        host_q = host_x
-        self._harvest_answers(host_ans)
-        self.metrics.host_seconds += host_s
-        dt = time.perf_counter() - t0
-        self._accumulate(host_stats, dt, qstats=host_q, occ_rows=host_occ)
-        self._trace_ticks(host_occ, tick0, dt, host_s, [_ingest_counts(
-            edges, feats, queries, labels)], host_stats)
+        # one launch record, T = 1: the uploads happen in packing, so the
+        # record's upload phase stays 0
+        with spans.launch(self.span_id, self.now, 1) as rec:
+            eb, rb, vb, fb, qb, lb = self._build_batches(
+                edges, feats, self.device, queries=queries, labels=labels)
+            rec.phase("dispatch")
+            now = torch.tensor(self.now, dtype=torch.int64,
+                               device=self.device)
+            tick0 = self.now
+            stats_all, answers, qstats, occ, idle = self._run_program(
+                fb, eb, rb, vb, qb, lb, now, wconf)
+            self.now += 1
+            on = answers is not None
+            qx = [getattr(qstats, f) for f in QSTAT_FIELDS] if on else []
+            staged = [idle.sum()] if idle is not None else []
+            host_stats, host_x, host_ans, host_occ = self._stats_to_host(
+                stats_all, *staged, *qx, answers=[answers] if on else None,
+                occ=[occ] if occ is not None else None)
+            if idle is not None:
+                self.metrics.stage_idle += host_x.pop(0)
+            host_q = host_x
+            self._harvest_answers(host_ans)
+            self._accumulate(host_stats, qstats=host_q, occ_rows=host_occ)
+            self._trace_ticks(host_occ, tick0, rec.closed_s(),
+                              rec.host_s(), [_ingest_counts(
+                                  edges, feats, queries, labels)],
+                              host_stats)
+        self._account(rec)
         return host_stats
 
     def _harvest_answers(self, ans) -> None:
@@ -1550,7 +1599,12 @@ class D3Pipeline:
         return {k: np.concatenate([chunk[k] for chunk in log])
                 for k in log[0]}
 
-    def _accumulate(self, stats_all, dt, ticks: int = 1, qstats=None,
+    def _account(self, rec) -> None:
+        """Fold a closed launch record's clocks into StreamMetrics."""
+        self.metrics.host_seconds += rec.host_s()
+        self.metrics.wall_seconds += rec.wall_s
+
+    def _accumulate(self, stats_all, ticks: int = 1, qstats=None,
                     occ_rows=None):
         """Fold per-layer host stats (one tick, or a super-tick's sums)
         and the query counters (host ints in QSTAT_FIELDS order, or an
@@ -1559,7 +1613,6 @@ class D3Pipeline:
         super-tick means nothing)."""
         m = self.metrics
         m.ticks += ticks
-        m.wall_seconds += dt
         m.wire_bytes += ticks * self._wire_bytes_per_tick
         for s in stats_all:
             m.reduce_msgs += int(s.reduce_msgs)
@@ -1679,7 +1732,6 @@ class D3Pipeline:
         """
         self._need_active()
         wconf = window or self.cfg.window
-        t0 = time.perf_counter()
         edge_chunks = list(edge_chunks) if edge_chunks is not None else []
         feat_chunks = list(feat_chunks) if feat_chunks is not None else []
         query_chunks = list(query_chunks) if query_chunks is not None else []
@@ -1693,6 +1745,16 @@ class D3Pipeline:
         feat_chunks += [None] * (T - len(feat_chunks))
         query_chunks += [None] * (T - len(query_chunks))
         label_chunks += [None] * (T - len(label_chunks))
+        with spans.launch(self.span_id, self.now, T) as rec:
+            out = self._super_tick(rec, edge_chunks, feat_chunks,
+                                   query_chunks, label_chunks, T, wconf,
+                                   quiet0)
+        self._account(rec)
+        return out
+
+    def _super_tick(self, rec, edge_chunks, feat_chunks, query_chunks,
+                    label_chunks, T: int, wconf, quiet0: int):
+        """run_super_tick's launch, its phases marked on `rec`."""
         # issue ticks: the tick the device will admit each chunk in
         staged = [self._build_batches(e, f, queries=q, issue_tick=self.now + i,
                                       labels=lab)
@@ -1701,13 +1763,14 @@ class D3Pipeline:
                           label_chunks))]
         # one host-to-device copy per field for all T ticks (the query and
         # label batches only when their plane is on)
+        rec.phase("upload")
         eb, rb, vb, fb = (ev.stack_batches([s[i] for s in staged],
                                            self.device) for i in range(4))
         qb = (ev.stack_batches([s[4] for s in staged], self.device)
               if self.cfg.query_cap else None)
         lb = (ev.stack_batches([s[5] for s in staged], self.device)
               if self.cfg.train_cap else None)
-        self.metrics.host_seconds += time.perf_counter() - t0
+        rec.phase("dispatch")
 
         dev = self.device
         # device-filled scalars: no host-to-device copy, no sync
@@ -1753,10 +1816,9 @@ class D3Pipeline:
         if staged_x:
             self.metrics.stage_idle += host_q.pop(0)
         self._harvest_answers(host_ans)
-        dt = time.perf_counter() - t0
-        self._accumulate(host_stats, dt, ticks=T, qstats=host_q,
+        self._accumulate(host_stats, ticks=T, qstats=host_q,
                          occ_rows=host_occ)
-        self._trace_ticks(host_occ, tick0, dt, 0.0, [
+        self._trace_ticks(host_occ, tick0, rec.closed_s(), 0.0, [
             _ingest_counts(*c) for c in zip(edge_chunks, feat_chunks,
                                             query_chunks, label_chunks)],
             host_stats, amortized=1)

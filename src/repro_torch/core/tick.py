@@ -42,7 +42,9 @@ with one `router.psum` per layer tick; the per-part `busy` vector stays
 local. Apart from the mesh's collectives, no function reads a value back
 to the host, so on one device the super-tick driver queues T ticks with
 one host sync. The state is treated functionally (new tensors out), as in
-the JAX package.
+the JAX package. While torch's profiler is on, the four stages of a layer
+tick run inside the ranges `d3.layer.round_a`, `d3.layer.round_b`,
+`d3.layer.rmi_apply` and `d3.layer.forward` (telemetry/spans.py).
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ from repro_torch.core.events import (EdgeBatch, FeatBatch, MsgBatch,
 from repro_torch.core.state import (LayerState, TopoState, local_index,
                                     mark_rows)
 from repro_torch.dist.router import LocalRouter, add_receipts
+from repro_torch.telemetry import spans
 
 
 @dataclass(frozen=True)
@@ -396,42 +399,48 @@ def layer_tick_body(layer, topo: TopoState, ls: LayerState, inbox: FeatBatch,
         else torch.zeros(P * N, dtype=torch.float32, device=dev)
 
     # ---- Round A: apply inbox at masters, emit + route the broadcast
-    (feat_flat, changed, has_feat, bcast, busy,
-     n_bcast, bcast_cross) = round_a_apply(topo, ls, inbox, new_repl, part0,
-                                           delivery)
-    (bcast_d,), (bc_defer,), rcpt = router.route_lanes(
-        (bcast,), ((ls.bc_defer, ls.bc_defer_ok),))
+    with spans.region("layer.round_a"):
+        (feat_flat, changed, has_feat, bcast, busy,
+         n_bcast, bcast_cross) = round_a_apply(topo, ls, inbox, new_repl,
+                                               part0, delivery)
+        (bcast_d,), (bc_defer,), rcpt = router.route_lanes(
+            (bcast,), ((ls.bc_defer, ls.bc_defer_ok),))
 
     # ---- Round B: apply broadcast at replicas, emit + route the RMIs
-    (feat_flat, changed, has_feat, x_sent_flat, has_sent, red_pending,
-     red_deadline, rmis, busy, n_reduce, red_cross, n_supp) = round_b_emit(
-        layer, topo, ls, feat_flat, changed, has_feat, bcast_d, new_edges,
-        now, wconf, part0, busy, freq, delivery, delta_eps=delta_eps)
-    if delta_eps > 0.0:
-        rmis = coalesce_msg_batch(rmis, N, delivery)
-    rmi_defer_in = (ls.rmi_defer, ls.rmi_defer_ok)
-    if extra_lane is None:
-        (rmis_d,), (rmi_defer,), rcpt_b = router.route_lanes(
-            (rmis,), (rmi_defer_in,))
-        extra_out = None
-    else:
-        xbatch, xdefer = extra_lane
-        (rmis_d, extra_d), (rmi_defer, xdefer_new), rcpt_b = \
-            router.route_lanes((rmis, xbatch), (rmi_defer_in, xdefer))
-        extra_out = (extra_d, xdefer_new)
-    rcpt = add_receipts(rcpt, rcpt_b)
+    with spans.region("layer.round_b"):
+        (feat_flat, changed, has_feat, x_sent_flat, has_sent, red_pending,
+         red_deadline, rmis, busy, n_reduce, red_cross,
+         n_supp) = round_b_emit(
+            layer, topo, ls, feat_flat, changed, has_feat, bcast_d,
+            new_edges, now, wconf, part0, busy, freq, delivery,
+            delta_eps=delta_eps)
+        if delta_eps > 0.0:
+            rmis = coalesce_msg_batch(rmis, N, delivery)
+        rmi_defer_in = (ls.rmi_defer, ls.rmi_defer_ok)
+        if extra_lane is None:
+            (rmis_d,), (rmi_defer,), rcpt_b = router.route_lanes(
+                (rmis,), (rmi_defer_in,))
+            extra_out = None
+        else:
+            xbatch, xdefer = extra_lane
+            (rmis_d, extra_d), (rmi_defer, xdefer_new), rcpt_b = \
+                router.route_lanes((rmis, xbatch), (rmi_defer_in, xdefer))
+            extra_out = (extra_d, xdefer_new)
+        rcpt = add_receipts(rcpt, rcpt_b)
 
     # ---- apply RMIs at local masters, in canonical order
-    rmis_d = canon_msg_batch(rmis_d, part0, P, N, router.n_parts)
-    agg_flat, cnt_flat, agg_dirty, busy = apply_rmis(ls, rmis_d, part0,
-                                                     busy, delivery)
+    with spans.region("layer.rmi_apply"):
+        rmis_d = canon_msg_batch(rmis_d, part0, P, N, router.n_parts)
+        agg_flat, cnt_flat, agg_dirty, busy = apply_rmis(ls, rmis_d, part0,
+                                                         busy, delivery)
 
     # ---- forward/update phase (psi), intra-layer window
-    (fwd_pending, fwd_deadline, outbox, busy, n_emit, n_drop,
-     n_demand_pp) = forward_psi(
-        layer, topo, ls, feat_flat, has_feat, agg_flat, cnt_flat, agg_dirty,
-        changed, now, wconf, cap_pp, part0, busy, freq, delivery,
-        demand=telemetry)
+    with spans.region("layer.forward"):
+        (fwd_pending, fwd_deadline, outbox, busy, n_emit, n_drop,
+         n_demand_pp) = forward_psi(
+            layer, topo, ls, feat_flat, has_feat, agg_flat, cnt_flat,
+            agg_dirty, changed, now, wconf, cap_pp, part0, busy, freq,
+            delivery, demand=telemetry)
 
     # ---- adaptive-session CMS update
     cms = ls.cms
