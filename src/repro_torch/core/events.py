@@ -7,9 +7,10 @@ so the device program never needs a hash lookup.
 
 The `*_from_numpy` builders take `device=`: a torch device puts the
 batch's tensors there; None keeps numpy leaves — the super-tick driver
-stages T batches on the host, stacks them, and moves each field to the
-device in ONE copy (`stack_batches`). Index columns are int64 (torch's
-index type), flags are bool, payloads float32.
+stages T batches on the host and `stack_batches` copies only their valid
+rows to the device in ONE copy a batch class, where the padded `[T, cap,
+...]` lanes are built. Index columns are int64 (torch's index type),
+flags are bool, payloads float32.
 """
 from __future__ import annotations
 
@@ -219,31 +220,71 @@ def coalesce_msg_batch(b: MsgBatch, n_slots: int, delivery) -> MsgBatch:
                     src_part=b.src_part[src], valid=live)
 
 
-def _upload(a: np.ndarray, device):
-    """Host array -> device without a host sync on CUDA: the copy is
-    staged through pinned memory and issued non-blocking."""
-    t = torch.as_tensor(a)
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 def stack_batches(batches, device):
     """Stack same-capacity numpy-leaf batches along a new leading tick
-    axis and move each field to `device` in ONE asynchronous copy
+    axis on `device`: field-wise equal to `np.stack` of the host arrays
     (super-tick staging; capacities derive from PipelineConfig, so shapes
-    agree). The launch log counts the bytes staged (`upload.bytes`) and,
-    from each batch's host `valid` column, the bytes of its valid rows
-    (`upload.live_bytes`)."""
+    agree).
+
+    Only each tick's valid rows travel. Every builder makes `valid` a
+    prefix of n_t rows and zero-pads past it, so the rows `[:n_t]` of
+    every field of the T ticks are packed into ONE host buffer (pinned
+    on CUDA, through the caching host allocator, and copied
+    non-blocking), after two int64 [T] columns: each tick's end in the
+    packed rows and its shift to the flat `[T*cap]` row index. On the
+    device each field's lane starts zero-filled and takes its rows by
+    `index_copy_`. Every size is known on the host: no host sync. The
+    padded rows on the host are never read, so their zero pages are
+    never touched.
+
+    The launch log counts the bytes copied to the device
+    (`upload.bytes`: rows, the two columns, 8-byte alignment), the bytes
+    of the valid rows (`upload.live_bytes`) and the bytes of the lanes
+    built (`upload.lane_bytes`)."""
     if not batches:
         raise ValueError("cannot stack an empty batch list")
-    leaves = [getattr(batches[0], f.name) for f in fields(batches[0])]
-    total = sum(a.nbytes for a in leaves)
+    T = len(batches)
     cap = batches[0].valid.shape[0]
-    live = sum(int(np.count_nonzero(b.valid)) for b in batches)
-    spans.count("upload.bytes", total * len(batches))
-    spans.count("upload.live_bytes", total // cap * live if cap else 0)
-    return _map(lambda *xs: _upload(np.stack(xs), device), *batches)
+    ns = [int(np.count_nonzero(b.valid)) for b in batches]
+    for b, n in zip(batches, ns):
+        if not b.valid[:n].all():
+            raise ValueError(f"{type(b).__name__}.valid is not a prefix")
+    N = sum(ns)
+    names = [f.name for f in fields(batches[0])]
+    first = [getattr(batches[0], k) for k in names]
+    rows = [a.itemsize * int(np.prod(a.shape[1:])) for a in first]
+    offs, end = [], 16 * T      # each field's rows start 8-byte aligned
+    for rb in rows:
+        offs.append(end)
+        end += -(-N * rb // 8) * 8
+    dev = torch.device(device)
+    host = torch.empty(end, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    buf = host.numpy()
+    ends = np.cumsum(ns, dtype=np.int64)
+    buf[:16 * T].view(np.int64)[:] = np.concatenate(
+        [ends, np.arange(T, dtype=np.int64) * cap - (ends - ns)])
+    packed = []                 # (name, dtype, row shape, offset, bytes)
+    for k, a, rb, o in zip(names, first, rows, offs):
+        seg = buf[o:o + N * rb].view(a.dtype).reshape(N, *a.shape[1:])
+        np.concatenate([getattr(b, k)[:n] for b, n in zip(batches, ns)],
+                       out=seg)
+        packed.append((k, torch.from_numpy(seg).dtype, a.shape[1:], o,
+                       N * rb))
+    spans.count("upload.bytes", end)
+    spans.count("upload.live_bytes", sum(rows) * N)
+    spans.count("upload.lane_bytes", sum(a.nbytes for a in first) * T)
+
+    dbuf = host.to(dev, non_blocking=True)
+    ends_d, shift = dbuf[:16 * T].view(torch.int64).view(2, T)
+    r = torch.arange(N, device=dev)
+    pos = r + shift[torch.searchsorted(ends_d, r, right=True)]
+    lanes = {}
+    for k, dt, tail, o, nb in packed:
+        lane = torch.zeros((T * cap, *tail), dtype=dt, device=dev)
+        lane.index_copy_(0, pos, dbuf[o:o + nb].view(dt).view(N, *tail))
+        lanes[k] = lane.view(T, cap, *tail)
+    return type(batches[0])(**lanes)
 
 
 def batch_at(batch, t: int):

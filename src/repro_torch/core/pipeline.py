@@ -35,7 +35,8 @@ layer ticks + sink update):
   * `tick()` — the per-tick REFERENCE path: build the tick's batches, run
     the program, read the tick's stats back (one host sync per tick).
   * `run_super_tick()` — the SUPER-TICK path: the host stages T micro-ticks
-    of batches (stacked, one host-to-device copy per field), the device
+    of batches (their valid rows, one host-to-device copy per batch
+    class, the padded lanes built on the device), the device
     runs the T tick programs back to back with the stats sums and the
     quiescence counter kept ON THE DEVICE, and the host reads them once
     per super-tick (exactly one device-to-host sync on one device; on a
@@ -76,7 +77,8 @@ launch with its five contiguous host phases (stage, upload, dispatch,
 wait, post), the staging spans inside `stage` (stage.partition,
 stage.features, stage.queries, stage.labels, stage.pack) and the
 launch's counters (edges, feats, queries, labels, upload.bytes,
-upload.live_bytes); the construction writes one "build" record.
+upload.live_bytes, upload.lane_bytes); the construction writes one
+"build" record.
 StreamMetrics' host_seconds and wall_seconds are read from these
 records. While torch's profiler is on, the phases, the spans and the
 tick program's stages (`d3.tick`, `d3.tick.*`, `d3.layer.*`) are also

@@ -6,8 +6,9 @@ Always on, host clock only. A driver call opens one launch record
 
   stage    : the host builds the T ticks' padded batches (partitioning,
              cold features, the query and label resolves, packing);
-  upload   : stacking, pinning and issuing the host-to-device copies
-             (0 on the per-tick driver, whose uploads happen in packing);
+  upload   : packing the valid rows, pinning, issuing the host-to-device
+             copies and building the padded device lanes (0 on the
+             per-tick driver, whose uploads happen in packing);
   dispatch : the host enqueues the T tick programs, up to the one read;
   wait     : the host blocked in the read of the launch's stats;
   post     : unstacking the read, answers and metrics after it.
@@ -43,7 +44,7 @@ RING = 1024
 PREFIX = "d3."
 PHASES = ("stage", "upload", "dispatch", "wait", "post")
 COUNTS = ("edges", "feats", "queries", "labels", "upload.bytes",
-          "upload.live_bytes")
+          "upload.live_bytes", "upload.lane_bytes")
 
 _ring: collections.deque = collections.deque(maxlen=RING)
 _seq = itertools.count()

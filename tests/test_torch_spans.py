@@ -4,8 +4,8 @@ on the CPU at tests/test_torch_telemetry.py's sizes (32 nodes, dims (8,
 
   * each driver call (run_super_tick, ServeSession.advance_super, tick,
     flush_super) appends one record a launch, its ingest counters equal
-    to what was staged, its upload counters to the stacked arrays' bytes
-    and the bytes of their valid rows;
+    to what was staged, its upload counters to the bytes copied to the
+    device, the bytes of the valid rows and the bytes of the lanes built;
   * the five phases sum to the record's wall, and StreamMetrics'
     host_seconds and wall_seconds are the records' stage + upload and
     walls;
@@ -169,20 +169,26 @@ def test_each_driver_call_appends_one_record_a_launch(driver):
                - sum(r["wall_s"] for r in recs)) < 1e-9
 
 
-def test_upload_counters_are_the_stacked_bytes():
-    """upload.bytes is the stacked arrays' nbytes and upload.live_bytes
-    the bytes of their valid rows, over every stack of a launch."""
+def test_upload_counters_are_the_copied_bytes():
+    """Over every stack of a launch: upload.bytes is what is copied to the
+    device (each tick's valid rows of every field, each field's rows
+    8-byte aligned, after the two int64 [T] columns of tick ends and
+    shifts), upload.live_bytes the bytes of the valid rows and
+    upload.lane_bytes the bytes of the padded lanes built there."""
     pipe = make_pipe(train=True)
     e, f = chunks(pipe)
-    seen = {"bytes": 0, "live": 0, "calls": 0}
+    seen = {"bytes": 0, "live": 0, "lanes": 0, "calls": 0}
     orig = events.stack_batches
 
     def stack(batches, device):
         valid = np.stack([b.valid for b in batches])
+        seen["bytes"] += 16 * len(batches)
         for name in batches[0].__dataclass_fields__:
             a = np.stack([getattr(b, name) for b in batches])
-            seen["bytes"] += a.nbytes
-            seen["live"] += a[valid].nbytes
+            rows = a[valid].nbytes
+            seen["bytes"] += -(-rows // 8) * 8
+            seen["live"] += rows
+            seen["lanes"] += a.nbytes
         seen["calls"] += 1
         return orig(batches, device)
 
@@ -195,7 +201,8 @@ def test_upload_counters_are_the_stacked_bytes():
     assert seen["calls"] == 6         # edge, repl, vertex, feat, query, label
     assert rec["counts"]["upload.bytes"] == seen["bytes"]
     assert rec["counts"]["upload.live_bytes"] == seen["live"]
-    assert 0 < seen["live"] < seen["bytes"]
+    assert rec["counts"]["upload.lane_bytes"] == seen["lanes"]
+    assert 0 < seen["live"] < seen["bytes"] < seen["lanes"]
 
 
 def test_metrics_clocks_are_the_records():
