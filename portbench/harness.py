@@ -8,10 +8,12 @@
   traffic/<traffic>.json  a mix, read by traffic/generator.py;
   reference/<name>.py     the plain reference a configuration names;
   metrics/<metric>.py     one reader per metric: `read(ctx)` returns the
-                          number, or None where the run has nothing to read.
+                          number, or None where the run has nothing to read;
+  yardstick/kernels/<entry>.py  a kernel entry of the program: what a
+                          traced run logs of its launches, their bytes.
 
-A later cell, mix, configuration or metric is a new file and a new entry
-of BENCHMARK.json; nothing here names one.
+A later cell, mix, configuration, model, kernel or metric is new files
+and new entries of BENCHMARK.json; nothing here names one.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from types import SimpleNamespace
 import torch
 
 from portbench.traffic.generator import load_mix
-from portbench.yardstick import trace
+from portbench.yardstick import kernel_bytes, trace
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
@@ -95,6 +97,11 @@ def run(workload: str, seed: int, seconds: float, trace_on: bool,
     if cuda:
         torch.zeros(1, device=device)       # the allocator's first touch
         torch.cuda.reset_peak_memory_stats(device)
+    if trace_on:
+        # every kernel entry's program function, before set-up: one the
+        # program no longer has raises here
+        entries = kernel_bytes.entries()
+        owners = {name: kernel_bytes.target(e) for name, e in entries.items()}
     r = system.Run(cfg, mix, seed, device, control=control)
     r.setup()
     setup_s = time.perf_counter() - t_start
@@ -102,7 +109,7 @@ def run(workload: str, seed: int, seconds: float, trace_on: bool,
                           trace=None, kernels={}, syncs=None,
                           train_sites=None)
     if trace_on:
-        klog = trace.KernelLog()
+        klog = trace.KernelLog(entries)
         prof = trace.Profiler(1, 2, device)
 
         class Tracer:
@@ -118,8 +125,8 @@ def run(workload: str, seed: int, seconds: float, trace_on: bool,
                 record=True) as caught:
             for owner, attr, name in r.span_targets():
                 p.wrap(owner, attr, trace.span(name))
-            for name, (owner, attr) in r.kernel_entries().items():
-                p.wrap(owner, attr, getattr(klog, name))
+            for name, owner in owners.items():
+                p.wrap(owner, entries[name].TARGET[1], klog.wrap(name))
             warnings.simplefilter("always")
             if cuda:
                 torch.cuda.set_sync_debug_mode("warn")

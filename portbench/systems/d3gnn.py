@@ -1,10 +1,13 @@
 """The D3-GNN streaming engine of `repro_torch` as the system under test.
 
-A run builds one `D3Pipeline` from the configuration, warms it with the
-mix's first launches (serving: then a drain, which gives each vertex that
-the reads name its embedding), then drives it back to back for the
-window: through `ServeSession.advance_super` with open-loop point reads beside the stream
-when the configuration turns the query plane on, through
+A run builds one `D3Pipeline` from the configuration, around the layer
+stack of the model module it names (`portbench/models/<model_module>.py`:
+its widths, its weights drawn from the seed, the program's layers holding
+them), warms it with the mix's first launches (serving: then a drain,
+which gives each vertex that the reads name its embedding), then drives
+it back to back for the window: through `ServeSession.advance_super`
+with open-loop point reads beside the stream when the configuration
+turns the query plane on, through
 `D3Pipeline.run_super_tick` with label chunks when it turns the training
 plane on. What the comparison reads is taken from the same pipeline:
 
@@ -34,34 +37,8 @@ import numpy as np
 import torch
 from torch.autograd.profiler import record_function
 
-from portbench import compare
-from portbench.traffic.generator import WEIGHTS, Traffic, torch_seed
-
-
-def draw_weights(dims, n_classes, seed, device) -> dict:
-    """Every weight in one draw on the device: w ~ N(0, 1 / fan_in),
-    biases ~ N(0, 0.01^2); {l{i}: {self: {w, b}, neigh: {w}}, head}."""
-    shapes = []
-    for i in range(len(dims) - 1):
-        shapes += [(f"l{i}", "self", "w", (dims[i], dims[i + 1])),
-                   (f"l{i}", "self", "b", (dims[i + 1],)),
-                   (f"l{i}", "neigh", "w", (dims[i], dims[i + 1]))]
-    if n_classes:
-        shapes += [("head", None, "w", (dims[-1], n_classes)),
-                   ("head", None, "b", (n_classes,))]
-    gen = torch.Generator(device=device).manual_seed(torch_seed(seed,
-                                                                WEIGHTS))
-    flat = torch.randn(sum(int(np.prod(s)) for *_, s in shapes),
-                       generator=gen, device=device)
-    out, at = {}, 0
-    for top, sub, leaf, shape in shapes:
-        n = int(np.prod(shape))
-        x = flat[at:at + n].reshape(shape)
-        at += n
-        x = x * (0.01 if leaf == "b" else shape[0] ** -0.5)
-        node = out.setdefault(top, {})
-        (node.setdefault(sub, {}) if sub else node)[leaf] = x.contiguous()
-    return out
+from portbench import compare, models
+from portbench.traffic.generator import Traffic
 
 
 class Run:
@@ -73,7 +50,8 @@ class Run:
         self.cfg, self.mix, self.seed, self.device = cfg, mix, seed, device
         self.control = control
         self.T = int(mix["super_ticks"])
-        self.dims = [cfg["d_in"]] + [cfg["d_hid"]] * cfg["n_layers"]
+        self.model = models.load(cfg["model_module"])
+        self.dims = self.model.dims(cfg)
         self.train = cfg.get("train")
         self.serve = cfg.get("query_cap", 0) > 0
         self.got = {}          # the program's outputs the check reads
@@ -83,19 +61,15 @@ class Run:
         from repro_torch.core import windowing as win
         from repro_torch.core.pipeline import D3Pipeline, PipelineConfig
         from repro_torch.core.train_plane import TrainConfig
-        from repro_torch.graph.sage import GraphSAGE, load_linear_tree
         from repro_torch.optim import adam
         from repro_torch.serve.session import ServeSession
         cfg, dev = self.cfg, self.device
         n_classes = self.train["n_classes"] if self.train else 0
         self.traffic = Traffic(self.mix, cfg["n_vertices"], cfg["d_in"],
                                self.seed, dev, n_classes)
-        self.weights = draw_weights(self.dims, n_classes, self.seed, dev)
-        model = GraphSAGE(self.dims, seed=0, n_classes=n_classes).to(dev)
-        for i, layer in enumerate(model.layers):
-            layer.load_param_tree(self.weights[f"l{i}"])
-        if n_classes:
-            load_linear_tree(model.head, self.weights["head"])
+        self.weights = self.model.draw_weights(self.dims, n_classes,
+                                               self.seed, dev)
+        model = self.model.build(self.dims, n_classes, self.weights, dev)
         pcfg = PipelineConfig(
             n_parts=cfg["n_parts"], node_cap=cfg["node_cap"],
             edge_cap=cfg["edge_cap"], repl_cap=cfg["repl_cap"],
@@ -320,12 +294,6 @@ class Run:
                 (partitioner.StreamingPartitioner, "ingest_edges",
                  "StreamingPartitioner.ingest_edges"),
                 (events, "stack_batches", "events.stack_batches")]
-
-    def kernel_entries(self):
-        """(module, attribute) of the kernel entries of kernels 1 and 2."""
-        from repro_torch.kernels.segment_reduce import ops
-        return {"deliver_rows": (ops, "deliver_rows"),
-                "mean_rows_gather": (ops, "mean_rows_gather")}
 
     def train_site_profile(self):
         """One more launch of the window's traffic under torch.profiler

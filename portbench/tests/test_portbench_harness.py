@@ -7,12 +7,20 @@ import json
 import pytest
 import torch
 
-from portbench import compare, harness
-from portbench.tests.cells import CELLS, MIX, run, small_bench
+from portbench import compare, harness, models
+from portbench.tests.cells import CELLS, mix_of, run, small_bench
+from portbench.yardstick import kernel_bytes
 
 
 def test_every_name_resolves():
-    bench = harness.load_bench()
+    assert_names_resolve(harness.load_bench())
+
+
+def assert_names_resolve(bench):
+    """Every metric has its reader, every cell its configuration, mix,
+    system, reference and model module, every kernel entry its program
+    function; each cell reports a per-layer metric that moves
+    `events_per_s`."""
     names = [m["name"] for m in bench["end_to_end"] + bench["per_layer"]]
     for name in names:
         assert callable(harness.reader(name))
@@ -21,6 +29,9 @@ def test_every_name_resolves():
         assert (harness.HERE / "systems" / f"{cfg['system']}.py").exists()
         assert (harness.HERE / "reference" / f"{cfg['reference']}.py"
                 ).exists()
+        model = models.load(cfg["model_module"])
+        for fn in ("dims", "draw_weights", "build", "vertex_flops"):
+            assert callable(getattr(model, fn)), fn
         assert mix["super_ticks"] >= 1
         for m in harness.metrics_of(bench, c, False):
             assert m["name"] in names
@@ -30,6 +41,14 @@ def test_every_name_resolves():
     for entry in bench["configs"]:
         cfg = json.loads((harness.ROOT / entry["file"]).read_text())
         assert set(entry["reduced"]) <= set(cfg["source_values"])
+    for entry in kernel_bytes.entries().values():
+        kernel_bytes.target(entry)          # raises where it is gone
+
+
+def test_every_cell_has_a_small_copy():
+    missing = [w["name"] for w in harness.load_bench()["workloads"]
+               if w["name"] not in CELLS]
+    assert not missing, f"cells without tests/small/<cell>.json: {missing}"
 
 
 @pytest.fixture(scope="module")
@@ -129,7 +148,8 @@ def _half_the_edges_once_grown(mp):
     from repro_torch.core.partitioner import StreamingPartitioner
 
     orig, seen = StreamingPartitioner.ingest_edges, [0]
-    grown = MIX["super_ticks"] * MIX["edges"]["tick_edges"]
+    mix = mix_of("sage-train.ingest")
+    grown = mix["super_ticks"] * mix["edges"]["tick_edges"]
 
     def ingest(self, edges):
         seen[0] += len(edges)

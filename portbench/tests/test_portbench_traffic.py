@@ -1,10 +1,17 @@
-"""Mixes repeat by seed and differ across seeds."""
+"""Mixes repeat by seed and differ across seeds; the ingest mixes draw bit
+for bit what their pinned digests say."""
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
-from portbench.tests.cells import SERVE_MIX, TRAIN_MIX
+from portbench import harness
+from portbench.tests.cells import mix_of
 from portbench.traffic.generator import Traffic, load_mix
+
+SERVE_MIX = mix_of("sage.ingest")
+TRAIN_MIX = mix_of("sage-train.ingest")
 
 
 def _draw(mix, seed, n_classes=0):
@@ -77,6 +84,45 @@ def test_reads_pick_ingested_vertices():
 
 
 def test_the_benchmarks_mixes_load():
-    for name in ("ingest_serve", "ingest_train"):
-        mix = load_mix(name)
+    for cell in harness.load_bench()["workloads"]:
+        mix = load_mix(cell["traffic"])
         assert mix["super_ticks"] >= 1 and mix["edges"]["tick_edges"] > 0
+
+
+def digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype, a.shape)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+# sha256 of the draws below, pinned so that a change to the generator
+# cannot change what the benchmark's ingest cells draw unseen
+INGEST_DIGESTS = {
+    "ingest_serve":
+        "32b3cc98d3728ec9d066a7d00e1e53b5f4c46dec8dec6676f94a227703a39097",
+    "ingest_train":
+        "1a3523f517d31f960db3e58e7829eca0368b457e126ac68e135205019c8533d4"}
+
+
+@pytest.mark.parametrize("name", sorted(INGEST_DIGESTS))
+def test_ingest_mixes_draw_their_pinned_digests(name):
+    """Three launches' edges and new vertices, every feature row, the
+    read schedule and picks, a launch of labels: bit for bit."""
+    nc = 5 if name == "ingest_train" else 0
+    tr = Traffic(load_mix(name), 3000, 16, 2 ** 31 + 7,
+                 torch.device("cpu"), nc)
+    arrs = []
+    for _ in range(3):
+        e, f = tr.next_launch()
+        arrs += [np.concatenate(e),
+                 np.asarray([v for c in f for v, _ in c], np.int64)]
+    arrs.append(tr.feats)
+    if "queries" in tr.mix:
+        due, is_link, uni = tr.query_schedule(2.0)
+        arrs += [due, is_link, tr.pick(uni[:, 0])]
+    if nc:
+        arrs.append(np.asarray(tr.labels_for_launch(8)))
+    assert digest(*arrs) == INGEST_DIGESTS[name]

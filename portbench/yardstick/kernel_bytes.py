@@ -1,52 +1,63 @@
-"""Bytes that kernels 1 and 2 of the port must move, per launch, from its
-arguments' shapes and live counts. Frozen copy of the byte formulas of
-`chip_smoke.py:phase_timing` (PERF.md's kernel table, rows 1 and 2):
-each input byte read once, each output byte written once.
+"""Kernel entries by name: `yardstick/kernels/<entry>.py`, one file a
+program entry that launches hand-written kernels. Each file holds
 
-  kernel 1, add form (`deliver_rows(..., mode="add")`): the live records'
-  vec rows, order entries and counts; row_ptr; base and base_cnt; out,
-  cnt_out and the flag written;
-  kernel 1, set form: each touched row's last record (vec row, order
-  entry); row_ptr; base at the untouched rows; out and the flag written;
-  kernel 2 (`mean_rows_gather`): indices and counts at the picks, the
-  rows with cnt > 0, out written.
+  TARGET          (module, attribute) of the program's entry;
+  KERNELS         the device kernels it launches, as the profiler names
+                  them;
+  log(args)       from one call's bound arguments: (static shape facts,
+                  a 1-D tensor of device scalars, read only after the
+                  window), or None for a call that is not logged;
+  launch_bytes(static, values)  the bytes the launch must move: each
+                  input byte read once, each output byte written once.
+
+A new kernel is a new file here and a `<kernel>_roofline` reader that
+calls `roofline_share` with the file's name.
 """
 from __future__ import annotations
 
+import importlib
+import importlib.util
+from pathlib import Path
 
-def deliver_bytes(mode: str, n: int, d: int, live: int, touched: int,
-                  order: bool, cnt: bool, base: bool, base_cnt: bool) -> int:
-    rec = d * 4 + (8 if order else 0) + (4 if cnt else 0)
-    out = n * d * 4 + (n * 4 if cnt else 0) + n
-    if mode == "set":
-        kept = n - touched         # rows that keep their base
-        return (touched * rec + (n + 1) * 8 + out
-                + (kept * d * 4 if base else 0)
-                + (kept * 4 if base_cnt else 0))
-    return (live * rec + (n + 1) * 8 + out + (n * d * 4 if base else 0)
-            + (n * 4 if base_cnt else 0))
+HERE = Path(__file__).resolve().parent / "kernels"
 
 
-def mean_rows_bytes(k: int, d: int, live: int) -> int:
-    return k * 8 + k * 4 + live * d * 4 + k * d * 4
+def entries() -> dict:
+    """{name: module} of every entry file here."""
+    out = {}
+    for path in sorted(HERE.glob("*.py")):
+        spec = importlib.util.spec_from_file_location(
+            f"portbench_kernel_{path.stem}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out[path.stem] = mod
+    return out
 
 
-# device kernels that each entry launches (the profiler's names)
-KERNELS = {"deliver_rows": ("segment_deliver_kernel",
-                            "segment_deliver_fixup_kernel"),
-           "mean_rows_gather": ("mean_rows_gather_kernel",)}
+def target(entry):
+    """The module that holds the entry's program function. Raises where
+    the program no longer has it, so that a kernel renamed or moved does
+    not lose its roofline unseen: a kernel taken off the program goes
+    with its entry file."""
+    module, attr = entry.TARGET
+    mod = importlib.import_module(module)
+    if not callable(getattr(mod, attr, None)):
+        raise LookupError(f"kernel entry {Path(entry.__file__).name}: the "
+                          f"program has no {module}.{attr}")
+    return mod
 
 
-def roofline_share(ctx, entry: str):
+def roofline_share(ctx, name: str):
     """% of the least time (bytes / peak HBM rate) the entry's launches in
     the profiled window could take, over their measured device time; None
     where the window has none."""
     from portbench.yardstick import peaks
     t = ctx.trace
-    if not t or entry not in ctx.kernels:
+    if not t or name not in ctx.kernels:
         return None
+    kernels = entries()[name].KERNELS
     measured = sum(s for n, s in t["by_name_s"].items()
-                   if any(k in n for k in KERNELS[entry]))
+                   if any(k in n for k in kernels))
     if not measured:
         return None
-    return 100.0 * ctx.kernels[entry][0] / peaks.BYTES_PER_S / measured
+    return 100.0 * ctx.kernels[name][0] / peaks.BYTES_PER_S / measured

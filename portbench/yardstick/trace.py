@@ -1,6 +1,7 @@
 """What a traced run reads: spans around the program's entries, the launch
-arguments of kernels 1 and 2, and one `torch.profiler` window reduced to
-busy time, idle gaps and time by kernel.
+arguments of each kernel entry (`yardstick/kernels/`), and one
+`torch.profiler` window reduced to busy time, idle gaps and time by
+kernel.
 
 All of it is set up by the benchmark around the program's own functions
 and undone when the run is done; the program is not edited.
@@ -15,8 +16,6 @@ from collections import Counter
 
 import torch
 from torch.autograd.profiler import record_function
-
-from portbench.yardstick import kernel_bytes
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPAN_PREFIX = "portbench:"
@@ -55,42 +54,32 @@ def span(name: str):
 
 
 class KernelLog:
-    """The live counts of each launch of kernels 1 and 2 while `on`, kept as
-    device scalars (no host read inside the window)."""
+    """What each kernel entry's `log` takes from a launch's arguments while
+    `on`, kept as device scalars (no host read inside the window);
+    `entries` maps an entry's name to its file (`kernel_bytes.entries`)."""
 
-    def __init__(self):
+    def __init__(self, entries: dict):
+        self.entries = entries
         self.on = False
         self.launches = []          # (entry, static dict, device scalars)
 
-    def deliver_rows(self, orig):
-        sig = inspect.signature(orig)
+    def wrap(self, name: str):
+        """A wrapper maker for the program function of entry `name`."""
+        entry = self.entries[name]
 
-        def wrapped(*a, **k):
-            if self.on:
-                b = sig.bind(*a, **k)
-                b.apply_defaults()
-                v = b.arguments
-                rp = v["row_ptr"]
-                if rp.is_cuda and rp.numel() > 1:
-                    self.launches.append(("deliver_rows", dict(
-                        mode=v["mode"], n=rp.numel() - 1,
-                        d=v["vec"].shape[1],
-                        order=v["order"] is not None,
-                        cnt=v["cnt"] is not None,
-                        base=v["base"] is not None,
-                        base_cnt=v["base_cnt"] is not None),
-                        torch.stack([rp[-1], (rp[1:] > rp[:-1]).sum()])))
-            return orig(*a, **k)
-        return wrapped
+        def make(orig):
+            sig = inspect.signature(orig)
 
-    def mean_rows_gather(self, orig):
-        def wrapped(agg, cnt, rows):
-            if self.on and rows.is_cuda and rows.numel() and agg.shape[1]:
-                self.launches.append(("mean_rows_gather", dict(
-                    k=rows.numel(), d=agg.shape[1]),
-                    (cnt[rows] > 0).sum().reshape(1)))
-            return orig(agg, cnt, rows)
-        return wrapped
+            def wrapped(*a, **k):
+                if self.on:
+                    b = sig.bind(*a, **k)
+                    b.apply_defaults()
+                    got = entry.log(b.arguments)
+                    if got is not None:
+                        self.launches.append((name, *got))
+                return orig(*a, **k)
+            return wrapped
+        return make
 
     def total_bytes(self) -> dict:
         """{entry: (bytes, launches)} over the logged launches."""
@@ -99,16 +88,11 @@ class KernelLog:
             return {}
         vals = torch.cat([x for _, _, x in self.launches]).cpu().tolist()
         i = 0
-        for entry, st, x in self.launches:
-            if entry == "deliver_rows":
-                live, touched = vals[i], vals[i + 1]
-                b = kernel_bytes.deliver_bytes(live=live, touched=touched,
-                                               **st)
-            else:
-                b = kernel_bytes.mean_rows_bytes(live=vals[i], **st)
+        for name, st, x in self.launches:
+            out[0][name] += self.entries[name].launch_bytes(
+                st, vals[i:i + x.numel()])
+            out[1][name] += 1
             i += x.numel()
-            out[0][entry] += b
-            out[1][entry] += 1
         return {e: (out[0][e], out[1][e]) for e in out[0]}
 
 
